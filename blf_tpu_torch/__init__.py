@@ -1,0 +1,25 @@
+"""blf_tpu_torch: the PyTorch/CUDA port of ``blf_tpu`` for NVIDIA Hopper.
+
+The JAX package ``blf_tpu`` is the reference and stays as it is; this package
+grows beside it, one slice at a time, with the same subpackage names
+(``ops/ models/ estimators/ mpc/ parallel/ utils/``) so that every module has
+an obvious counterpart. It imports ``torch``, numpy and the standard library,
+never ``jax`` and nothing of ``blf_tpu``.
+
+Slice 1 (this state): the warm-started push-recovery fleet tick,
+:func:`blf_tpu_torch.parallel.sweep.make_fleet_step`, with the fused ADMM
+stage as a hand-written CUDA kernel (``csrc/admm_stage.cu``).
+
+Rules that hold everywhere in the package:
+
+- **Device.** ``device=None`` means ``torch.device("cuda")``; without CUDA the
+  entry point raises. Nothing carries on on the CPU because it found no GPU;
+  the CPU is used only when the caller passes ``device="cpu"``.
+- **Precision.** Solver math is full float32 (TF32 off), see
+  :mod:`blf_tpu_torch.ops.precision`.
+- **Kernels** are built by ``nvcc`` at first launch, never at import.
+"""
+
+__version__ = "0.1.0"
+
+__all__ = ["__version__"]

@@ -1,0 +1,95 @@
+"""State carried between the JAX package and the port, as numpy arrays.
+
+No counterpart in ``blf_tpu``. The system has no weights; what both sides
+share is the problem and the solver state. Every converter takes or returns
+plain numpy arrays (``np.asarray`` of a JAX array on the other side), so this
+module needs nothing of the JAX package.
+
+With :func:`factors_from_numpy` a caller hands one side's factorization to
+the other side's solver, so that the iteration is compared on identical
+operators. That matters: the DCM transcription is x/y-symmetric, every
+pencil eigenvalue is (at least) doubly degenerate, and two ``eigh``
+implementations return different bases ``W`` inside each eigenspace.
+``K(s)^-1 = W diag(1 / (1 + s d)) W'`` is the same; ``tau``, ``W`` and ``G2``
+are not, and must never be compared entrywise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from blf_tpu_torch.models.lipm import LIPMParams
+from blf_tpu_torch.mpc.qp import QPSolution, SharedQPFactors
+from blf_tpu_torch.parallel.sweep import FleetState
+from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
+
+__all__ = ["lipm_params_from_numpy", "factors_from_numpy",
+           "fleet_state_from_numpy", "fleet_state_to_numpy",
+           "qp_solution_to_numpy"]
+
+
+def _fields(obj: Union[Mapping[str, Any], Any], names) -> Dict[str, Any]:
+    """Read ``names`` from a mapping or from an object's attributes (a
+    NamedTuple of the other package, for instance)."""
+    if isinstance(obj, Mapping):
+        return {k: obj.get(k) for k in names}
+    return {k: getattr(obj, k, None) for k in names}
+
+
+def _to_numpy(t) -> Optional[np.ndarray]:
+    return None if t is None else t.detach().cpu().numpy()
+
+
+def lipm_params_from_numpy(com_height, gravity, *, device=None,
+                           dtype: Optional[torch.dtype] = None) -> LIPMParams:
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return LIPMParams(as_t(com_height), as_t(gravity))
+
+
+def factors_from_numpy(factors, *, device=None,
+                       dtype: Optional[torch.dtype] = None) -> SharedQPFactors:
+    """Build :class:`SharedQPFactors` from a mapping or an object with the
+    same field names holding array-likes. A missing ``G2`` is recomputed as
+    ``A_s @ W``."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    vals = _fields(factors, SharedQPFactors._fields)
+    out = {}
+    for name, val in vals.items():
+        if val is None:
+            if name != "G2":
+                raise ValueError(f"factors lack the field {name!r}")
+            continue
+        # np.array copies: arrays handed over by JAX are read-only views
+        out[name] = torch.as_tensor(
+            np.array(val), dtype=dtype, device=device).contiguous()
+    if "G2" not in out:
+        out["G2"] = out["A_s"] @ out["W"]
+    return SharedQPFactors(**out)
+
+
+def fleet_state_from_numpy(state, *, device=None,
+                           dtype: Optional[torch.dtype] = None) -> FleetState:
+    """:class:`FleetState` from a mapping or an object with its field names."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    vals = _fields(state, FleetState._fields)
+    missing = [k for k, v in vals.items() if v is None]
+    if missing:
+        raise ValueError(f"fleet state lacks the fields {missing}")
+    return FleetState(**{
+        k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
+        for k, v in vals.items()})
+
+
+def fleet_state_to_numpy(state: FleetState) -> Dict[str, np.ndarray]:
+    return {k: _to_numpy(v) for k, v in state._asdict().items()}
+
+
+def qp_solution_to_numpy(sol: QPSolution) -> Dict[str, Optional[np.ndarray]]:
+    return {k: _to_numpy(v) for k, v in sol._asdict().items()}

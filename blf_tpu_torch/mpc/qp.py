@@ -1,0 +1,408 @@
+"""Batched fixed-iteration ADMM QP solver: the shared-operator fleet path.
+
+Counterpart of ``blf_tpu/mpc/qp.py``, of which this slice ports
+``QPSolution``, ``SharedQPFactors``, ``factor_shared_qp``,
+``solve_qp_factored`` and ``solve_qp_shared``.
+
+Problem form (OSQP):  ``min 1/2 x'Px + q'x  s.t.  l <= Ax <= u``, for a fleet
+of lanes that share ONE ``(P, A)`` and differ in ``(q, l, u)``. The KKT
+system is factored once, spectrally, so that every lane carries its own
+continuously adapted penalty multiplier ``s`` at shared-factorization cost,
+and the iteration collapses onto the pre-clip constraint-space point ``v``
+(two products against ``G2 = A W`` an iteration). There is no data-dependent
+control flow: a fixed iteration count and per-lane convergence flags.
+
+Backends of :func:`solve_qp_factored`:
+
+- ``"torch"``: plain tensor ops (the reference's ``backend="xla"``),
+  including ``refine``, the x5 hysteresis of the per-lane penalty rule and
+  the per-lane acceptance of the dual polish.
+- ``"cuda"``: the stage runs in the hand-written kernel
+  :func:`blf_tpu_torch.ops.cuda.admm.admm_stage` (the reference's
+  ``backend="pallas_f32"``); stage-boundary math and the finish are the same
+  tensor ops. Exact f32 arithmetic, no refinement. Any batch size: the kernel
+  masks its own ragged edge, and this backend never gives way to another.
+- ``"cuda_split"``, ``"cuda_delta"``: raise ``NotImplementedError``. The
+  reference's reduced-precision modes exist for a bf16 matrix unit; their
+  tensor-core counterparts belong to the kernel redesign named in ROADMAP.md
+  ("K1 follow-ups").
+
+Not yet ported: ``solve_qp`` (per-lane operators), ``solve_qp_lanes`` (the
+per-lane fused kernel path), ``shard_factors_rows`` and
+``solve_qp_factored_rowsharded``.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple, Optional
+
+import torch
+
+from blf_tpu_torch.ops.cuda.admm import admm_stage
+from blf_tpu_torch.ops.precision import f32_matmuls
+
+__all__ = ["QPSolution", "SharedQPFactors", "factor_shared_qp",
+           "solve_qp_factored", "solve_qp_shared", "BACKENDS"]
+
+BACKENDS = ("torch", "cuda")
+_REDUCED = ("cuda_split", "cuda_delta")
+
+
+class QPSolution(NamedTuple):
+    """Per-lane solution + diagnostics (no exceptions on device)."""
+
+    x: torch.Tensor                # (..., n) primal solution
+    y: torch.Tensor                # (..., m) dual solution
+    z: torch.Tensor                # (..., m) constraint-space iterate
+    primal_residual: torch.Tensor  # (...,) |Ax - z|_inf
+    dual_residual: torch.Tensor    # (...,) |Px + q + A'y|_inf
+    converged: torch.Tensor        # (...,) bool
+    objective: torch.Tensor        # (...,) 1/2 x'Px + q'x
+    rho_scale: Optional[torch.Tensor] = None  # (..., 1) adapted multiplier s
+    refined: Optional[torch.Tensor] = None    # () bool: refinement actually ran
+
+
+class SharedQPFactors(NamedTuple):
+    """One-time spectral factorization of a fleet-shared QP (P, A).
+
+    The per-lane adaptive penalty is a scalar multiplier ``s`` on the
+    structural rho vector: ``K(s) = P + sigma I + s A' rho A``. With
+    ``P + sigma I = L L'`` and the pencil
+    ``L^-1 (A' rho A) L^-T = U diag(d) U'``, ``W = L^-T U`` gives
+
+        ``K(s)^-1 = W diag(1 / (1 + s d)) W'``  for every ``s`` at once.
+
+    All members are in the Ruiz-equilibrated frame.
+    """
+
+    P_s: torch.Tensor        # (n, n) scaled cost matrix
+    A_s: torch.Tensor        # (m, n) scaled constraints
+    R2: torch.Tensor         # (n, n) A' diag(rho) A
+    W: torch.Tensor          # (n, n) spectral basis L^-T U
+    d: torch.Tensor          # (n,) pencil eigenvalues (>= 0)
+    base_rho: torch.Tensor   # (m,) structural rho (stiff on equality rows)
+    D: torch.Tensor          # (n,) Ruiz column scaling
+    E: torch.Tensor          # (m,) Ruiz row scaling
+    c: torch.Tensor          # scalar cost normalization
+    sigma: torch.Tensor      # scalar ADMM sigma
+    P_orig: torch.Tensor     # (n, n) unscaled, for diagnostics
+    A_orig: torch.Tensor     # (m, n) unscaled
+    G2: Optional[torch.Tensor] = None  # (m, n) A W: the iteration operator
+
+
+@torch.no_grad()
+@f32_matmuls
+def factor_shared_qp(
+    P: torch.Tensor,
+    A: torch.Tensor,
+    is_eq: torch.Tensor,
+    *,
+    rho: float = 1.0,
+    sigma: float = 1e-6,
+    rho_eq_scale: float = 30.0,
+    scaling_iters: int = 10,
+) -> SharedQPFactors:
+    """Ruiz-equilibrate and spectrally factor a shared (P, A) pair.
+
+    Depends only on ``(P, A, is_eq)``, not on ``q/l/u``, so a caller whose
+    transcription survives across control ticks can factor once and reuse
+    the result. ``rho_eq_scale`` defaults to 30: the spectral form applies
+    ``K(s)^-1`` through an eigenbasis whose solve error grows with
+    ``cond(K)``, and per-lane penalty adaptation recovers the equality
+    enforcement a stiffer rho would give.
+    """
+    if P.dim() != 2 or A.dim() != 2:
+        raise ValueError("factor_shared_qp requires unbatched P and A")
+    n, m = P.shape[-1], A.shape[-2]
+    dtype, device = P.dtype, P.device
+    P_orig, A_orig = P, A
+
+    D = torch.ones((n,), dtype=dtype, device=device)
+    E = torch.ones((m,), dtype=dtype, device=device)
+    one = torch.ones((), dtype=dtype, device=device)
+    for _ in range(scaling_iters):
+        col_norm = torch.maximum(P.abs().amax(dim=0), A.abs().amax(dim=0))
+        dx = 1.0 / torch.sqrt(torch.where(col_norm > 1e-12, col_norm, one))
+        row_norm = A.abs().amax(dim=1)
+        de = 1.0 / torch.sqrt(torch.where(row_norm > 1e-12, row_norm, one))
+        P = dx[:, None] * P * dx[None, :]
+        A = de[:, None] * A * dx[None, :]
+        D, E = D * dx, E * de
+    # cost normalization from P alone (NOT q: keeps the factorization
+    # tick-invariant; the per-lane adaptive s absorbs the difference)
+    p_cols = P.abs().amax(dim=0).mean()
+    c = 1.0 / torch.clamp(p_cols, min=1e-12)
+    P = c * P
+
+    is_eq = torch.as_tensor(is_eq, device=device)
+    base_rho = torch.where(
+        is_eq, one * (rho * rho_eq_scale), one * rho).to(dtype)
+    R2 = A.T @ (base_rho[:, None] * A)
+    eye = torch.eye(n, dtype=dtype, device=device)
+    P_sig = P + sigma * eye
+    L = torch.linalg.cholesky(P_sig)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    M = Linv @ R2 @ Linv.T
+    M = 0.5 * (M + M.T)
+    d, U = torch.linalg.eigh(M)
+    d = torch.clamp(d, min=0.0)
+    W = Linv.T @ U
+    return SharedQPFactors(
+        P_s=P, A_s=A, R2=R2, W=W, d=d, base_rho=base_rho, D=D, E=E,
+        c=c.to(dtype), sigma=torch.as_tensor(sigma, dtype=dtype, device=device),
+        P_orig=P_orig, A_orig=A_orig, G2=A @ W,
+    )
+
+
+def _clip(v, l, u):
+    # min(max(v, l), u): a NaN of any operand stays NaN, as in jnp.clip
+    return torch.minimum(torch.maximum(v, l), u)
+
+
+def _amax(t):
+    return t.abs().amax(dim=-1)
+
+
+@torch.no_grad()
+@f32_matmuls
+def solve_qp_factored(
+    factors: SharedQPFactors,
+    q: torch.Tensor,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    iterations: int = 200,
+    alpha: float = 1.6,
+    eps_abs: float = 1e-5,
+    eps_rel: float = 1e-5,
+    check_every: int = 25,
+    x0: Optional[torch.Tensor] = None,
+    y0: Optional[torch.Tensor] = None,
+    s0: Optional[torch.Tensor] = None,
+    backend: str = "torch",
+    refine: Optional[bool] = None,
+    s_min: float = 1e-4,
+    s_max: float = 1e4,
+    polish_iters: int = 0,
+    polish_scale: float = 0.1,
+) -> QPSolution:
+    """Solve a fleet of QPs against a prebuilt :class:`SharedQPFactors`.
+
+    **v-space iteration.** The sigma x proximal term is dropped from the
+    x-step rhs (the fixed point shifts by ``sigma |x|``, below the solver's
+    residual floor). The primal iterate then never feeds back, and the whole
+    OSQP iteration collapses onto ``v = z_relaxed + y/rho``
+    (``z = clip(v, l, u)``, ``y = rho (v - z)`` are recovered views).
+
+    Every ``check_every`` iterations each lane moves its scalar ``s`` by its
+    own primal/dual residual ratio (OSQP rule with x5 hysteresis, clipped to
+    ``[s_min, s_max]``). ``iterations`` is rounded up to whole stages.
+    ``refine`` adds one iterative-refinement pass per x-solve; it defaults to
+    True on ``backend="torch"`` and is not supported by the kernel backend,
+    where asking for it warns and ``QPSolution.refined`` records False.
+
+    ``polish_iters > 0`` appends a final stage at ``s * polish_scale``,
+    accepted per lane only where it lowered the tolerance-normalized
+    residual score. ``rho_scale`` returns the adapted ``s``, not the polished
+    one: it is the warm start of the next receding-horizon tick.
+
+    Shapes: ``q`` (..., n), ``l``/``u`` (..., m), broadcast against each other
+    over the leading axes; ``x0`` (..., n), ``y0`` (..., m), ``s0`` (..., 1).
+    """
+    if backend in _REDUCED:
+        raise NotImplementedError(
+            f"backend={backend!r}: the reduced-precision tensor-core forms of"
+            " the ADMM stage (3xTF32 / bf16 split, delta accumulation) are not"
+            " written yet; see ROADMAP.md, 'K1 follow-ups: tensor-core"
+            " split/delta counterparts'. Use backend='cuda' (exact f32).")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    f = factors
+    n, m = f.P_s.shape[-1], f.A_s.shape[-2]
+    dtype, device = f.P_s.dtype, f.P_s.device
+    is_kernel = backend == "cuda"
+    if refine and is_kernel:
+        warnings.warn(
+            "refine=True is not supported by the fused CUDA ADMM kernel; "
+            "running without iterative refinement (see QPSolution.refined). "
+            "Use backend='torch' for refined solves.",
+            stacklevel=2,
+        )
+    refine = (not is_kernel) if refine is None else (refine and not is_kernel)
+
+    q_orig = q
+    batch = torch.broadcast_shapes(q.shape[:-1], l.shape[:-1], u.shape[:-1])
+    flat = lambda t, k: t.broadcast_to(batch + (k,)).reshape(-1, k)
+
+    A, P, sigma = f.A_s, f.P_s, f.sigma
+    qb = flat(f.c * (q * f.D), n)
+    lb = flat(f.E * l, m).contiguous()
+    ub = flat(f.E * u, m).contiguous()
+    qo = flat(q_orig, n)
+    B = qb.shape[0]
+
+    # per-lane warm penalty state first: the v-space init depends on rho(s)
+    if s0 is None:
+        s = torch.ones((B, 1), dtype=dtype, device=device)
+    else:
+        s = flat(torch.as_tensor(s0, dtype=dtype, device=device), 1).contiguous()
+    if x0 is None:
+        z = torch.zeros((B, m), dtype=dtype, device=device)
+    else:
+        z = flat(x0 / f.D, n) @ A.T
+    y = torch.zeros_like(z) if y0 is None else flat(f.c * y0 / f.E, m)
+
+    G2 = f.G2 if f.G2 is not None else A @ f.W
+    G2 = G2.contiguous()
+    G2t = G2.T
+    gq = (qb @ f.W).contiguous()      # q W: constant across stages
+
+    # v = z + y/rho, so z = clip(v, l, u) and y = rho (v - z) are recovered
+    # views. Warm starts from a previous solve satisfy the complementarity
+    # this encodes; otherwise iteration 1 re-projects.
+    v = z + y / (s * f.base_rho)
+    # aux primal carry: spectral tau (x = tau W') on the fast path,
+    # materialized x when refining. Neither feeds back into the v recursion,
+    # so 0 is an exact init (overwritten on the first iteration).
+    tau = torch.zeros((B, n), dtype=dtype, device=device)
+
+    def x_of(tau):
+        return tau if refine else tau @ f.W.T
+
+    def Ax_of(tau):
+        return tau @ A.T if refine else tau @ G2t
+
+    def run_stage_torch(v, tau, s, iters):
+        rho_lane = s * f.base_rho                          # (B, m)
+        dinv = 1.0 / (1.0 + s * f.d)                       # (B, n)
+        for _ in range(iters):
+            z = _clip(v, lb, ub)
+            w = rho_lane * (2.0 * z - v)
+            t = w @ G2 - gq                                # = rhs W
+            if refine:
+                # accuracy path: materialize x, one iterative-refinement
+                # pass against K(s) = P + sigma I + s R2 through the eigenbasis
+                x1 = (t * dinv) @ f.W.T
+                Kx1 = x1 @ P + sigma * x1 + s * (x1 @ f.R2)
+                rhs = w @ A - qb
+                t2 = ((rhs - Kx1) @ f.W) * dinv
+                tau = x1 + t2 @ f.W.T
+                v = v + alpha * (tau @ A.T - z)
+            else:
+                tau = t * dinv                             # x = tau W'
+                v = v + alpha * (tau @ G2t - z)
+        return v, tau
+
+    def run_stage_kernel(v, tau, s, iters):
+        return admm_stage(v.contiguous(), tau, s.contiguous(), gq, lb, ub, G2,
+                          f.d, f.base_rho, iters=iters, alpha=alpha)
+
+    run_stage = run_stage_kernel if is_kernel else run_stage_torch
+
+    check_every = max(1, min(check_every, iterations))
+    n_stages = max(1, -(-iterations // check_every))
+
+    for _ in range(n_stages):
+        v, tau = run_stage(v, tau, s, check_every)
+        z = _clip(v, lb, ub)
+        y = (s * f.base_rho) * (v - z)
+        x = x_of(tau)
+        Ax = Ax_of(tau)
+        Px_ = x @ P.T
+        Aty_ = y @ A
+        rp = _amax(Ax - z) / torch.clamp(
+            torch.maximum(_amax(Ax), _amax(z)), min=1e-12)
+        rd = _amax(Px_ + qb + Aty_) / torch.clamp(
+            torch.maximum(_amax(Px_), torch.maximum(_amax(Aty_), _amax(qb))),
+            min=1e-12)
+        # OSQP per-lane rho rule with hysteresis: move by the residual ratio
+        # only when it leaves [1/5, 5] (continuous s, no ladder quantization)
+        ratio = torch.sqrt(rp / torch.clamp(rd, min=1e-12))[..., None]
+        move = (ratio > 5.0) | (ratio < 0.2)
+        s_new = torch.where(move, torch.clamp(s * ratio, s_min, s_max), s)
+        # rho changed => re-express v so the recovered (z, y) views are
+        # invariant: rho_old (v_old - z) = y = rho_new (v_new - z)
+        v = z + (s / s_new) * (v - z)
+        s = s_new
+
+    def finish(v, tau, rho_lane):
+        """Recover (x, z, y), unscale, diagnose in the ORIGINAL problem."""
+        x = x_of(tau)
+        z = _clip(v, lb, ub)
+        y = rho_lane * (v - z)
+        x = f.D * x
+        y = f.E * y / f.c
+        z = z / f.E
+        Ax = x @ f.A_orig.T
+        r_prim = _amax(Ax - z)
+        Px = x @ f.P_orig.T
+        Aty = y @ f.A_orig
+        r_dual = _amax(Px + qo + Aty)
+        prim_tol = eps_abs + eps_rel * torch.maximum(_amax(Ax), _amax(z))
+        dual_tol = eps_abs + eps_rel * torch.maximum(
+            torch.maximum(_amax(Px), _amax(Aty)), _amax(qo))
+        return x, z, y, r_prim, r_dual, prim_tol, dual_tol, Px
+
+    cand = finish(v, tau, s * f.base_rho)
+    if polish_iters > 0:
+        # rho-continuation dual polish: y's granularity is proportional to s,
+        # so a short low-s tail lets the duals settle on converged lanes;
+        # lanes still far from their fixed point can be pushed AWAY by low-rho
+        # iterations, so the polish is accepted per lane only where it
+        # lowered the tolerance-normalized residual score. s itself is NOT
+        # polished: the warm-start s of the next tick stays at the adapted
+        # operating point.
+        s_pol = torch.clamp(s * polish_scale, s_min, s_max)
+        z = _clip(v, lb, ub)
+        v_p = z + (s / s_pol) * (v - z)
+        v_p, tau_p = run_stage(v_p, tau, s_pol, polish_iters)
+        pol = finish(v_p, tau_p, s_pol * f.base_rho)
+        score = lambda r: torch.maximum(r[3] / r[5], r[4] / r[6])
+        better = score(pol) < score(cand)
+        pick = lambda a, b: torch.where(
+            better[:, None] if a.dim() == 2 else better, b, a)
+        cand = tuple(pick(a, b) for a, b in zip(cand, pol))
+
+    x, z, y, r_prim, r_dual, prim_tol, dual_tol, Px = cand
+    converged = (r_prim < prim_tol) & (r_dual < dual_tol)
+    objective = 0.5 * (x * Px).sum(dim=-1) + (qo * x).sum(dim=-1)
+    return QPSolution(
+        x.reshape(batch + (n,)), y.reshape(batch + (m,)),
+        z.reshape(batch + (m,)), r_prim.reshape(batch),
+        r_dual.reshape(batch), converged.reshape(batch),
+        objective.reshape(batch), rho_scale=s.reshape(batch + (1,)),
+        refined=torch.full((), bool(refine), dtype=torch.bool, device=device))
+
+
+def solve_qp_shared(
+    P: torch.Tensor,
+    q: torch.Tensor,
+    A: torch.Tensor,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    rho: float = 1.0,
+    sigma: float = 1e-6,
+    rho_eq_scale: float = 30.0,
+    scaling_iters: int = 10,
+    **solve_kwargs,
+) -> QPSolution:
+    """ADMM for a scenario fleet sharing ONE (P, A) with per-lane (q, l, u).
+
+    Convenience wrapper around :func:`factor_shared_qp` +
+    :func:`solve_qp_factored` (which takes ``solve_kwargs``); hoist the
+    factorization yourself when (P, A) survive across control ticks.
+
+    Shapes: ``P`` (n, n), ``A`` (m, n), strictly unbatched; ``q`` (..., n),
+    ``l``/``u`` (..., m) carry the batch.
+    """
+    m = A.shape[-2]
+    # the equality pattern must be lane-independent for a shared
+    # factorization: a row is stiff iff it is an equality in EVERY lane
+    is_eq = ((u - l) < 1e-12).reshape(-1, m).all(dim=0)
+    factors = factor_shared_qp(
+        P, A, is_eq, rho=rho, sigma=sigma, rho_eq_scale=rho_eq_scale,
+        scaling_iters=scaling_iters,
+    )
+    return solve_qp_factored(factors, q, l, u, **solve_kwargs)

@@ -1,0 +1,143 @@
+"""Hygiene of the port: what it imports, and its device rule.
+
+The port imports ``torch``, numpy and the standard library: never ``jax``,
+nothing of ``blf_tpu``, and ``triton`` or a CUDA compiler only inside a call.
+So every module of it must import on a machine with no GPU toolchain.
+"""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import blf_tpu_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "blf_tpu_torch"
+FORBIDDEN = ("jax", "blf_tpu", "triton")
+
+
+def port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [str(PACKAGE)], prefix="blf_tpu_torch."))
+
+
+def imported_roots(path: Path):
+    """Top-level names of every import statement in a source file."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_every_module_imports_without_jax_or_a_gpu_toolchain():
+    """A fresh interpreter imports every module of the port and ends with
+    none of the forbidden packages loaded and no kernel library built."""
+    modules = port_modules()
+    assert "blf_tpu_torch.ops.cuda.admm" in modules and len(modules) >= 20
+    code = (
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "from blf_tpu_torch.ops.cuda import admm\n"
+        "assert not admm._libs\n"
+        "print('clean', len(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("clean")
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_file_imports_the_jax_package(path):
+    assert not imported_roots(path) & set(FORBIDDEN)
+
+
+def test_port_modules_name_their_counterpart():
+    """Each module's docstring says which ``blf_tpu`` file it ports (or that
+    it has none), so the next slice can grep for what is left."""
+    for path in PACKAGE.rglob("*.py"):
+        doc = ast.get_docstring(ast.parse(path.read_text())) or ""
+        assert "blf_tpu" in doc or "ounterpart" in doc, path
+
+
+def test_device_none_means_the_gpu_and_raises_without_one(monkeypatch):
+    from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_dtype(None) == torch.float32
+    with pytest.raises(TypeError):
+        resolve_dtype(torch.int32)
+
+
+def test_no_fallback_when_a_kernel_cannot_be_served(monkeypatch, tmp_path):
+    """The wrapper serves CPU and CUDA tensors and raises on anything else; a
+    failed build raises and leaves no library behind."""
+    from blf_tpu_torch.ops.cuda import _build, admm
+
+    v = torch.zeros((4, 48), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        admm.admm_stage(v, v, v, v, v, v, v, v, v, iters=1, alpha=1.6)
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "false")   # a compiler that fails
+    with pytest.raises(RuntimeError, match="nvcc failed to build admm_stage.cu"):
+        _build.load_library(admm.SOURCE, {"ADMM_M": 48, "ADMM_N": 32})
+    assert not list(tmp_path.glob("*.so"))
+    # the library's name follows the source, the flags and the definitions
+    a = _build.library_path(admm.SOURCE, {"ADMM_M": 48, "ADMM_N": 32})
+    b = _build.library_path(admm.SOURCE, {"ADMM_M": 96, "ADMM_N": 64})
+    assert a != b and a.parent == tmp_path and "m48" in a.name
+
+
+def test_f32_matmuls_turns_tf32_off_for_the_call():
+    from blf_tpu_torch.ops.precision import f32_matmuls
+
+    seen = []
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        f32_matmuls(lambda: seen.append(torch.backends.cuda.matmul.allow_tf32))()
+        assert seen == [False]
+        assert torch.backends.cuda.matmul.allow_tf32 is True     # restored
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def test_telemetry_is_one_transfer_of_named_channels():
+    import io
+    import json
+
+    from blf_tpu_torch.utils.telemetry import TelemetryStream, merge_metrics
+
+    metrics = {"a": torch.tensor(1.5), "b": torch.arange(6.0).reshape(2, 3), "c": 2}
+    merged, layout = merge_metrics(metrics)
+    assert tuple(merged.shape) == (8,) and layout == [("a", ()), ("b", (2, 3)), ("c", ())]
+    sink = io.StringIO()
+    rec = TelemetryStream(sink=sink, name="t").publish(metrics, step=3)
+    assert rec["a"] == 1.5 and rec["b"] == [[0, 1, 2], [3, 4, 5]] and rec["c"] == 2.0
+    assert json.loads(sink.getvalue())["step"] == 3
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu():
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}       # hide any card there is
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and proc.stdout.strip() == ""
+    assert "needs a CUDA device" in proc.stderr
