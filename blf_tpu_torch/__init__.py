@@ -2,13 +2,19 @@
 
 The JAX package ``blf_tpu`` is the reference and stays as it is; this package
 grows beside it, one slice at a time, with the same subpackage names
-(``ops/ models/ estimators/ mpc/ parallel/ utils/``) so that every module has
+(``ops/ models/ estimators/ planners/ mpc/ parallel/ utils/``) so that every module has
 an obvious counterpart. It imports ``torch``, numpy and the standard library,
 never ``jax`` and nothing of ``blf_tpu``.
 
-Slice 1 (this state): the warm-started push-recovery fleet tick,
+Slice 1: the warm-started push-recovery fleet tick,
 :func:`blf_tpu_torch.parallel.sweep.make_fleet_step`, with the fused ADMM
 stage as a hand-written CUDA kernel (``csrc/admm_stage.cu``).
+
+Slice 2a: the 100 Hz whole-body-control loop of the 23-DoF humanoid over a
+fleet, :func:`blf_tpu_torch.problems.wbc_balance_step` (rigid-body engine,
+whole-body QP, per-lane ADMM, RK4 plant), with the per-lane ADMM stage and
+the batched Cholesky inverse as hand-written CUDA kernels
+(``csrc/admm_lane.cu``, ``csrc/chol_lane.cu``).
 
 Rules that hold everywhere in the package:
 

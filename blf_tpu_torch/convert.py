@@ -1,7 +1,8 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
 No counterpart in ``blf_tpu``. The system has no weights; what both sides
-share is the problem and the solver state. Every converter takes or returns
+share is the problem, the solver state, the rigid-body state and the
+whole-body task (a kinematic tree is plain numpy on both sides already). Every converter takes or returns
 plain numpy arrays (``np.asarray`` of a JAX array on the other side), so this
 module needs nothing of the JAX package.
 
@@ -22,13 +23,16 @@ import numpy as np
 import torch
 
 from blf_tpu_torch.models.lipm import LIPMParams
+from blf_tpu_torch.models.rigid_body import FloatingBaseState
 from blf_tpu_torch.mpc.qp import QPSolution, SharedQPFactors
+from blf_tpu_torch.mpc.wholebody import WholeBodyTask
 from blf_tpu_torch.parallel.sweep import FleetState
 from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 __all__ = ["lipm_params_from_numpy", "factors_from_numpy",
            "fleet_state_from_numpy", "fleet_state_to_numpy",
-           "qp_solution_to_numpy"]
+           "qp_solution_to_numpy", "floating_base_state_from_numpy",
+           "floating_base_state_to_numpy", "wholebody_task_from_numpy"]
 
 
 def _fields(obj: Union[Mapping[str, Any], Any], names) -> Dict[str, Any]:
@@ -93,3 +97,35 @@ def fleet_state_to_numpy(state: FleetState) -> Dict[str, np.ndarray]:
 
 def qp_solution_to_numpy(sol: QPSolution) -> Dict[str, Optional[np.ndarray]]:
     return {k: _to_numpy(v) for k, v in sol._asdict().items()}
+
+
+def _named_tuple_from_numpy(cls, obj, device, dtype, optional=()):
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    vals = _fields(obj, cls._fields)
+    missing = [k for k, v in vals.items() if v is None and k not in optional]
+    if missing:
+        raise ValueError(f"{cls.__name__} lacks the fields {missing}")
+    return cls(**{
+        k: None if v is None else torch.as_tensor(np.array(v), dtype=dtype, device=device)
+        for k, v in vals.items()})
+
+
+def floating_base_state_from_numpy(state, *, device=None,
+                                   dtype: Optional[torch.dtype] = None
+                                   ) -> FloatingBaseState:
+    """:class:`FloatingBaseState` from a mapping or an object with its field
+    names (the JAX package's state, for instance)."""
+    return _named_tuple_from_numpy(FloatingBaseState, state, device, dtype)
+
+
+def floating_base_state_to_numpy(state: FloatingBaseState) -> Dict[str, np.ndarray]:
+    return {k: _to_numpy(v) for k, v in state._asdict().items()}
+
+
+def wholebody_task_from_numpy(task, *, device=None,
+                              dtype: Optional[torch.dtype] = None) -> WholeBodyTask:
+    """:class:`WholeBodyTask` from a mapping or an object with its field
+    names; ``ext_wrench`` may be missing."""
+    return _named_tuple_from_numpy(WholeBodyTask, task, device, dtype,
+                                   optional=("ext_wrench",))

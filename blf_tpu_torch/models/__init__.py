@@ -1,5 +1,6 @@
 """Models (counterpart of ``blf_tpu/models``).
 
-Ported: ``lipm``. Not yet ported: ``systems``, ``contact``, ``foot``,
-``kinematics``, ``rigid_body``, ``robots``, ``urdf``.
+Ported: ``lipm``, ``kinematics``, ``robots``, ``rigid_body`` (all but
+``make_contact_dynamics``). Not yet ported: ``systems``, ``contact``,
+``foot``, ``urdf``.
 """

@@ -13,10 +13,8 @@ imposed as *equality rows* of the QP rather than eliminated: condensing an
 unstable flow (a > 1) stuffs powers a^N into the Hessian and wrecks its
 conditioning; the sparse form keeps the Hessian diagonal and the constraint
 matrix O(1), the regime the fixed-iteration ADMM of
-:mod:`blf_tpu_torch.mpc.qp` is fast in.
-
-Not yet ported: ``solve_dcm_mpc(shared=False)``, the per-lane path through
-``solve_qp`` (it raises ``NotImplementedError`` until ``solve_qp`` is ported).
+:mod:`blf_tpu_torch.mpc.qp` is fast in. Everything of the reference module is
+ported.
 """
 
 from __future__ import annotations
@@ -27,7 +25,8 @@ import torch
 
 from blf_tpu_torch.models.lipm import (LIPMParams, com_trajectory_from_dcm,
                                        lipm_omega)
-from blf_tpu_torch.mpc.qp import QPSolution, factor_shared_qp, solve_qp_factored
+from blf_tpu_torch.mpc.qp import (QPSolution, factor_shared_qp, solve_qp,
+                                  solve_qp_factored)
 
 __all__ = ["DCMWeights", "DCMPlan", "build_dcm_qp", "solve_dcm_mpc"]
 
@@ -160,11 +159,15 @@ def solve_dcm_mpc(
 ) -> DCMPlan:
     """Build and solve the DCM-MPC; roll out DCM and CoM trajectories.
 
+    Every input may carry leading batch axes. ``shared=False`` (default)
+    solves every lane's own QP with :func:`blf_tpu_torch.mpc.qp.solve_qp`,
+    which takes ``qp_kwargs``.
+
     ``shared=True`` is the fleet fast path when all lanes share references
     and polygons (batch on ``dcm0``/warm starts only): one KKT factorization,
     GEMM-shaped iterations. It requires unbatched ``poly_A``/``poly_b``.
     ``qp_kwargs`` (``backend``, ``check_every``, ``s0``, ``polish_iters``, ...)
-    pass through to :func:`blf_tpu_torch.mpc.qp.solve_qp_factored`, and
+    then pass through to :func:`blf_tpu_torch.mpc.qp.solve_qp_factored`, and
     ``rho``, ``sigma``, ``rho_eq_scale``, ``scaling_iters`` to
     :func:`blf_tpu_torch.mpc.qp.factor_shared_qp`.
 
@@ -172,11 +175,6 @@ def solve_dcm_mpc(
     by every call, as the reference's code does (there the compiler hoists it
     out of a scan over ticks; hoisting it here is named in ROADMAP.md).
     """
-    if not shared:
-        raise NotImplementedError(
-            "solve_dcm_mpc(shared=False) needs the per-lane solver solve_qp,"
-            " which is not ported yet; see ROADMAP.md, slice 2 ('mpc/qp.py::"
-            "solve_qp and solve_qp_lanes'). Use shared=True.")
     N = zmp_ref.shape[-2]
     P, q, A, l, u = build_dcm_qp(
         params, dt, dcm0, dcm_ref, zmp_ref, poly_A, poly_b, weights)
@@ -193,19 +191,25 @@ def solve_dcm_mpc(
         x0 = torch.cat(
             [xi_seq[..., 0], xi_seq[..., 1],
              warm_start[..., 0], warm_start[..., 1]], dim=-1)
-    # structural equality mask: the first 2N rows are the dynamics equalities.
-    # (P, A) depend only on the shared refs/polygons; with those unbatched
-    # there is one copy of each, and the batch rides (q, l, u).
-    if poly_A.dim() != 3 or poly_b.dim() != 2:
-        raise ValueError(
-            "solve_dcm_mpc(shared=True) requires unbatched poly_A/poly_b"
-            " (lanes share one transcription)")
-    is_eq = torch.arange(A.shape[-2], device=A.device) < 2 * N
-    factors = factor_shared_qp(
-        P, A, is_eq,
-        **{k: qp_kwargs.pop(k) for k in _FACTOR_KEYS if k in qp_kwargs})
-    sol = solve_qp_factored(factors, q, l, u, iterations=iterations,
-                            x0=x0, y0=warm_start_dual, **qp_kwargs)
+    if shared:
+        # structural equality mask: the first 2N rows are the dynamics
+        # equalities. (P, A) depend only on the shared refs/polygons; with
+        # those unbatched there is one copy of each, and the batch rides
+        # (q, l, u).
+        if poly_A.dim() != 3 or poly_b.dim() != 2:
+            raise ValueError(
+                "solve_dcm_mpc(shared=True) requires unbatched poly_A/poly_b"
+                " (lanes share one transcription); use shared=False for"
+                " per-lane polygons")
+        is_eq = torch.arange(A.shape[-2], device=A.device) < 2 * N
+        factors = factor_shared_qp(
+            P, A, is_eq,
+            **{k: qp_kwargs.pop(k) for k in _FACTOR_KEYS if k in qp_kwargs})
+        sol = solve_qp_factored(factors, q, l, u, iterations=iterations,
+                                x0=x0, y0=warm_start_dual, **qp_kwargs)
+    else:
+        sol = solve_qp(P, q, A, l, u, iterations=iterations, x0=x0,
+                       y0=warm_start_dual, **qp_kwargs)
     zmp = torch.stack(
         [sol.x[..., 2 * N: 3 * N], sol.x[..., 3 * N:]], dim=-1)  # (..., N, 2)
 

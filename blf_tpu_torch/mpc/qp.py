@@ -1,16 +1,30 @@
-"""Batched fixed-iteration ADMM QP solver: the shared-operator fleet path.
+"""Batched fixed-iteration ADMM QP solver (OSQP-style).
 
-Counterpart of ``blf_tpu/mpc/qp.py``, of which this slice ports
-``QPSolution``, ``SharedQPFactors``, ``factor_shared_qp``,
-``solve_qp_factored`` and ``solve_qp_shared``.
+Counterpart of ``blf_tpu/mpc/qp.py``, of which the port holds ``QPSolution``,
+``SharedQPFactors``, ``factor_shared_qp``, ``solve_qp_factored``,
+``solve_qp_shared`` (the shared-operator fleet path) and ``solve_qp``,
+``solve_qp_lanes`` (per-lane operators).
 
-Problem form (OSQP):  ``min 1/2 x'Px + q'x  s.t.  l <= Ax <= u``, for a fleet
-of lanes that share ONE ``(P, A)`` and differ in ``(q, l, u)``. The KKT
-system is factored once, spectrally, so that every lane carries its own
-continuously adapted penalty multiplier ``s`` at shared-factorization cost,
-and the iteration collapses onto the pre-clip constraint-space point ``v``
-(two products against ``G2 = A W`` an iteration). There is no data-dependent
-control flow: a fixed iteration count and per-lane convergence flags.
+Problem form (OSQP):  ``min 1/2 x'Px + q'x  s.t.  l <= Ax <= u``. There is no
+data-dependent control flow anywhere: a fixed iteration count and per-lane
+convergence flags.
+
+**Shared operators** (:func:`solve_qp_factored`): a fleet of lanes shares ONE
+``(P, A)`` and differs in ``(q, l, u)``. The KKT system is factored once,
+spectrally, so that every lane carries its own continuously adapted penalty
+multiplier ``s`` at shared-factorization cost, and the iteration collapses
+onto the pre-clip constraint-space point ``v`` (two products against
+``G2 = A W`` an iteration).
+
+**Per-lane operators** (:func:`solve_qp`): every lane has its own ``(P, A)``,
+as the whole-body QP has. ``backend="torch"`` (the reference's ``"xla"``) is
+the alpha-relaxed (x, z, y) iteration with a batched Cholesky a stage;
+``backend="cuda"`` (the reference's ``"pallas"``) dispatches to
+:func:`solve_qp_lanes`, the v-space iteration on the two hand-written
+kernels :func:`blf_tpu_torch.ops.cuda.linalg.cholesky_inverse_lane` and
+:func:`blf_tpu_torch.ops.cuda.admm_lane.admm_lane_stage`. The two paths
+adapt the penalty by different rules, as the reference's do; each mirrors
+its own.
 
 Backends of :func:`solve_qp_factored`:
 
@@ -27,9 +41,7 @@ Backends of :func:`solve_qp_factored`:
   tensor-core counterparts belong to the kernel redesign named in ROADMAP.md
   ("K1 follow-ups").
 
-Not yet ported: ``solve_qp`` (per-lane operators), ``solve_qp_lanes`` (the
-per-lane fused kernel path), ``shard_factors_rows`` and
-``solve_qp_factored_rowsharded``.
+Not yet ported: ``shard_factors_rows`` and ``solve_qp_factored_rowsharded``.
 """
 
 from __future__ import annotations
@@ -40,10 +52,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from blf_tpu_torch.ops.cuda.admm import admm_stage
+from blf_tpu_torch.ops.cuda.admm_lane import admm_lane_stage
+from blf_tpu_torch.ops.cuda.linalg import cholesky_inverse_lane
+from blf_tpu_torch.ops.linalg import cholesky_nan
 from blf_tpu_torch.ops.precision import f32_matmuls
 
 __all__ = ["QPSolution", "SharedQPFactors", "factor_shared_qp",
-           "solve_qp_factored", "solve_qp_shared", "BACKENDS"]
+           "solve_qp_factored", "solve_qp_shared", "solve_qp",
+           "solve_qp_lanes", "BACKENDS"]
 
 BACKENDS = ("torch", "cuda")
 _REDUCED = ("cuda_split", "cuda_delta")
@@ -111,9 +127,34 @@ def factor_shared_qp(
     ``K(s)^-1`` through an eigenbasis whose solve error grows with
     ``cond(K)``, and per-lane penalty adaptation recovers the equality
     enforcement a stiffer rho would give.
+
+    **Float32 inputs are factored in float64 and cast.** The reference
+    factors in the working dtype (``blf_tpu/mpc/qp.py:652-720``). The port
+    does not: a float32 Cholesky, triangular inverse and Jacobi ``eigh`` on
+    the GPU return a pencil basis ``W`` whose error left 9 % of a fleet's
+    lanes inside tolerance on the third warm-started tick and kept the dual
+    residual floor five times higher (PERF.md, "The tick-3 dip"). The
+    matrices are small (n x n and m x n, once a call), so the whole body
+    (Ruiz loop, ``R2``, Cholesky, ``L^-1``, ``eigh``, ``W``, ``G2``) runs in
+    float64 on any device and every field is cast to float32 on return. The
+    iteration that consumes the factors stays float32. Float64 inputs are
+    factored as they are.
     """
     if P.dim() != 2 or A.dim() != 2:
         raise ValueError("factor_shared_qp requires unbatched P and A")
+    if P.dtype == torch.float32:
+        wide = _factor_shared_qp(
+            P.double(), A.double(), is_eq, rho=rho, sigma=sigma,
+            rho_eq_scale=rho_eq_scale, scaling_iters=scaling_iters)
+        return SharedQPFactors(*(t.to(torch.float32) for t in wide))
+    return _factor_shared_qp(P, A, is_eq, rho=rho, sigma=sigma,
+                             rho_eq_scale=rho_eq_scale,
+                             scaling_iters=scaling_iters)
+
+
+def _factor_shared_qp(P, A, is_eq, *, rho, sigma, rho_eq_scale,
+                      scaling_iters) -> SharedQPFactors:
+    """The factorization of :func:`factor_shared_qp` in the dtype of ``P``."""
     n, m = P.shape[-1], A.shape[-2]
     dtype, device = P.dtype, P.device
     P_orig, A_orig = P, A
@@ -406,3 +447,391 @@ def solve_qp_shared(
         scaling_iters=scaling_iters,
     )
     return solve_qp_factored(factors, q, l, u, **solve_kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Per-lane operators: solve_qp and solve_qp_lanes
+# ---------------------------------------------------------------------------
+
+def _mv(A, x):
+    return torch.einsum("...mn,...n->...m", A, x)
+
+
+def _mtv(A, y):
+    return torch.einsum("...mn,...m->...n", A, y)
+
+
+def _default_rho_eq_scale(dtype) -> float:
+    # OSQP's 1e3 in float64, 30 in float32: the KKT solve error grows with
+    # cond(K), which grows with rho_eq_scale, and at 1e3 a float32 dual
+    # residual floors near 1e-1; the adaptive rho recovers the enforcement
+    return 1e3 if torch.finfo(dtype).bits >= 64 else 30.0
+
+
+def _ruiz_lanes(P, q, A, scaling_iters: int):
+    """Per-lane Ruiz equilibration with cost normalisation:
+    ``P_s = c D P D``, ``A_s = E A D``, ``q_s = c D q``. Returns
+    ``(P_s, q_s, A_s, D, E, c)`` with ``D`` (..., n), ``E`` (..., m), ``c``
+    (...,) over the broadcast batch of ``P`` and ``q``."""
+    n, m = P.shape[-1], A.shape[-2]
+    new = dict(dtype=P.dtype, device=P.device)
+    D = torch.ones(P.shape[:-2] + (n,), **new)
+    E = torch.ones(A.shape[:-2] + (m,), **new)
+    c = torch.ones(torch.broadcast_shapes(P.shape[:-2], q.shape[:-1]), **new)
+    one = torch.ones((), **new)
+    for _ in range(scaling_iters):
+        col_norm = torch.maximum(P.abs().amax(dim=-2), A.abs().amax(dim=-2))
+        dx = 1.0 / torch.sqrt(torch.where(col_norm > 1e-12, col_norm, one))
+        row_norm = A.abs().amax(dim=-1)
+        de = 1.0 / torch.sqrt(torch.where(row_norm > 1e-12, row_norm, one))
+        P = dx[..., :, None] * P * dx[..., None, :]
+        A = de[..., :, None] * A * dx[..., None, :]
+        q = q * dx
+        D = D * dx
+        E = E * de
+        # cost normalisation
+        p_cols = P.abs().amax(dim=-2).mean(dim=-1)
+        gamma = 1.0 / torch.clamp(torch.maximum(p_cols, _amax(q)), min=1e-12)
+        P = gamma[..., None, None] * P
+        q = gamma[..., None] * q
+        c = c * gamma
+    return P, q, A, D, E, c
+
+
+def _relative_residuals(P, q, A, x, z, y):
+    """Scaled-frame relative primal and dual residuals (...,) that drive the
+    penalty adaptation."""
+    Ax, Px_, Aty_ = _mv(A, x), _mv(P, x), _mtv(A, y)
+    rp = _amax(Ax - z) / torch.clamp(torch.maximum(_amax(Ax), _amax(z)), min=1e-12)
+    rd = _amax(Px_ + q + Aty_) / torch.clamp(
+        torch.maximum(_amax(Px_), torch.maximum(_amax(Aty_), _amax(q))), min=1e-12)
+    return rp, rd
+
+
+def _diagnose(P_orig, q_orig, A_orig, D, E, c, x, z, y):
+    """Unscale an iterate and diagnose it in the ORIGINAL problem."""
+    x = D * x
+    y = E * y / c[..., None]
+    z = z / E
+    Ax = _mv(A_orig, x)
+    r_prim = _amax(Ax - z)
+    Px = _mv(P_orig, x)
+    Aty = _mtv(A_orig, y)
+    r_dual = _amax(Px + q_orig + Aty)
+    # OSQP-style relative tolerances (scale-free convergence check)
+    prim_tol_scale = torch.maximum(_amax(Ax), _amax(z))
+    dual_tol_scale = torch.maximum(torch.maximum(_amax(Px), _amax(Aty)), _amax(q_orig))
+    return x, z, y, r_prim, r_dual, prim_tol_scale, dual_tol_scale
+
+
+def _pick_polished(cand, pol, eps_abs, eps_rel):
+    """Per lane, the polished iterate where it lowered the tolerance-normalized
+    residual score, else the unpolished one."""
+    score = lambda r: torch.maximum(r[3] / (eps_abs + eps_rel * r[5]),
+                                    r[4] / (eps_abs + eps_rel * r[6]))
+    better = score(pol) < score(cand)
+    pick = lambda a, b: torch.where(
+        better.reshape(better.shape + (1,) * (a.dim() - better.dim())), b, a)
+    return tuple(pick(a, b) for a, b in zip(cand, pol))
+
+
+def _solution(cand, P_orig, q_orig, eps_abs, eps_rel, rho_scale, refined):
+    x, z, y, r_prim, r_dual, prim_scale, dual_scale = cand
+    converged = (r_prim < eps_abs + eps_rel * prim_scale) & (
+        r_dual < eps_abs + eps_rel * dual_scale)
+    objective = 0.5 * (x * _mv(P_orig, x)).sum(dim=-1) + (q_orig * x).sum(dim=-1)
+    return QPSolution(x, y, z, r_prim, r_dual, converged, objective,
+                      rho_scale=rho_scale, refined=refined)
+
+
+@torch.no_grad()
+@f32_matmuls
+def solve_qp(
+    P: torch.Tensor,
+    q: torch.Tensor,
+    A: torch.Tensor,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    iterations: int = 200,
+    rho: float = 1.0,
+    sigma: float = 1e-6,
+    alpha: float = 1.6,
+    eps_abs: float = 1e-5,
+    eps_rel: float = 1e-5,
+    rho_eq_scale: Optional[float] = None,
+    scaling_iters: int = 10,
+    check_every: int = 25,
+    x0: Optional[torch.Tensor] = None,
+    y0: Optional[torch.Tensor] = None,
+    s0: Optional[torch.Tensor] = None,
+    kkt_inverse: bool = True,
+    kkt_refine: int = 3,
+    polish_iters: int = 0,
+    polish_scale: float = 0.1,
+    backend: str = "torch",
+) -> QPSolution:
+    """Solve ``min 1/2 x'Px + q'x s.t. l <= Ax <= u`` with fixed-iteration ADMM.
+
+    Shapes: ``P`` (..., n, n) SPSD, ``q`` (..., n), ``A`` (..., m, n), ``l``/``u``
+    (..., m) (``-+inf`` for one-sided rows, ``l == u`` for equalities). ``x0``/
+    ``y0`` warm-start the iteration, and ``s0`` (...,) or (..., 1) warm-starts
+    the per-lane adaptive penalty multiplier (returned as
+    ``QPSolution.rho_scale``).
+
+    Iteration (alpha-relaxed ADMM, per-constraint penalty rho)::
+
+        (P + sigma I + A' rho A) xt = sigma x - q + A'(rho z - y)
+        x+ = alpha xt + (1 - alpha) x
+        z+ = clip(alpha A xt + (1 - alpha) z + y / rho, l, u)
+        y+ = y + rho (alpha A xt + (1 - alpha) z - z+)
+
+    The KKT matrix is factored once a stage (batched Cholesky; a lane whose
+    matrix is not positive definite turns NaN and no other lane does).
+    ``kkt_inverse=True`` applies the factor as an explicit inverse with
+    ``kkt_refine`` iterative-refinement passes against the exact KKT, so that
+    an iteration is matrix-vector products only. Every ``check_every``
+    iterations each lane's multiplier moves by its primal/dual residual ratio,
+    clipped to a factor in [0.2, 5] a check and to [1e-6, 1e6] overall.
+    ``scaling_iters`` rounds of Ruiz equilibration precondition each lane;
+    residuals and the solution are reported in the ORIGINAL scaling.
+    ``rho_eq_scale=None`` picks the equality-row stiffening by dtype (1e3 in
+    float64, 30 in float32). ``polish_iters > 0`` appends a stage at
+    ``rho_scale * polish_scale``, accepted per lane only where it lowered the
+    tolerance-normalized residual score. ``QPSolution.refined`` stays ``None``
+    on this backend, as in the reference.
+
+    ``backend="cuda"`` dispatches to :func:`solve_qp_lanes`, the fused
+    per-lane-operator kernel path (one batch axis required; ``kkt_inverse``
+    and ``kkt_refine`` are knobs of the ``"torch"`` path and ignored there).
+    """
+    if backend == "cuda":
+        return solve_qp_lanes(
+            P, q, A, l, u, iterations=iterations, rho=rho, sigma=sigma,
+            alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
+            rho_eq_scale=rho_eq_scale, scaling_iters=scaling_iters,
+            check_every=check_every, x0=x0, y0=y0, s0=s0,
+            polish_iters=polish_iters, polish_scale=polish_scale)
+    if backend != "torch":
+        raise ValueError(f"unknown solve_qp backend {backend!r}; expected one of {BACKENDS}")
+    n, m = P.shape[-1], A.shape[-2]
+    dtype, device = P.dtype, P.device
+    if rho_eq_scale is None:
+        rho_eq_scale = _default_rho_eq_scale(dtype)
+
+    P_orig, q_orig, A_orig = P, q, A
+    P, q, A, D, E, c = _ruiz_lanes(P, q, A, scaling_iters)
+    l = E * l
+    u = E * u
+    if x0 is not None:
+        x0 = x0 / D                      # x_s = D^-1 x
+    if y0 is not None:
+        y0 = c[..., None] * y0 / E       # y_s = c E^-1 y
+
+    is_eq = (u - l) < 1e-12
+    one = torch.ones((), dtype=dtype, device=device)
+    base_rho = torch.where(is_eq, one * (rho * rho_eq_scale), one * rho)
+
+    batch = torch.broadcast_shapes(
+        P.shape[:-2], q.shape[:-1], A.shape[:-2], l.shape[:-1], u.shape[:-1],
+        () if x0 is None else x0.shape[:-1],
+        () if y0 is None else y0.shape[:-1])
+    new = dict(dtype=dtype, device=device)
+    x = torch.zeros(batch + (n,), **new) if x0 is None else x0.broadcast_to(batch + (n,))
+    z = _mv(A, x).broadcast_to(batch + (m,))
+    y = torch.zeros(batch + (m,), **new) if y0 is None else y0.broadcast_to(batch + (m,))
+    eye = torch.eye(n, **new)
+
+    def run_stage(x, z, y, rho_scale, iters):
+        """``iters`` ADMM iterations at a fixed per-lane rho (refactored)."""
+        rho_vec = base_rho * rho_scale[..., None]                  # (batch, m)
+        kkt = (P + sigma * eye + A.transpose(-1, -2) @ (rho_vec[..., None] * A)
+               ).broadcast_to(batch + (n, n))
+        chol = cholesky_nan(kkt)
+        if kkt_inverse:
+            Kinv = torch.cholesky_solve(eye.expand(batch + (n, n)), chol)
+
+            def kkt_solve(rhs):
+                x1 = _mv(Kinv, rhs)
+                for _ in range(kkt_refine):
+                    x1 = x1 + _mv(Kinv, rhs - _mv(kkt, x1))
+                return x1
+        else:
+            def kkt_solve(rhs):
+                return torch.cholesky_solve(rhs[..., None], chol)[..., 0]
+
+        for _ in range(iters):
+            rhs = sigma * x - q + _mtv(A, rho_vec * z - y)
+            x_tilde = kkt_solve(rhs)
+            x = alpha * x_tilde + (1 - alpha) * x
+            z_relaxed = alpha * _mv(A, x_tilde) + (1 - alpha) * z
+            z_next = _clip(z_relaxed + y / rho_vec, l, u)
+            y = y + rho_vec * (z_relaxed - z_next)
+            z = z_next
+        return x, z, y
+
+    check_every = max(1, min(check_every, iterations))
+    n_stages = max(1, -(-iterations // check_every))
+
+    if s0 is None:
+        rho_scale = torch.ones(batch, **new)
+    else:
+        s0 = torch.as_tensor(s0, **new)
+        if s0.dim() and s0.shape[-1] == 1 and s0.dim() > len(batch):
+            s0 = s0[..., 0]
+        rho_scale = s0.broadcast_to(batch)
+    for _ in range(n_stages):
+        x, z, y = run_stage(x, z, y, rho_scale, check_every)
+        # OSQP adaptive rho: balance relative primal vs dual residuals per lane
+        rp, rd = _relative_residuals(P, q, A, x, z, y)
+        scale = torch.sqrt(rp / torch.clamp(rd, min=1e-12))
+        rho_scale = torch.clamp(rho_scale * torch.clamp(scale, 0.2, 5.0), 1e-6, 1e6)
+
+    cand = _diagnose(P_orig, q_orig, A_orig, D, E, c, x, z, y)
+    if polish_iters > 0:
+        # rho-continuation dual polish: the KKT point is a fixed point for
+        # EVERY rho, so on converged lanes a short low-rho stage only refines
+        # the duals' settling granularity; on lanes NOT yet converged it can
+        # blow the residual up, hence the per-lane acceptance
+        pol = _diagnose(P_orig, q_orig, A_orig, D, E, c, *run_stage(
+            x, z, y, torch.clamp(rho_scale * polish_scale, 1e-6, 1e6), polish_iters))
+        cand = _pick_polished(cand, pol, eps_abs, eps_rel)
+    return _solution(cand, P_orig, q_orig, eps_abs, eps_rel,
+                     rho_scale[..., None], None)
+
+
+@torch.no_grad()
+@f32_matmuls
+def solve_qp_lanes(
+    P: torch.Tensor,
+    q: torch.Tensor,
+    A: torch.Tensor,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    iterations: int = 200,
+    rho: float = 1.0,
+    sigma: float = 1e-6,
+    alpha: float = 1.6,
+    eps_abs: float = 1e-5,
+    eps_rel: float = 1e-5,
+    rho_eq_scale: Optional[float] = None,
+    scaling_iters: int = 10,
+    check_every: int = 25,
+    x0: Optional[torch.Tensor] = None,
+    y0: Optional[torch.Tensor] = None,
+    s0: Optional[torch.Tensor] = None,
+    polish_iters: int = 0,
+    polish_scale: float = 0.1,
+    s_min: float = 1e-4,
+    s_max: float = 1e4,
+) -> QPSolution:
+    """Fused-kernel ADMM for a batch of QPs with PER-LANE (P, A).
+
+    The whole-body-QP shape of the control stack: every lane carries its own
+    cost and constraint matrices (its own mass matrix and Jacobians), so the
+    shared-factor spectral path is unavailable. This path:
+
+    - Ruiz-equilibrates per lane (same as :func:`solve_qp`);
+    - per stage, builds ``K(s) = P_s + sigma I + s A_s' rho A_s`` (a batched
+      matrix product) and inverts it with
+      :func:`blf_tpu_torch.ops.cuda.linalg.cholesky_inverse_lane`;
+    - runs the stage's iterations fused, with the lane's operators resident on
+      the SM (:func:`blf_tpu_torch.ops.cuda.admm_lane.admm_lane_stage`,
+      v-space recursion: the sigma x proximal term is dropped exactly as in
+      :func:`solve_qp_factored`, shifting the fixed point by ~sigma |x|);
+    - adapts the per-lane multiplier ``s`` at stage boundaries by the OSQP
+      rule with x5 hysteresis, ``s`` in ``[s_min, s_max]`` (a warm ``s0`` is
+      taken as it is, unclipped), and accepts an optional dual polish per lane
+      only where it improves the tolerance-normalized residual score.
+
+    Semantics, warm starts and diagnostics mirror :func:`solve_qp`;
+    ``converged`` and the residuals are computed in the ORIGINAL scaling.
+    Exactly one leading batch axis is required. On CPU tensors the two
+    kernels' plain versions run; on CUDA tensors (float32) the kernels are
+    launched, twice a stage, or the call raises. ``QPSolution.refined`` is
+    False. Any number of stages is taken: the reference's guard against more
+    than 64 is a compile-time concern of its unrolled trace.
+    """
+    n, m = P.shape[-1], A.shape[-2]
+    dtype, device = P.dtype, P.device
+    if rho_eq_scale is None:
+        rho_eq_scale = _default_rho_eq_scale(dtype)
+    batch = torch.broadcast_shapes(
+        P.shape[:-2], q.shape[:-1], A.shape[:-2], l.shape[:-1], u.shape[:-1],
+        () if x0 is None else x0.shape[:-1],
+        () if y0 is None else y0.shape[:-1])
+    if len(batch) != 1:
+        raise ValueError(
+            f"solve_qp_lanes requires exactly one batch axis, got {tuple(batch)}")
+    B = batch[0]
+    new = dict(dtype=dtype, device=device)
+    P = P.broadcast_to((B, n, n))
+    A = A.broadcast_to((B, m, n))
+    q = q.broadcast_to((B, n))
+    l = l.broadcast_to((B, m))
+    u = u.broadcast_to((B, m))
+
+    P_orig, q_orig, A_orig = P, q, A
+    P, q, A, D, E, c = _ruiz_lanes(P, q, A, scaling_iters)
+    l = (E * l).contiguous()
+    u = (E * u).contiguous()
+    A = A.contiguous()
+    q = q.contiguous()
+
+    is_eq = (u - l) < 1e-12
+    one = torch.ones((), dtype=dtype, device=device)
+    base_rho = torch.where(is_eq, one * (rho * rho_eq_scale), one * rho)
+
+    # -- v-space init ----------------------------------------------------------
+    if x0 is None:
+        x = torch.zeros((B, n), **new)
+    else:
+        x = (x0 / D).broadcast_to((B, n))
+    z = _mv(A, x)
+    y = torch.zeros((B, m), **new) if y0 is None else (c[..., None] * y0 / E)
+    if s0 is None:
+        s = torch.ones((B, 1), **new)
+    else:
+        s = torch.as_tensor(s0, **new)
+        s = s.reshape(B, -1)[:, :1] if s.dim() else s.expand(B, 1)
+    v = z + y / (s * base_rho)
+    eye = torch.eye(n, **new)
+    At = A.transpose(-1, -2)
+
+    def run_stage(v, s, iters):
+        rho_lane = (s * base_rho).contiguous()                     # (B, m)
+        K = P + sigma * eye + At @ (rho_lane[..., None] * A)
+        Kinv = cholesky_inverse_lane(K.contiguous())
+        return admm_lane_stage(v.contiguous(), rho_lane, A, Kinv, q, l, u,
+                               iters=iters, alpha=alpha)           # (B, m), (B, n)
+
+    check_every = max(1, min(check_every, iterations))
+    n_stages = max(1, -(-iterations // check_every))
+
+    for _ in range(n_stages):
+        v, x = run_stage(v, s, check_every)
+        z = _clip(v, l, u)
+        y = (s * base_rho) * (v - z)
+        rp, rd = _relative_residuals(P, q, A, x, z, y)
+        ratio = torch.sqrt(rp / torch.clamp(rd, min=1e-12))[..., None]
+        move = (ratio > 5.0) | (ratio < 0.2)
+        s_new = torch.where(move, torch.clamp(s * ratio, s_min, s_max), s)
+        v = z + (s / s_new) * (v - z)
+        s = s_new
+
+    def finish(v, x, rho_lane):
+        z = _clip(v, l, u)
+        return _diagnose(P_orig, q_orig, A_orig, D, E, c, x, z, rho_lane * (v - z))
+
+    cand = finish(v, x, s * base_rho)
+    if polish_iters > 0:
+        # rho-continuation dual polish, per-lane acceptance (see solve_qp)
+        s_pol = torch.clamp(s * polish_scale, s_min, s_max)
+        z = _clip(v, l, u)
+        v_p = z + (s / s_pol) * (v - z)
+        v_p, x_p = run_stage(v_p, s_pol, polish_iters)
+        cand = _pick_polished(cand, finish(v_p, x_p, s_pol * base_rho),
+                              eps_abs, eps_rel)
+    return _solution(cand, P_orig, q_orig, eps_abs, eps_rel, s,
+                     torch.zeros((), dtype=torch.bool, device=device))

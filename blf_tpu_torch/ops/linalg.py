@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["cholesky_small", "solve_psd_small", "solve_psd", "MAX_UNROLLED"]
+__all__ = ["cholesky_small", "solve_psd_small", "solve_psd", "cholesky_nan",
+           "MAX_UNROLLED"]
 
 # Above this size the O(m^3) unrolled op count stops paying for itself.
 MAX_UNROLLED = 8
@@ -81,9 +82,25 @@ def solve_psd_small(S: torch.Tensor, B: torch.Tensor, *,
 def solve_psd(S: torch.Tensor, B: torch.Tensor, *, eps: float = 0.0,
               max_unrolled: int = MAX_UNROLLED) -> torch.Tensor:
     """PSD solve that picks its path by static size: small ``m`` ->
-    :func:`solve_psd_small`; larger ``m`` -> ``torch.linalg.solve``."""
+    :func:`solve_psd_small`; larger ``m`` -> an LU solve. A singular matrix
+    spoils its own lane and raises nothing (``torch.linalg.solve`` would raise
+    for the whole batch; ``jnp.linalg.solve`` does not)."""
     if S.shape[-1] <= max_unrolled:
         return solve_psd_small(S, B, eps=eps)
     if B.dim() == S.dim() - 1:
-        return torch.linalg.solve(S, B[..., None])[..., 0]
-    return torch.linalg.solve(S, B)
+        return torch.linalg.solve_ex(S, B[..., None])[0][..., 0]
+    return torch.linalg.solve_ex(S, B)[0]
+
+
+def cholesky_nan(M: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of (..., n, n) by the library's batched routine;
+    a matrix that is not positive definite, or holds a NaN, gives NaN for
+    that matrix only.
+
+    ``torch.linalg.cholesky`` raises for the whole batch where
+    ``jnp.linalg.cholesky`` returns NaN per matrix. Here failure stays
+    per-lane data, which :mod:`blf_tpu_torch.utils.status` then quarantines.
+    """
+    L, info = torch.linalg.cholesky_ex(M)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(L, float("nan")), L)

@@ -1,11 +1,14 @@
-"""Problem instances of the fleet tick, made with numpy from a seed.
+"""Problem instances of the port's paths, made with numpy from a seed.
 
 Counterparts: ``_example_problem`` of ``__graft_entry__.py`` (a four-step
-walking reference) and the stationary push-recovery workload that
-``bench.py`` builds inline (time-invariant receding horizon, so the
-warm-started steady state is the production workload). Inputs are drawn with
-``numpy.random.default_rng(seed)``, so the JAX package and the port can be
-fed the same numbers.
+walking reference), the stationary push-recovery workload that ``bench.py``
+builds inline (time-invariant receding horizon, so the warm-started steady
+state is the production workload), and the closed whole-body-control loop
+that ``tests/test_wholebody.py`` of the JAX package pins
+(``TestClosedLoop::test_balance_hold_100hz`` over the perturbed fleet of
+``TestBatched``): :func:`standing_fleet` and :func:`wbc_balance_step`. Inputs
+are drawn with ``numpy.random.default_rng(seed)``, so the JAX package and the
+port can be fed the same numbers.
 """
 
 from __future__ import annotations
@@ -15,10 +18,19 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from blf_tpu_torch.models import rigid_body as rb
+from blf_tpu_torch.models.kinematics import (KinematicTree, forward_kinematics,
+                                             frame_pose)
 from blf_tpu_torch.models.lipm import LIPMParams, dcm_backward_recursion
+from blf_tpu_torch.models.robots import HUMANOID_SOLE_FRAMES, make_humanoid_23dof
+from blf_tpu_torch.mpc.wholebody import (WholeBodyParams, WholeBodySolution,
+                                         WholeBodyTask, solve_wholebody_qp)
+from blf_tpu_torch.ops.integrators import integrate
 from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
 
-__all__ = ["example_problem", "PushRecoveryProblem", "stationary_push_recovery"]
+__all__ = ["example_problem", "PushRecoveryProblem", "stationary_push_recovery",
+           "StandingFleet", "WBCWarmStart", "standing_fleet", "balance_task",
+           "apply_solution", "wbc_balance_step"]
 
 _BOX = [[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]]
 
@@ -89,3 +101,141 @@ def stationary_push_recovery(batch: int, horizon: int, *, seed: int = 0,
         disturbance=as_t(rng.normal(0, 0.004, (batch, 1, 2))),
         num_constraints=2 * horizon + 4 * horizon,
     )
+
+
+# ---------------------------------------------------------------------------
+# The whole-body-control loop: a fleet of standing humanoids
+# ---------------------------------------------------------------------------
+
+#: the loop's rates and its solver budget: a 100 Hz controller over a plant
+#: integrated with RK4 in substeps of 2.5 ms; 150 ADMM iterations a tick,
+#: convergence checked (and the penalty adapted) every 25
+CONTROL_DT = 0.01
+PHYSICS_DT = 0.0025
+WBC_ITERATIONS = 150
+WBC_CHECK_EVERY = 25
+
+
+class StandingFleet(NamedTuple):
+    """A fleet of 23-DoF humanoids in double support, and what each lane's
+    balance controller holds on to."""
+
+    tree: KinematicTree
+    params: WholeBodyParams
+    state: rb.FloatingBaseState    # every field (B, ...)
+    com_ref: torch.Tensor          # (B, 3) each lane's own initial CoM
+    q_ref: torch.Tensor            # (B, n) each lane's own initial posture
+
+
+class WBCWarmStart(NamedTuple):
+    """What the whole-body QP carries from tick to tick."""
+
+    x: torch.Tensor                # (B, nx)
+    y: torch.Tensor                # (B, m)
+    s: torch.Tensor                # (B, 1)
+
+
+def standing_fleet(batch: int, *, seed: int = 0, device=None,
+                   dtype: Optional[torch.dtype] = None) -> StandingFleet:
+    """``batch`` humanoids at rest in a slightly bent, statically stable
+    double-support posture (hip pitch 0.25, knee -0.5, ankle pitch 0.25 rad;
+    the base placed so that the soles of the nominal posture lie on z = 0),
+    each lane's joints offset by its own draw, uniform in +-0.02 rad."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    tree = make_humanoid_23dof()
+    n = tree.num_dofs
+    q_nom = np.zeros(n)
+    for side in ("l", "r"):
+        for link, value in ((f"{side}_upper_leg", 0.25),     # hip pitch
+                            (f"{side}_lower_leg", -0.5),     # knee
+                            (f"{side}_ankle_1", 0.25)):      # ankle pitch
+            q_nom[tree.dof_index[tree.link_names.index(link)]] = value
+    dq = np.random.default_rng(seed).uniform(-0.02, 0.02, (batch, n))
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    eye = torch.eye(3, dtype=dtype, device=device)
+    poses = forward_kinematics(tree, as_t(np.zeros(3)), eye, as_t(q_nom))
+    _, p_sole = frame_pose(tree, poses, "l_sole")
+    base_position = torch.stack(
+        [torch.zeros_like(p_sole[2]), torch.zeros_like(p_sole[2]), -p_sole[2]])
+    state = rb.FloatingBaseState(
+        base_twist=torch.zeros((batch, 6), dtype=dtype, device=device),
+        joint_velocities=torch.zeros((batch, n), dtype=dtype, device=device),
+        base_position=base_position.repeat(batch, 1),
+        base_rotation=eye.repeat(batch, 1, 1),
+        joint_positions=as_t(q_nom + dq),
+    )
+    poses = forward_kinematics(tree, state.base_position, state.base_rotation,
+                               state.joint_positions)
+    return StandingFleet(
+        tree=tree, params=WholeBodyParams(contact_frames=HUMANOID_SOLE_FRAMES),
+        state=state, com_ref=rb.com_position(tree, poses),
+        q_ref=state.joint_positions.clone())
+
+
+def balance_task(fleet: StandingFleet, state: rb.FloatingBaseState) -> WholeBodyTask:
+    """The balance controller's targets for this tick: PD on each lane's own
+    CoM reference (100 / 20) and posture reference (100 / 20), base angular
+    damping (20), both soles in contact."""
+    tree = fleet.tree
+    poses = forward_kinematics(tree, state.base_position, state.base_rotation,
+                               state.joint_positions)
+    com = rb.com_position(tree, poses)
+    com_vel = rb.com_velocity(
+        tree, poses, torch.cat([state.base_twist, state.joint_velocities], dim=-1))
+    q = state.joint_positions
+    return WholeBodyTask(
+        com_acc_des=100.0 * (fleet.com_ref - com) - 20.0 * com_vel,
+        base_ang_acc_des=-20.0 * state.base_twist[..., 3:],
+        posture_acc_des=100.0 * (fleet.q_ref - q) - 20.0 * state.joint_velocities,
+        contact_active=torch.ones(q.shape[:-1] + (len(fleet.params.contact_frames),),
+                                  dtype=q.dtype, device=q.device),
+    )
+
+
+def apply_solution(fleet: StandingFleet, state: rb.FloatingBaseState,
+                   sol: WholeBodySolution) -> rb.FloatingBaseState:
+    """Advance the plant by one control tick under the QP's own torques and
+    contact wrenches: RK4 over ``CONTROL_DT`` in substeps of ``PHYSICS_DT``,
+    with Baumgarte stabilisation of the base rotation."""
+    tree = fleet.tree
+    inp = rb.FloatingBaseInput(
+        joint_torques=sol.torques,
+        contact_wrenches={f: sol.wrenches[..., c, :]
+                          for c, f in enumerate(fleet.params.contact_frames)})
+    dynamics = lambda s, u, t: rb.floating_base_dynamics(tree, s, u, t, rho=1.0)
+    return integrate(dynamics, state, dt=PHYSICS_DT,
+                     num_steps=round(CONTROL_DT / PHYSICS_DT), u=inp, method="rk4")
+
+
+@torch.no_grad()
+def wbc_balance_step(
+    fleet: StandingFleet,
+    state: rb.FloatingBaseState,
+    warm: Optional[WBCWarmStart] = None,
+    *,
+    backend: str = "torch",
+    eps: Optional[float] = None,
+):
+    """One 100 Hz tick of the balance loop, control plus plant, for every lane.
+
+    Control (:func:`balance_task`): the whole-body QP is solved by
+    ``solve_qp(backend=...)`` with ``WBC_ITERATIONS`` in stages of
+    ``WBC_CHECK_EVERY``, warm-started from ``warm`` (the previous tick's
+    ``x``, ``y`` and penalty ``s``). ``eps`` (absolute and relative tolerance) defaults to 1e-5 in
+    float64 and 1e-4 in float32. Plant (:func:`apply_solution`): the QP's own
+    torques and contact wrenches drive the rigid-body engine.
+
+    Returns ``(new_state, solution, warm)``: the advanced state, the
+    :class:`WholeBodySolution` of this tick, and the warm start of the next.
+    """
+    if eps is None:
+        eps = 1e-5 if torch.finfo(state.joint_positions.dtype).bits >= 64 else 1e-4
+    x0, y0, s0 = warm if warm is not None else (None, None, None)
+    sol = solve_wholebody_qp(
+        fleet.tree, fleet.params, state, balance_task(fleet, state),
+        iterations=WBC_ITERATIONS, x0=x0, y0=y0, s0=s0, check_every=WBC_CHECK_EVERY,
+        eps_abs=eps, eps_rel=eps, backend=backend)
+    new_state = apply_solution(fleet, state, sol)
+    return new_state, sol, WBCWarmStart(sol.qp.x, sol.qp.y, sol.qp.rho_scale)

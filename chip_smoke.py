@@ -4,21 +4,29 @@
     python3 chip_smoke.py            # every phase, one GPU, a few minutes
 
 Drives ``blf_tpu_torch`` only (nothing of JAX). It builds the CUDA kernels from
-the sources in this checkout at first use, holds each kernel against its plain
-PyTorch version on the card, runs the port's main path (the warm-started
-push-recovery fleet tick at batch 98304, horizon 32, 50 ADMM iterations,
-float32, ``backend="cuda"``) through the entry points a user calls, checks the
-result, and shows that the path went through the kernels by their launch
-counts. Each phase prints one JSON line; no phase's failure is caught, so any
-exception or failed check ends the run with a non-zero exit code.
+the sources in this checkout (all at once, one ``nvcc`` each), holds each
+kernel against its plain PyTorch version on the card, and runs the port's two
+paths through the entry points a user calls:
+
+* the warm-started push-recovery fleet tick at batch 98304, horizon 32, 50
+  ADMM iterations, float32, ``backend="cuda"`` (kernel ``admm_stage``);
+* the 100 Hz whole-body-control loop of the 23-DoF humanoid over a fleet of
+  4096 lanes, 30 ticks, 150 iterations in stages of 25, float32,
+  ``solve_qp(backend="cuda")`` (kernels ``admm_lane_stage`` and
+  ``cholesky_inverse_lane``, six launches of each a tick).
+
+It checks each result and shows that each path went through its kernels by
+their launch counts, set to 0 just before the path and read just after. Each
+phase prints one JSON line; no phase's failure is caught, so any exception or
+failed check ends the run with a non-zero exit code.
 
 Bounds are derived from NVIDIA's H100 SXM data sheet (67 TFLOP/s float32
 outside the tensor cores, 3.35 TB/s device memory) and are labelled so.
 
-The size is fixed (``BATCH``, ``TICKS``, ``SCANS``, ``SEED`` below): a run at
-another width would prove nothing about the port. ``--phases`` runs a subset
-while developing (and then exits 4: a partial run is never a pass);
-``--profile`` and ``--study-factorization`` add diagnostics to the full run.
+The sizes are fixed (the constants below): a run at another width would prove
+nothing about the port. ``--phases`` runs a subset while developing (and then
+exits 4: a partial run is never a pass); ``--profile`` and
+``--study-factorization`` add diagnostics to the full run.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -36,12 +46,22 @@ import torch
 if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
+import blf_tpu_torch.mpc.dcm as dcm_module
+import blf_tpu_torch.mpc.qp as qp_module
+from blf_tpu_torch.models import rigid_body as rb
+from blf_tpu_torch.models.kinematics import forward_kinematics
 from blf_tpu_torch.mpc.dcm import build_dcm_qp
-from blf_tpu_torch.mpc.qp import factor_shared_qp
+from blf_tpu_torch.mpc.qp import SharedQPFactors, factor_shared_qp, solve_qp, solve_qp_lanes
+from blf_tpu_torch.mpc.wholebody import build_wholebody_qp
 from blf_tpu_torch.ops.cuda import _build
 from blf_tpu_torch.ops.cuda import admm as admm_kernel
+from blf_tpu_torch.ops.cuda import admm_lane as lane_kernel
+from blf_tpu_torch.ops.cuda import linalg as chol_kernel
 from blf_tpu_torch.parallel.sweep import init_fleet, make_fleet_step
-from blf_tpu_torch.problems import stationary_push_recovery
+from blf_tpu_torch.problems import WBC_CHECK_EVERY as WBC_STAGE
+from blf_tpu_torch.problems import WBC_ITERATIONS as WBC_ITERS
+from blf_tpu_torch.problems import (apply_solution, balance_task, standing_fleet,
+                                    stationary_push_recovery, wbc_balance_step)
 from blf_tpu_torch.utils.status import status_counts
 from blf_tpu_torch.utils.telemetry import TelemetryStream
 
@@ -61,13 +81,33 @@ M, N = 6 * HORIZON, 4 * HORIZON          # (192, 128)
 STAGE_ITERS = 25
 ALPHA = 1.6
 REL_TOL = 1e-5   # f32, other summation order and FMA contraction than the plain version
+# admm_lane_stage on the whole-body loop's own operators: K^-1 of an
+# equality-stiffened KKT matrix amplifies the rounding of Kinv (A'w - q), so
+# two float32 evaluation orders differ by more than on drawn operators; each
+# is then also held to the float64 recursion on the same float32 inputs
+REAL_OPERATOR_TOL = 1e-4
 # phase `cross`: absolute, in the plan's metres (and the duals' units)
-SAME_STATE_TOL = 1e-5     # one tick from the same state: every tick, every lane
-SETTLED_FROM_TICK = 6     # independent fleets: all converged, identical status
-REJOINED_FROM_TICK = 9    # independent fleets: every lane within REJOINED_TOL
-REJOINED_TOL = 1e-4
+SAME_STATE_TOL = 1e-5     # one tick from the same state: every tick, every lane;
+#                           independent fleets: every tick outside PARTED_TICKS
+PARTED_TICKS = range(4, 10)   # independent fleets part here (a few lanes miss eps)
+PARTED_TOL = 5e-4             # ... by no more than this, on every lane
+PARTED_SHARE = 0.01           # ... with at most this share of lanes unconverged
+# the whole-body-control loop: 23-DoF humanoid, two soles
+WBC_LANES = 4096
+WBC_SCANS, WBC_TICKS = 3, 10          # 30 ticks at 100 Hz, timed in 3 scans
+# (150 iterations in stages of 25: WBC_ITERS and WBC_STAGE are the loop's own)
+WBC_EPS = 1e-4                        # the float32 tolerance of the control stack
+WBC_M, WBC_N = 86, 64                 # rows and unknowns of the whole-body QP
+# float32 convergence of the loop, as both the port and the JAX package show it
+# (the study in tests/test_torch_wbc_loop.py, 64 lanes on the CPU: every lane inside
+# eps for the first 18 ticks, then the penalty multiplier sinks and 55 of 64
+# lanes are left at tick 30): held to 99 % on ticks 1-15 and 80 % on tick 30
+WBC_SETTLED_TICKS, WBC_SETTLED_SHARE, WBC_LAST_SHARE = 15, 0.99, 0.80
+WBC_CROSS_LANES = 512
+WBC_CROSS_TOL = 5e-3                  # absolute, on x: the float32 limit of the two paths
+CHOL_SIZES = (1, 5, 29, 35, 64)        # 64: the loop's KKT; 29: the humanoid's mass matrix
 DEVICE = torch.device("cuda")
-PHASES = ("device", "build", "kernels", "tick", "cross")
+PHASES = ("device", "build", "kernels", "tick", "cross", "wbc", "wbc_cross")
 
 
 def emit(phase: str, **fields) -> dict:
@@ -112,8 +152,13 @@ def time_cuda(fn, warmup: int, reps: int) -> list:
 def phase_device() -> dict:
     nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-2:]
+    props = torch.cuda.get_device_properties(0)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     return emit(
-        "device", nvidia_smi=nvidia_smi_line(),
+        "device", nvidia_smi=nvidia_smi_line(), sm_count=props.multi_processor_count,
+        max_sm_clock_mhz=float(clock),
         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
         python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda, nvcc=" | ".join(nvcc), numpy=np.__version__,
@@ -122,14 +167,38 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
+    """Build every kernel library of both paths, one ``nvcc`` each, all
+    started together; then load them through their wrappers."""
+    jobs = [("admm_stage", admm_kernel.SOURCE, {"ADMM_M": M, "ADMM_N": N}),
+            ("admm_lane", lane_kernel.SOURCE, {"ADMM_M": WBC_M, "ADMM_N": WBC_N})]
+    jobs += [(f"chol_lane_n{n}", chol_kernel.SOURCE, {"CHOL_N": n}) for n in CHOL_SIZES]
+
+    def build(job):
+        t0 = time.perf_counter()
+        _build.build_library(job[1], job[2])
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        seconds = list(pool.map(build, jobs))
     admm_kernel.build_admm_stage(M, N)
-    seconds = time.perf_counter() - t0
-    log = _build.last_build_log(admm_kernel.SOURCE, {"ADMM_M": M, "ADMM_N": N})
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    return emit("build", seconds=round(seconds, 2), shape=[M, N],
-                shared_bytes=admm_kernel.stage_shared_bytes(M, N), ptxas=ptxas)
+    lane_kernel.build_admm_lane(WBC_M, WBC_N)
+    for n in CHOL_SIZES:
+        chol_kernel.build_chol_lane(n)
+    wall = time.perf_counter() - t0
+    shared = {"admm_stage": admm_kernel.stage_shared_bytes(M, N),
+              "admm_lane": lane_kernel.lane_shared_bytes(WBC_M, WBC_N)}
+    shared.update({f"chol_lane_n{n}": chol_kernel.inverse_shared_bytes(n)
+                   for n in CHOL_SIZES})
+    libraries = []
+    for (name, source, defines), sec in zip(jobs, seconds):
+        log = _build.last_build_log(source, defines)
+        libraries.append({
+            "name": name, "source": "blf_tpu_torch/csrc/" + source, "defines": defines,
+            "seconds": round(sec, 2), "shared_bytes": shared[name],
+            "ptxas": [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln]})
+    return emit("build", seconds=round(wall, 2), libraries=libraries)
 
 
 def stage_operators(problem):
@@ -165,7 +234,8 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-def phase_kernels(problem) -> dict:
+def kernels_admm_stage(problem) -> dict:
+    """K1 against its plain version at the fleet tick's shapes."""
     batch = BATCH
     _, _, _, factors = stage_operators(problem)
     kw = dict(iters=STAGE_ITERS, alpha=ALPHA)
@@ -244,10 +314,258 @@ def phase_kernels(problem) -> dict:
         "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
         "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
         "tflops": flops / (kernel_ms * 1e-3) / 1e12,
-        "launches_this_phase": admm_kernel.launch_count(),
+        "library_ms": None,
     }
-    emit("kernels", kernels=[entry])
     return entry
+
+
+def median_ms(fn, warmup: int, reps: int) -> float:
+    return statistics.median(time_cuda(fn, warmup=warmup, reps=reps))
+
+
+def wbc_step(fleet, state, warm):
+    return wbc_balance_step(fleet, state, warm, backend="cuda", eps=WBC_EPS)
+
+
+def capture_wbc_stage_inputs(lanes: int):
+    """What ``solve_qp_lanes`` hands the two kernel wrappers on the first tick
+    of the whole-body-control loop: one K and one argument tuple a stage."""
+    seen = {"chol": [], "lane": []}
+
+    def chol(K):
+        seen["chol"].append(K)
+        return chol_kernel.cholesky_inverse_lane(K)
+
+    def lane(*args, **kw):
+        seen["lane"].append((args, kw))
+        return lane_kernel.admm_lane_stage(*args, **kw)
+
+    fleet = standing_fleet(lanes, seed=SEED, device=DEVICE, dtype=torch.float32)
+    with mock.patch.object(qp_module, "cholesky_inverse_lane", chol), \
+            mock.patch.object(qp_module, "admm_lane_stage", lane):
+        wbc_step(fleet, fleet.state, None)
+    torch.cuda.synchronize()
+    check(len(seen["chol"]) == len(seen["lane"]) == WBC_ITERS // WBC_STAGE,
+          "one K3 and one K2 call a stage")
+    return seen
+
+
+def random_lane_inputs(B: int, seed: int):
+    """A random per-lane stage at the whole-body shape: 41 equality rows,
+    22 rows with l = -inf, 23 boxed rows; K^-1 from the K3 kernel."""
+    m, n, n_eq, n_inf = WBC_M, WBC_N, 41, 22
+    rng = np.random.default_rng(seed)
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                                     device=DEVICE)
+    A = as_t(rng.normal(size=(B, m, n)) / 8)
+    G = as_t(rng.normal(size=(B, n, n)))
+    P = G @ G.transpose(1, 2) / n + 0.1 * torch.eye(n, device=DEVICE)
+    rho = as_t(10.0 ** rng.uniform(-1, 1, (B, 1)) * np.where(np.arange(m) < n_eq, 30.0, 1.0))
+    K = (P + A.transpose(1, 2) @ (rho[..., None] * A)).contiguous()
+    lo = rng.normal(-1, 0.5, (B, m))
+    hi = lo + np.abs(rng.normal(0, 1, (B, m)))
+    hi[:, :n_eq] = lo[:, :n_eq]
+    lo[:, n_eq:n_eq + n_inf] = -np.inf
+    return (as_t(rng.normal(0, 1, (B, m))), rho, A, chol_kernel.cholesky_inverse_lane(K),
+            as_t(rng.normal(0, 1, (B, n))), as_t(lo), as_t(hi))
+
+
+def lanes_of(args, B: int):
+    return tuple(a[:B].contiguous() for a in args)
+
+
+def kernels_admm_lane(seen, sm_clock_hz: float, sm_count: int) -> dict:
+    """K2 against its plain version: on the operators of the first tick's real
+    whole-body QP (first and last stage) and on random ones, at several batch
+    sizes; NaN-lane locality; then timed at the path's shape."""
+    kw = dict(iters=WBC_STAGE, alpha=ALPHA)
+    cases, max_rel, max_abs = [], 0.0, 0.0
+    sources = {"wbc_stage_1": seen["lane"][0][0], "wbc_stage_6": seen["lane"][-1][0],
+               "random": random_lane_inputs(WBC_LANES, seed=11)}
+    for name, full in sources.items():
+        check(bool(torch.isneginf(full[5]).any()), f"{name}: bounds include -inf rows")
+        check(bool((full[5] == full[6]).any()), f"{name}: bounds include equality rows")
+        for B in (4096, 512, 1000, 1):
+            args = lanes_of(full, B)
+            v_k, x_k = lane_kernel.admm_lane_stage(*args, **kw)
+            torch.cuda.synchronize()
+            v_p, x_p = lane_kernel.admm_lane_stage_reference(*args, **kw)
+            v_e, x_e = lane_kernel.admm_lane_stage_reference(
+                *(a.double() for a in args), **kw)       # the same inputs in float64
+            check(bool(torch.isfinite(v_k).all() and torch.isfinite(x_k).all()),
+                  f"{name}: kernel output finite at B={B}")
+            ev, ex = rel_err(v_k, v_p), rel_err(x_k, x_p)
+            ea = max(float((v_k - v_p).abs().max()), float((x_k - x_p).abs().max()))
+            exact_k = max(rel_err(v_k.double(), v_e), rel_err(x_k.double(), x_e))
+            exact_p = max(rel_err(v_p.double(), v_e), rel_err(x_p.double(), x_e))
+            tol = REL_TOL if name == "random" else REAL_OPERATOR_TOL
+            cases.append({"inputs": name, "B": B, "rel_err_v": ev, "rel_err_x": ex,
+                          "max_abs_err": ea, "tolerance_rel": tol,
+                          "rel_err_vs_float64": exact_k,
+                          "plain_rel_err_vs_float64": exact_p})
+            max_rel, max_abs = max(max_rel, ev, ex), max(max_abs, ea)
+            check(ev <= tol and ex <= tol,
+                  f"admm_lane_stage agrees with the plain version to {tol} on {name}"
+                  f" at B={B}: v {ev}, x {ex}")
+            check(exact_k <= 2 * exact_p + REL_TOL,
+                  f"{name}, B={B}: the kernel is as close to the float64 recursion as"
+                  f" the plain version: kernel {exact_k}, plain {exact_p}")
+
+    # a poisoned lane stays non-finite and poisons no other lane
+    B, lane = 1000, 137
+    args = list(lanes_of(sources["wbc_stage_1"], B))
+    clean_v, clean_x = lane_kernel.admm_lane_stage(*args, **kw)
+    others = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    others[lane] = False
+    for where in ("v", "bounds", "Kinv"):
+        bad = [a.clone() for a in args]
+        if where == "v":
+            bad[0][lane, 5] = float("nan")
+        elif where == "bounds":
+            bad[5][lane, 0] = float("nan")
+            bad[6][lane, 0] = float("nan")
+        else:
+            bad[3][lane] = float("nan")
+        nan_v, nan_x = lane_kernel.admm_lane_stage(*bad, **kw)
+        torch.cuda.synchronize()
+        check(not bool(torch.isfinite(nan_v[lane]).all())
+              and not bool(torch.isfinite(nan_x[lane]).all()),
+              f"NaN in {where}: the lane's v and x are non-finite")
+        check(bool(torch.equal(nan_v[others], clean_v[others])
+                   and torch.equal(nan_x[others], clean_x[others])),
+              f"NaN in {where}: every other lane equals the clean run bit for bit")
+        ref_v, _ = lane_kernel.admm_lane_stage_reference(*bad, **kw)
+        check(not bool(torch.isfinite(ref_v[lane]).all()),
+              f"NaN in {where}: the plain version poisons the lane too")
+
+    args = sources["wbc_stage_6"]
+    B, m, n = WBC_LANES, WBC_M, WBC_N
+    kernel_ms = median_ms(lambda: lane_kernel.admm_lane_stage(*args, **kw), 2, 9)
+    plain_ms = median_ms(lambda: lane_kernel.admm_lane_stage_reference(*args, **kw), 1, 3)
+    flops = WBC_STAGE * 2 * (2 * m * n + n * n) * B
+    nbytes = 4 * B * (m * n + n * n + 5 * m + 2 * n)   # operators and vectors in, v and x out
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    # what a resident design waits for: A twice and Kinv once from shared
+    # memory an iteration, at 128 bytes a clock an SM
+    reread = 4 * B * WBC_STAGE * (2 * m * n + n * n)
+    shared_rate = sm_count * 128 * sm_clock_hz
+    return {
+        "name": "admm_lane_stage", "shape": [m, n], "iters": WBC_STAGE, "batch_timed": B,
+        "cases": cases, "nan_lane": "confined", "max_rel_err": max_rel,
+        "max_abs_err": max_abs, "tolerance_rel": REL_TOL,
+        "tolerance_rel_real_operators": REAL_OPERATOR_TOL, "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
+        "shared_memory_reread_bytes": reread,
+        "shared_memory_bytes_per_s": shared_rate,
+        "shared_memory_ms": 1e3 * reread / shared_rate,
+        "shared_memory_rate_source": f"{sm_count} SMs x 128 B/clk x max SM clock",
+        "gflops": flops / (kernel_ms * 1e-3) / 1e9, "library_ms": None,
+    }
+
+
+def spd_batch(B: int, n: int, seed: int) -> torch.Tensor:
+    """Well-conditioned SPD matrices, as the reference's own kernel test draws
+    them: ``0.09 G G' + 2 I``."""
+    G = np.random.default_rng(seed).normal(size=(B, n, n)).astype(np.float32) * 0.3
+    K = G @ np.swapaxes(G, -1, -2) + np.eye(n, dtype=np.float32) * 2
+    return torch.as_tensor(K, device=DEVICE)
+
+
+def kernels_chol_lane(seen) -> dict:
+    """K3 against its plain version at n in CHOL_SIZES and on the first tick's
+    real KKT matrices; NaN and non-SPD lanes stay local; timed at n = 64
+    beside the one library call that computes the same inverse."""
+    cases, max_rel, max_abs = [], 0.0, 0.0
+    for n in CHOL_SIZES:
+        for B in (4096, 1000, 1):
+            K = spd_batch(B, n, seed=n)
+            out = chol_kernel.cholesky_inverse_lane(K)
+            torch.cuda.synchronize()
+            ref = chol_kernel.cholesky_inverse_lane_reference(K)
+            e = rel_err(out, ref)
+            e64 = rel_err(out.double(), torch.linalg.inv(K.double()))
+            cases.append({"inputs": "spd", "n": n, "B": B, "rel_err": e,
+                          "rel_err_vs_float64": e64,
+                          "max_abs_err": float((out - ref).abs().max())})
+            max_rel, max_abs = max(max_rel, e), max(max_abs, float((out - ref).abs().max()))
+            check(e <= REL_TOL and e64 <= REL_TOL,
+                  f"cholesky_inverse_lane agrees with the plain version to {REL_TOL} at"
+                  f" n={n}, B={B}: {e} (against float64: {e64})")
+            check(bool(torch.equal(out, out.transpose(1, 2))), f"n={n}: symmetric bit for bit")
+    # the whole-body loop's own KKT matrices: they are worse conditioned than
+    # the drawn ones, so the float32 kernel and the float32 plain version each
+    # sit some cond(K) eps from the float64 inverse; the kernel is held to the
+    # plain version's own distance from float64 (x4), and both are reported
+    real = []
+    for stage, K in ((1, seen["chol"][0]), (6, seen["chol"][-1])):
+        out = chol_kernel.cholesky_inverse_lane(K)
+        ref = chol_kernel.cholesky_inverse_lane_reference(K)
+        exact = torch.linalg.inv(K.double())
+        e, ek, ep = rel_err(out, ref), rel_err(out.double(), exact), rel_err(ref.double(), exact)
+        real.append({"inputs": f"wbc_stage_{stage}", "n": WBC_N, "B": K.shape[0],
+                     "rel_err": e, "rel_err_vs_float64": ek,
+                     "plain_rel_err_vs_float64": ep})
+        check(bool(torch.isfinite(out).all()), f"stage {stage}: real K inverts finitely")
+        check(e <= REL_TOL, f"stage {stage}: real K agrees with the plain version to"
+                            f" {REL_TOL}, got {e}")
+        check(ek <= 4 * ep + REL_TOL,
+              f"stage {stage}: on the real K the kernel is as close to float64 as the"
+              f" plain version: kernel {ek}, plain {ep}")
+
+    # NaN lane and non-SPD lane: NaN in their whole output, nothing else moves
+    B, n = 1000, WBC_N
+    K = spd_batch(B, n, seed=3)
+    clean = chol_kernel.cholesky_inverse_lane(K)
+    for where, lane in (("nan", 137), ("not_spd", 500)):
+        bad = K.clone()
+        if where == "nan":
+            bad[lane, 7, 3] = float("nan")
+            bad[lane, 3, 7] = float("nan")
+        else:
+            bad[lane, 40, 40] = -1.0
+        out = chol_kernel.cholesky_inverse_lane(bad)
+        torch.cuda.synchronize()
+        others = torch.ones(B, dtype=torch.bool, device=DEVICE)
+        others[lane] = False
+        check(bool(torch.isnan(out[lane]).all()), f"{where} lane: NaN in its whole output")
+        check(bool(torch.equal(out[others], clean[others])),
+              f"{where} lane: every other lane equals the clean run bit for bit")
+        check(bool(torch.isnan(chol_kernel.cholesky_inverse_lane_reference(bad)[lane]).all()),
+              f"{where} lane: the plain version gives NaN in the whole lane too")
+
+    K = seen["chol"][-1]
+    B, n = K.shape[0], K.shape[1]
+    kernel_ms = median_ms(lambda: chol_kernel.cholesky_inverse_lane(K), 2, 9)
+    plain_ms = median_ms(lambda: chol_kernel.cholesky_inverse_lane_reference(K), 1, 3)
+    library_ms = median_ms(
+        lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(K)[0]), 2, 9)
+    flops = B * n ** 3                     # n^3/3 each: factor, L^-1, L^-T L^-1
+    nbytes = 4 * B * 2 * n * n
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {
+        "name": "cholesky_inverse_lane", "shape": [n, n], "batch_timed": B,
+        "cases": cases + real, "nan_lane": "confined", "not_spd_lane": "confined",
+        "max_rel_err": max_rel, "max_abs_err": max_abs, "tolerance_rel": REL_TOL,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_call": "torch.linalg.cholesky_ex + torch.cholesky_inverse",
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
+    }
+
+
+def phase_kernels(problem, device: dict) -> dict:
+    """Every kernel of both paths against its plain version on the card."""
+    seen = capture_wbc_stage_inputs(WBC_LANES)
+    entries = [kernels_admm_stage(problem),
+               kernels_admm_lane(seen, device["max_sm_clock_mhz"] * 1e6, device["sm_count"]),
+               kernels_chol_lane(seen)]
+    emit("kernels", kernels=entries)
+    return {e["name"]: e for e in entries}
 
 
 def all_finite(state) -> bool:
@@ -303,10 +621,14 @@ def phase_tick(problem, kernel_ms: float, profile: bool) -> dict:
     check(record["scenarios"] == batch, "num_scenarios equals the batch")
     check(record["converged"] >= 0.99 * batch,
           f"at least 99% of lanes converged on the last tick, got {record['converged']}/{batch}")
-    first_ticks = [int(c) for c in torch.stack(converged_by_tick[:ticks]).tolist()]
-    min_timed = int(torch.stack(converged_by_tick[ticks:]).min())
-    check(min_timed >= 0.99 * batch,
-          f"at least 99% of lanes converged on every timed tick, worst {min_timed}/{batch}")
+    by_tick = [int(c) for c in torch.stack(converged_by_tick).tolist()]
+    first_ticks = by_tick[:ticks]
+    min_timed = min(by_tick[ticks:])
+    worst_tick = min(range(n_ticks), key=by_tick.__getitem__)
+    check(by_tick[worst_tick] >= 0.99 * batch,
+          f"at least 99% of lanes converged on every one of the {n_ticks} ticks, the"
+          f" first included: worst is tick {worst_tick + 1} with"
+          f" {by_tick[worst_tick]}/{batch}; first ticks {first_ticks}")
     check(launches == 2 * n_ticks,
           f"exactly 2 kernel launches per tick: {launches} in {n_ticks} ticks")
     check(admm_kernel.reference_count() == 0, "the plain version never ran on the main path")
@@ -338,6 +660,7 @@ def phase_tick(problem, kernel_ms: float, profile: bool) -> dict:
         "max_dual_residual": record["max_dual_residual"],
         "worst_margin": record["worst_margin"], "status_counts": counts,
         "converged_first_ticks": first_ticks, "converged_min_timed_ticks": min_timed,
+        "converged_min_all_ticks": by_tick[worst_tick], "worst_tick": worst_tick + 1,
         "kernel_launches": launches, "launches_per_tick": launches / n_ticks,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
@@ -391,15 +714,14 @@ def phase_cross(problem) -> dict:
     From the same state the two backends are one computation in two
     evaluation orders, so that comparison is held on every tick, on every
     lane, converged or not: ``SAME_STATE_TOL`` absolute and identical per-lane
-    status. The independent fleets are held so on ticks 1 and 2 (the cold
-    solve and the first warm-started one). On ticks 3 to 5 most lanes miss the
-    tolerance within 50 iterations (the float32 factorization's transient) and
-    where such a lane stops depends on rounding-level differences of the state
-    it started from, so the fleets part by up to 2e-3 m and the closed loop
-    then draws them together again, roughly halving the gap each tick. They
-    are held to identical status with every lane converged from tick
-    ``SETTLED_FROM_TICK`` on, and on every lane to ``REJOINED_TOL`` from tick
-    ``REJOINED_FROM_TICK`` on.
+    status. The independent fleets are held to the same, with every lane
+    converged, on every tick outside ``PARTED_TICKS``. On ticks 4 and 5 a few
+    lanes of 4096 miss the tolerance within 50 iterations, and where such a
+    lane stops depends on rounding-level differences of the state it started
+    from, so the fleets part by up to 1e-4 (in ``warm_y``) and the closed loop
+    then draws them together again, under 1e-5 from tick 9. There they are
+    held to ``PARTED_TOL`` on every lane with at most ``PARTED_SHARE`` of the
+    lanes unconverged or of differing status.
     """
     lanes, ticks = CROSS_LANES, CROSS_TICKS
     refs = (problem.dcm_ref, problem.zmp_ref, problem.poly_A, problem.poly_b)
@@ -438,28 +760,168 @@ def phase_cross(problem) -> dict:
                                     for r in (result_c, result_t)]
         per_tick.append(rec)
     out = emit("cross", lanes=lanes, ticks=per_tick, tolerance_abs_same_state=SAME_STATE_TOL,
-               tolerance_abs_independent_ticks_1_2=SAME_STATE_TOL,
-               settled_from_tick=SETTLED_FROM_TICK, rejoined_from_tick=REJOINED_FROM_TICK,
-               tolerance_abs_independent_rejoined=REJOINED_TOL,
+               tolerance_abs_independent=SAME_STATE_TOL,
+               parted_ticks=[PARTED_TICKS.start, PARTED_TICKS.stop - 1],
+               tolerance_abs_independent_parted=PARTED_TOL,
                status_counts=status_counts(result_c.status))
     for rec in per_tick:
         k = rec["tick"]
         for name in ("same_state", "independent"):
             cmp, what = rec[name], f"tick {k}, {name}"
+            parted = name == "independent" and k in PARTED_TICKS
+            tol = PARTED_TOL if parted else SAME_STATE_TOL
             check(cmp["finite"], f"{what}: both states finite")
-            if name == "same_state" or k <= 2:
-                tol = SAME_STATE_TOL
-            elif k >= REJOINED_FROM_TICK:
-                tol = REJOINED_TOL
+            for field, dv in cmp["max_abs_diff"].items():
+                check(dv <= tol, f"{what}: every lane agrees on {field} to {tol}, got {dv}")
+            if parted:
+                check(cmp["status_mismatches"] <= PARTED_SHARE * lanes
+                      and min(cmp["converged"]) >= (1 - PARTED_SHARE) * lanes,
+                      f"{what}: at most {PARTED_SHARE:.0%} of lanes unconverged or of"
+                      f" differing status")
             else:
-                tol = None
-            if tol is not None:
-                for field, dv in cmp["max_abs_diff"].items():
-                    check(dv <= tol, f"{what}: every lane agrees on {field} to {tol}, got {dv}")
-            if tol is not None or k >= SETTLED_FROM_TICK:
                 check(cmp["status_mismatches"] == 0, f"{what}: identical per-lane status")
-            if k <= 2 or k >= SETTLED_FROM_TICK:
+            if name == "independent" and not parted:
                 check(cmp["converged"] == [lanes, lanes], f"{what}: every lane converged")
+    return out
+
+
+def phase_wbc(kernels: dict, profile: bool) -> dict:
+    """The whole-body-control loop: WBC_LANES humanoids balance for 30 ticks at
+    100 Hz; every tick builds each lane's QP, solves it warm-started on the
+    two kernels and advances the plant by RK4."""
+    lanes, n_ticks = WBC_LANES, WBC_SCANS * WBC_TICKS
+    stages = WBC_ITERS // WBC_STAGE
+    torch.cuda.reset_peak_memory_stats()
+    fleet = standing_fleet(lanes, seed=SEED, device=DEVICE, dtype=torch.float32)
+    state, warm, sol = fleet.state, None, None
+    converged, trace, scan_ms = [], [], []
+
+    lane_kernel.reset_counts()            # counts of this path start here
+    chol_kernel.reset_counts()
+    for _ in range(WBC_SCANS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(WBC_TICKS):
+            state, sol, warm = wbc_step(fleet, state, warm)
+            converged.append(sol.qp.converged.sum())
+            trace.append(torch.stack([
+                sol.qp.primal_residual.max(), sol.qp.primal_residual.median(),
+                sol.qp.dual_residual.max(), sol.qp.dual_residual.median(),
+                sol.qp.rho_scale.min(), sol.qp.rho_scale.max()]))
+        end.record()
+        torch.cuda.synchronize()
+        scan_ms.append(start.elapsed_time(end) / WBC_TICKS)
+    launches = {"admm_lane_stage": lane_kernel.launch_count(),     # read just after the path
+                "cholesky_inverse_lane": chol_kernel.launch_count()}
+    plain_runs = lane_kernel.reference_count() + chol_kernel.reference_count()
+
+    by_tick = [int(c) for c in torch.stack(converged).tolist()]
+    poses = forward_kinematics(fleet.tree, state.base_position, state.base_rotation,
+                               state.joint_positions)
+    com_drift = float((rb.com_position(fleet.tree, poses) - fleet.com_ref).abs().max())
+    max_twist = float(state.base_twist.abs().max())
+    min_upright = float(state.base_rotation[:, 2, 2].min())
+    rp, rd = sol.qp.primal_residual, sol.qp.dual_residual
+
+    check(all_finite(state) and bool(torch.isfinite(sol.qp.x).all()),
+          "every state field and the last solution are finite on every lane")
+    # what the reference's own closed-loop test asserts, on every lane
+    check(com_drift < 0.02, f"every lane's CoM within 0.02 m of its start, got {com_drift}")
+    check(max_twist < 0.5, f"every lane's base twist under 0.5, got {max_twist}")
+    check(min_upright > 0.99, f"every lane's base upright (R[2,2] > 0.99), got {min_upright}")
+    check(launches == {"admm_lane_stage": stages * n_ticks,
+                       "cholesky_inverse_lane": stages * n_ticks},
+          f"exactly {stages} launches of each kernel a tick: {launches} in {n_ticks} ticks")
+    check(plain_runs == 0, "the plain versions never ran on this path")
+    check(tuple(sol.torques.shape) == (lanes, 23) and tuple(sol.wrenches.shape) == (lanes, 2, 6),
+          "solution shapes")
+
+    # where the tick's time goes: the three parts alone, from the last state
+    task = balance_task(fleet, state)
+    qp = build_wholebody_qp(fleet.tree, fleet.params, state, task)
+    solve = lambda: solve_qp(*qp, iterations=WBC_ITERS, check_every=WBC_STAGE,
+                             x0=warm.x, y0=warm.y, s0=warm.s, eps_abs=WBC_EPS,
+                             eps_rel=WBC_EPS, backend="cuda")
+    build_ms = median_ms(
+        lambda: build_wholebody_qp(fleet.tree, fleet.params, state, balance_task(fleet, state)),
+        1, 3)
+    solve_ms = median_ms(solve, 1, 3)
+    plant_ms = median_ms(lambda: apply_solution(fleet, state, sol), 1, 3)
+    k2 = stages * kernels["admm_lane_stage"]["kernel_ms"]
+    k3 = stages * kernels["cholesky_inverse_lane"]["kernel_ms"]
+    tick_ms = statistics.median(scan_ms)
+    out = {
+        "lanes": lanes, "robot": "humanoid_23dof", "qp_shape": [WBC_M, WBC_N],
+        "ticks": n_ticks, "iterations": WBC_ITERS, "stage": WBC_STAGE, "eps": WBC_EPS,
+        "dtype": "float32", "backend": "cuda",
+        "tick_ms": tick_ms, "tick_ms_min": min(scan_ms), "tick_ms_max": max(scan_ms),
+        "lane_ticks_per_s": lanes / (tick_ms * 1e-3),
+        "build_ms": build_ms, "solve_ms": solve_ms, "plant_ms": plant_ms,
+        "solve_k2_ms": k2, "solve_k3_ms": k3, "solve_rest_ms": solve_ms - k2 - k3,
+        "share_build": build_ms / tick_ms, "share_solve": solve_ms / tick_ms,
+        "share_plant": plant_ms / tick_ms,
+        "converged_by_tick": by_tick, "converged_last_tick": by_tick[-1],
+        "by_tick_columns": ["max_rp", "median_rp", "max_rd", "median_rd", "min_s", "max_s"],
+        "by_tick": [[float(f"{v:.3g}") for v in row] for row in torch.stack(trace).tolist()],
+        "wbc_max_rp": float(rp.max()), "wbc_median_rp": float(rp.median()),
+        "wbc_max_rd": float(rd.max()), "wbc_median_rd": float(rd.median()),
+        "com_drift_m": com_drift, "max_base_twist": max_twist, "min_upright": min_upright,
+        "kernel_launches": launches, "launches_per_tick": stages, "plain_version_runs": plain_runs,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if profile:
+        def run(st, n):
+            w = warm
+            for _ in range(n):
+                st, _, w = wbc_step(fleet, st, w)
+            return st, None
+        out["profile"] = profile_ticks(run, state)
+        out["device_idle_share"] = 1.0 - out["profile"]["device_ms_per_tick"] / tick_ms
+    emit("wbc", **out)
+    check(min(by_tick[:WBC_SETTLED_TICKS]) >= WBC_SETTLED_SHARE * lanes,
+          f"at least {WBC_SETTLED_SHARE:.0%} of lanes converged on each of the first"
+          f" {WBC_SETTLED_TICKS} ticks, got {by_tick[:WBC_SETTLED_TICKS]}")
+    check(by_tick[-1] >= WBC_LAST_SHARE * lanes,
+          f"at least {WBC_LAST_SHARE:.0%} of lanes converged on the last tick,"
+          f" got {by_tick[-1]}/{lanes}")
+    return out
+
+
+def phase_wbc_cross() -> dict:
+    """One ``solve_qp_lanes`` call from the same inputs on the card (the two
+    kernels) and on the CPU (their plain versions), float32: the first tick's
+    whole-body QP of WBC_CROSS_LANES lanes, cold. One solve from one state, not
+    a trajectory: two float32 fleets part where lanes miss the tolerance."""
+    lanes = WBC_CROSS_LANES
+    fleet = standing_fleet(lanes, seed=SEED + 1, device=DEVICE, dtype=torch.float32)
+    qp = build_wholebody_qp(fleet.tree, fleet.params, fleet.state,
+                            balance_task(fleet, fleet.state))
+    kw = dict(iterations=WBC_ITERS, check_every=WBC_STAGE, eps_abs=WBC_EPS, eps_rel=WBC_EPS)
+    card = solve_qp_lanes(*qp, **kw)
+    torch.cuda.synchronize()
+    before = lane_kernel.reference_count()
+    host = solve_qp_lanes(*(t.cpu() for t in qp), **kw)
+    check(lane_kernel.reference_count() == before + WBC_ITERS // WBC_STAGE,
+          "the CPU solve ran the plain versions")
+    both = card.converged.cpu() & host.converged
+    dx = (card.x.cpu() - host.x).abs().amax(dim=-1)
+    n_card, n_host, n_both = int(card.converged.sum()), int(host.converged.sum()), int(both.sum())
+    out = emit(
+        "wbc_cross", lanes=lanes, iterations=WBC_ITERS, eps=WBC_EPS,
+        converged_card=n_card, converged_cpu=n_host, converged_both=n_both,
+        max_abs_dx_both_converged=float(dx[both].max()) if n_both else None,
+        max_abs_dx_all_lanes=float(dx.max()), tolerance_abs=WBC_CROSS_TOL,
+        max_rp=[float(card.primal_residual.max()), float(host.primal_residual.max())],
+        max_rd=[float(card.dual_residual.max()), float(host.dual_residual.max())])
+    check(bool(torch.isfinite(card.x).all()) and bool(torch.isfinite(host.x).all()),
+          "both solutions finite")
+    check(n_both >= 0.9 * lanes, f"most lanes converged on both, got {n_both}/{lanes}")
+    check(abs(n_card - n_host) <= 0.01 * lanes,
+          f"converged counts within 1% of each other: card {n_card}, CPU {n_host}")
+    check(float(dx[both].max()) <= WBC_CROSS_TOL,
+          f"x agrees to {WBC_CROSS_TOL} on every lane converged on both,"
+          f" got {float(dx[both].max())}")
     return out
 
 
@@ -467,29 +929,28 @@ def study_factorization(problem, lanes: int = STUDY_LANES, ticks: int = 8) -> di
     """Diagnostic, off by default: where the factorization is computed, and in
     which precision, against the fleet's convergence over the first ticks.
 
-    The tick factors its shared operator in float32 on the card. This runs the
-    same ticks with the factorization made in float64 on the card and cast to
-    float32, and made in float32 on the CPU (LAPACK), and reports the converged
+    The tick factors its shared operator in float64 on the card and casts the
+    factors to float32 (``factor_shared_qp``). This runs the same ticks with
+    the factorization forced to float32 on the card (what the port did at
+    first, and what the reference does in its working dtype), with what the
+    tick does, and with float32 on the CPU (LAPACK), and reports the converged
     lanes and the max dual residual per tick for each.
     """
-    from unittest import mock
+    defaults = dict(rho=1.0, sigma=1e-6, rho_eq_scale=30.0, scaling_iters=10)
 
-    import blf_tpu_torch.mpc.dcm as dcm_module
-    from blf_tpu_torch.mpc.qp import SharedQPFactors
-
-    def in_float64(P, A, is_eq, **kw):
-        f = factor_shared_qp(P.double(), A.double(), is_eq, **kw)
-        return SharedQPFactors(*(t.float() for t in f))
+    def forced_float32(P, A, is_eq, **kw):
+        # the factorization body in the working dtype, without the widening
+        return qp_module._factor_shared_qp(P, A, is_eq, **{**defaults, **kw})
 
     def on_cpu(P, A, is_eq, **kw):
-        f = factor_shared_qp(P.cpu(), A.cpu(), is_eq.cpu(), **kw)
+        f = forced_float32(P.cpu(), A.cpu(), is_eq.cpu(), **kw)
         return SharedQPFactors(*(t.to(DEVICE) for t in f))
 
     refs = (problem.dcm_ref, problem.zmp_ref, problem.poly_A, problem.poly_b)
     dist = problem.disturbance[:lanes].contiguous()
     rows = {}
-    for name, fn in (("card_float32", factor_shared_qp), ("card_float64_cast", in_float64),
-                     ("cpu_float32", on_cpu)):
+    for name, fn in (("card_float32_forced", forced_float32),
+                     ("card_float64_cast", factor_shared_qp), ("cpu_float32", on_cpu)):
         with mock.patch.object(dcm_module, "factor_shared_qp", fn):
             state = init_fleet(lanes, HORIZON, problem.num_constraints, problem.dcm0,
                                problem.com0, device=DEVICE, dtype=torch.float32)
@@ -524,28 +985,41 @@ def main() -> None:
                                        device=DEVICE, dtype=torch.float32)
     if "build" in phases:
         phase_build()
-    kernel = phase_kernels(problem) if "kernels" in phases else None
-    tick = None
+    kernels = phase_kernels(problem, device) if "kernels" in phases else None
+    tick = wbc = None
     if "tick" in phases:
-        check(kernel is not None, "the tick phase needs the kernels phase's timing")
-        tick = phase_tick(problem, kernel["kernel_ms"], opts.profile)
+        check(kernels is not None, "the tick phase needs the kernels phase's timing")
+        tick = phase_tick(problem, kernels["admm_stage"]["kernel_ms"], opts.profile)
     if "cross" in phases:
         phase_cross(problem)
+    if "wbc" in phases:
+        check(kernels is not None, "the wbc phase needs the kernels phase's timing")
+        wbc = phase_wbc(kernels, opts.profile)
+    if "wbc_cross" in phases:
+        phase_wbc_cross()
     if opts.study_factorization:
         study_factorization(problem)
 
     print(device["nvidia_smi"], flush=True)
-    if kernel is not None:
+    if kernels is not None:
+        launches = {
+            "admm_stage": tick["kernel_launches"] if tick else 0,
+            "admm_lane_stage": wbc["kernel_launches"]["admm_lane_stage"] if wbc else 0,
+            "cholesky_inverse_lane":
+                wbc["kernel_launches"]["cholesky_inverse_lane"] if wbc else 0}
+        modules = {"admm_stage": admm_kernel, "admm_lane_stage": lane_kernel,
+                   "cholesky_inverse_lane": chol_kernel}
         print(json.dumps({"kernels": [{
-            "name": "admm_stage", "route": "cuda",
-            "source": "blf_tpu_torch/csrc/" + admm_kernel.SOURCE,
-            "replaces": admm_kernel.REPLACES,
-            "launches": tick["kernel_launches"] if tick else 0,
-            "max_abs_err": kernel["max_abs_err"], "max_rel_err": kernel["max_rel_err"],
-            "ms": kernel["kernel_ms"], "plain_ms": kernel["plain_ms"],
-            "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
-            "library_ms": None,
-        }], "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
+            "name": name, "route": "cuda",
+            "source": "blf_tpu_torch/csrc/" + modules[name].SOURCE,
+            "replaces": modules[name].REPLACES,
+            "launches": launches[name],
+            "max_abs_err": k["max_abs_err"], "max_rel_err": k["max_rel_err"],
+            "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
+        } for name, k in kernels.items()],
+            "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
     ran_all = set(phases) == set(PHASES)
     print(json.dumps({"ok": ran_all, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -119,8 +119,11 @@ def test_what_is_not_ported_raises():
     a = stationary_numpy(8, 4)
     _, pt = params_pair()
     args = [to_t(a[k]) for k in ("dcm0", "com0") + KEYS]
+    # the per-lane path is ported (tests/test_torch_qp_lanes.py holds it to
+    # the reference); what still raises is the reduced-precision kernel form
+    assert tdcm.solve_dcm_mpc(pt, DT, *args, shared=False, iterations=25).zmp.shape == (4, 8, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdcm.solve_dcm_mpc(pt, DT, *args, shared=False)
+        tdcm.solve_dcm_mpc(pt, DT, *args, shared=True, backend="cuda_split")
     args[4] = args[4][None].expand(4, -1, -1, -1)      # per-lane polygons
     with pytest.raises(ValueError, match="unbatched"):
         tdcm.solve_dcm_mpc(pt, DT, *args, shared=True)

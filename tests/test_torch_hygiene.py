@@ -43,14 +43,16 @@ def test_every_module_imports_without_jax_or_a_gpu_toolchain():
     none of the forbidden packages loaded and no kernel library built."""
     modules = port_modules()
     assert "blf_tpu_torch.ops.cuda.admm" in modules and len(modules) >= 20
+    assert {"blf_tpu_torch.ops.cuda.admm_lane", "blf_tpu_torch.ops.cuda.linalg",
+            "blf_tpu_torch.mpc.wholebody", "blf_tpu_torch.models.rigid_body"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
-        "from blf_tpu_torch.ops.cuda import admm\n"
-        "assert not admm._libs\n"
+        "from blf_tpu_torch.ops.cuda import admm, admm_lane, linalg\n"
+        "assert not admm._libs and not admm_lane._libs and not linalg._libs\n"
         "print('clean', len(sys.modules))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
@@ -104,6 +106,52 @@ def test_no_fallback_when_a_kernel_cannot_be_served(monkeypatch, tmp_path):
     a = _build.library_path(admm.SOURCE, {"ADMM_M": 48, "ADMM_N": 32})
     b = _build.library_path(admm.SOURCE, {"ADMM_M": 96, "ADMM_N": 64})
     assert a != b and a.parent == tmp_path and "m48" in a.name
+
+
+def test_no_fallback_in_the_per_lane_kernel_wrappers(monkeypatch, tmp_path):
+    """The two wrappers of the whole-body path serve CPU and CUDA tensors and
+    raise on anything else; a failed build raises and leaves nothing behind;
+    neither wrapper catches an exception to give way to its plain version."""
+    from blf_tpu_torch.ops.cuda import _build, admm_lane, linalg
+
+    K = torch.zeros((2, 4, 4), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        linalg.cholesky_inverse_lane(K)
+    v = torch.zeros((2, 6), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        admm_lane.admm_lane_stage(v, v, K, K, v, v, v, iters=1)
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "false")   # a compiler that fails
+    monkeypatch.setattr(admm_lane, "_libs", {})
+    monkeypatch.setattr(linalg, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc failed to build admm_lane.cu"):
+        admm_lane.build_admm_lane(86, 64)
+    with pytest.raises(RuntimeError, match="nvcc failed to build chol_lane.cu"):
+        linalg.build_chol_lane(64)
+    assert not list(tmp_path.glob("*.so")) and not admm_lane._libs and not linalg._libs
+    a = _build.library_path(linalg.SOURCE, {"CHOL_N": 64})
+    b = _build.library_path(linalg.SOURCE, {"CHOL_N": 29})
+    assert a != b and "chol_n64" in a.name
+    for module in (admm_lane, linalg):
+        tree = ast.parse(Path(module.__file__).read_text())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], module.__name__
+
+
+def test_kernel_sources_name_what_they_replace():
+    """Each CUDA source carries its note: the TPU kernel it replaces, what
+    bounds it on the card, what the design does about it; and each wrapper's
+    ``REPLACES`` points at a line of the JAX package that opens that kernel."""
+    from blf_tpu_torch.ops.cuda import admm, admm_lane, linalg
+
+    for module, function in ((admm, "_stage_kernel_t"), (admm_lane, "_lane_kernel"),
+                             (linalg, "_inverse_kernel")):
+        source = (PACKAGE / "csrc" / module.SOURCE).read_text()
+        assert "Replaces the TPU kernel" in source and function in source
+        assert "What bounds it on an H100" in source and "Design" in source
+        assert "use_fast_math" in source and "cublas" not in source.lower()
+        path, line = module.REPLACES.split(":")
+        assert f"def {function}(" in (ROOT / path).read_text().splitlines()[int(line) - 1]
 
 
 def test_f32_matmuls_turns_tf32_off_for_the_call():

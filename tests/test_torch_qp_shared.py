@@ -257,3 +257,51 @@ class TestSolveShared:
         assert int(sol_t.converged.sum()) == int(sol_j.converged.sum())
         np.testing.assert_allclose(float(sol_t.objective.mean()),
                                    float(sol_j.objective.mean()), atol=tol(1e-9, 1e-5))
+
+
+class TestFloat32FactorizationIsMadeInFloat64:
+    """``factor_shared_qp`` on float32 inputs: the whole body runs in float64
+    and every field is cast on return, on any device, so that the CPU sees the
+    code the card runs."""
+
+    def operands(self, horizon=16):
+        P, _, A, _, _ = fleet_problem(4, np.float32, horizon=horizon)
+        return P, A, is_eq_of(A, horizon)
+
+    def test_float32_fields_are_the_float64_factorization_cast_down(self):
+        P, A, is_eq = self.operands()
+        f32 = tqp.factor_shared_qp(to_t(P, torch.float32), to_t(A, torch.float32),
+                                   torch.as_tensor(is_eq))
+        f64 = tqp.factor_shared_qp(to_t(P, torch.float64), to_t(A, torch.float64),
+                                   torch.as_tensor(is_eq))
+        for name, a, b in zip(f32._fields, f32, f64):
+            assert a.dtype == torch.float32 and b.dtype == torch.float64, name
+            assert torch.equal(a, b.to(torch.float32)), name
+        assert torch.equal(f32.P_orig, to_t(P, torch.float32))     # inputs come back as given
+
+    def test_the_cast_factors_reproduce_the_float64_kkt_inverse(self):
+        """``W diag(1 / (1 + d)) W'`` from the float32 fields against the
+        float64 ``K(1)^-1``: 1e-5 relative (float32 rounding of W and d, times
+        the products of an n = 64 contraction). A factorization made in
+        float32 misses this by orders of magnitude on the card."""
+        P, A, is_eq = self.operands()
+        f32 = tqp.factor_shared_qp(to_t(P, torch.float32), to_t(A, torch.float32),
+                                   torch.as_tensor(is_eq))
+        f64 = tqp.factor_shared_qp(to_t(P, torch.float64), to_t(A, torch.float64),
+                                   torch.as_tensor(is_eq))
+        n = P.shape[-1]
+        K = f64.P_s + f64.sigma * torch.eye(n, dtype=torch.float64) + f64.R2
+        exact = torch.linalg.inv(K)
+        W, d = f32.W.double(), f32.d.double()
+        spectral = (W / (1.0 + d)) @ W.T
+        err = float((spectral - exact).abs().max() / exact.abs().max())
+        assert err < 1e-5, err
+
+    def test_float64_inputs_are_factored_as_they_are(self):
+        P, A, is_eq = self.operands(horizon=H)
+        f = tqp.factor_shared_qp(to_t(P, torch.float64), to_t(A, torch.float64),
+                                 torch.as_tensor(is_eq))
+        assert all(t.dtype == torch.float64 for t in f)
+        fj = jqp.factor_shared_qp(jnp.asarray(P, jnp.float64), jnp.asarray(A, jnp.float64),
+                                  jnp.asarray(is_eq))
+        np.testing.assert_allclose(f.d.numpy(), np.asarray(fj.d), rtol=1e-8, atol=1e-10)
