@@ -1,8 +1,9 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
 No counterpart in ``blf_tpu``. The system has no weights; what both sides
-share is the problem, the solver state, the rigid-body state and the
-whole-body task (a kinematic tree is plain numpy on both sides already). Every converter takes or returns
+share is the problem, the solver state, the rigid-body state, the whole-body
+task, the control stack's state (with its momentum observer) and the contact
+parameters (a kinematic tree is plain numpy on both sides already). Every converter takes or returns
 plain numpy arrays (``np.asarray`` of a JAX array on the other side), so this
 module needs nothing of the JAX package.
 
@@ -22,9 +23,12 @@ from typing import Any, Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from blf_tpu_torch.estimators.wrench_observer import MomentumObserverState
+from blf_tpu_torch.models.contact import ContactParams
 from blf_tpu_torch.models.lipm import LIPMParams
 from blf_tpu_torch.models.rigid_body import FloatingBaseState
 from blf_tpu_torch.mpc.qp import QPSolution, SharedQPFactors
+from blf_tpu_torch.mpc.stack import StackState
 from blf_tpu_torch.mpc.wholebody import WholeBodyTask
 from blf_tpu_torch.parallel.sweep import FleetState
 from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
@@ -32,7 +36,10 @@ from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
 __all__ = ["lipm_params_from_numpy", "factors_from_numpy",
            "fleet_state_from_numpy", "fleet_state_to_numpy",
            "qp_solution_to_numpy", "floating_base_state_from_numpy",
-           "floating_base_state_to_numpy", "wholebody_task_from_numpy"]
+           "floating_base_state_to_numpy", "wholebody_task_from_numpy",
+           "momentum_observer_state_from_numpy", "momentum_observer_state_to_numpy",
+           "stack_state_from_numpy", "stack_state_to_numpy",
+           "contact_params_from_numpy", "contact_params_to_numpy"]
 
 
 def _fields(obj: Union[Mapping[str, Any], Any], names) -> Dict[str, Any]:
@@ -129,3 +136,52 @@ def wholebody_task_from_numpy(task, *, device=None,
     names; ``ext_wrench`` may be missing."""
     return _named_tuple_from_numpy(WholeBodyTask, task, device, dtype,
                                    optional=("ext_wrench",))
+
+
+def momentum_observer_state_from_numpy(state, *, device=None,
+                                       dtype: Optional[torch.dtype] = None
+                                       ) -> MomentumObserverState:
+    return _named_tuple_from_numpy(MomentumObserverState, state, device, dtype)
+
+
+def momentum_observer_state_to_numpy(state: MomentumObserverState) -> Dict[str, np.ndarray]:
+    return {k: _to_numpy(v) for k, v in state._asdict().items()}
+
+
+def stack_state_from_numpy(state, *, device=None,
+                           dtype: Optional[torch.dtype] = None) -> StackState:
+    """:class:`StackState` from a mapping or an object with its field names
+    (the JAX package's state, for instance); ``plant`` and ``observer`` are
+    such mappings or objects in their turn."""
+    vals = _fields(state, StackState._fields)
+    missing = [k for k, v in vals.items() if v is None]
+    if missing:
+        raise ValueError(f"StackState lacks the fields {missing}")
+    nested = {"plant": floating_base_state_from_numpy,
+              "observer": momentum_observer_state_from_numpy}
+    out = {k: nested[k](v, device=device, dtype=dtype) for k, v in vals.items()
+           if k in nested}
+    flat = _named_tuple_from_numpy(
+        StackState, {k: v for k, v in vals.items() if k not in nested},
+        device, dtype, optional=tuple(nested))
+    return flat._replace(**out)
+
+
+def stack_state_to_numpy(state: StackState) -> Dict[str, Any]:
+    """Numpy arrays, with ``plant`` and ``observer`` as nested mappings."""
+    out = {k: _to_numpy(v) for k, v in state._asdict().items()
+           if k not in ("plant", "observer")}
+    out["plant"] = floating_base_state_to_numpy(state.plant)
+    out["observer"] = momentum_observer_state_to_numpy(state.observer)
+    return out
+
+
+def contact_params_from_numpy(params, *, device=None,
+                              dtype: Optional[torch.dtype] = None) -> ContactParams:
+    """:class:`ContactParams` from a mapping or an object with its field names."""
+    return _named_tuple_from_numpy(ContactParams, params, device, dtype)
+
+
+def contact_params_to_numpy(params: ContactParams) -> Dict[str, np.ndarray]:
+    return {k: np.asarray(_to_numpy(v) if isinstance(v, torch.Tensor) else v)
+            for k, v in params._asdict().items()}

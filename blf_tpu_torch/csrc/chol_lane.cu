@@ -28,9 +28,10 @@
 //  * Rows are padded by one float: the factorization walks down a column
 //    (thread i owns row i), the product walks along rows; with a stride of
 //    n + 1 both are free of bank conflicts.
-//  * Cholesky, column j: every thread forms the pivot s_j itself (a
-//    broadcast read of row j), so the pivot costs no extra barrier; thread i
-//    > j then forms L[i][j]. One barrier a column.
+//  * Cholesky, column j (chol_common.cuh, shared with chol_solve.cu): every
+//    thread forms the pivot s_j itself (a broadcast read of row j), so the
+//    pivot costs no extra barrier; thread i > j then forms L[i][j]. One
+//    barrier a column.
 //  * L^-1 needs no barrier at all: thread c solves L y = e_c on its own,
 //    reading L (fixed by then) and its own column of Linv.
 //  * Linv^T Linv: the n^2 outputs are spread over the block, each a dot
@@ -40,6 +41,9 @@
 //  * d = 1 / sqrtf(s) in IEEE arithmetic (no rsqrtf, no -use_fast_math), and
 //    L[j][j] = s d, L[i][j] = (..) d, 1 / L[i][i] as the reference forms them.
 //
+// An edit of chol_common.cuh rebuilds this library: ops/cuda/_build.py hashes
+// the headers a source includes.
+//
 // n is a compile-time constant (-DCHOL_N=..): ops/cuda/_build.py compiles one
 // library per n at first use. Any n >= 1 whose two padded copies fit in
 // 227 KB of shared memory is taken (n <= 169).
@@ -47,8 +51,7 @@
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (no -use_fast_math).
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "chol_common.cuh"
 
 #ifndef CHOL_N
 #error "compile with -DCHOL_N=<matrix size>"
@@ -69,7 +72,7 @@ chol_inverse_kernel(const float* __restrict__ K_in, float* __restrict__ Kinv_out
     extern __shared__ __align__(16) float smem[];
     float* sL = smem;                 // [N][NS] K; L below the diagonal
     float* sI = sL + N * NS;          // [N][NS] L^-1 (lower)
-    float* sD = sI + N * NS;          // [N]     1 / L[i][i]
+    float* sD = sI + N * NS;          // [N]     L[i][i]
     __shared__ int bad;
 
     const int tid = threadIdx.x;
@@ -85,32 +88,14 @@ chol_inverse_kernel(const float* __restrict__ K_in, float* __restrict__ Kinv_out
     __syncthreads();
 
     // -- K = L L^T, left-looking ------------------------------------------
-    for (int j = 0; j < N; ++j) {
-        // every thread forms the pivot: row j of L is final (columns < j)
-        float s = sL[j * NS + j];
-        for (int k = 0; k < j; ++k) {
-            const float ljk = sL[j * NS + k];
-            s -= ljk * ljk;
-        }
-        const float d = 1.0f / sqrtf(s);
-        if (tid == 0) {
-            if (!(s > 0.0f) || s == CUDART_INF_F) bad = 1;
-            sD[j] = 1.0f / (s * d);   // L[j][j] = s d is used only as 1 / L[j][j]
-        }
-        for (int i = j + 1 + tid; i < N; i += THREADS) {
-            float r = sL[i * NS + j];
-            for (int k = 0; k < j; ++k) r -= sL[i * NS + k] * sL[j * NS + k];
-            sL[i * NS + j] = r * d;
-        }
-        __syncthreads();   // column j is final before column j + 1 reads it
-    }
+    blf::chol_columns<N, NS, THREADS>(sL, sD, &bad, tid);
 
     // -- Linv = L^-1: thread c solves L y = e_c, no barrier ------------------
     for (int c = tid; c < N; c += THREADS) {
         for (int i = c; i < N; ++i) {
             float acc = 0.0f;
             for (int k = c; k < i; ++k) acc += sL[i * NS + k] * sI[k * NS + c];
-            sI[i * NS + c] = (((i == c) ? 1.0f : 0.0f) - acc) * sD[i];
+            sI[i * NS + c] = (((i == c) ? 1.0f : 0.0f) - acc) * (1.0f / sD[i]);
         }
     }
     __syncthreads();

@@ -1,8 +1,6 @@
 """Floating-base rigid-body dynamics: mass matrix, bias forces, forward dynamics.
 
-Counterpart of ``blf_tpu/models/rigid_body.py``. Ported: everything except
-``make_contact_dynamics``, which needs ``models/contact.py`` and raises
-``NotImplementedError`` (ROADMAP.md, slice 2b).
+Counterpart of ``blf_tpu/models/rigid_body.py``; everything of it is ported.
 
 Formulation (all in the mixed representation):
 
@@ -370,8 +368,42 @@ def floating_base_dynamics(
     )
 
 
-def make_contact_dynamics(*args, **kwargs):
-    """Not ported yet: closes the loop with the compliant contact model."""
-    raise NotImplementedError(
-        "make_contact_dynamics needs models/contact.py, which is not ported"
-        " yet; see ROADMAP.md, slice 2b ('models/contact.py').")
+def make_contact_dynamics(
+    tree: KinematicTree,
+    contact_params_by_frame: Dict[str, "object"],
+    *,
+    rho: float = 0.0,
+    gravity=GRAVITY,
+    mass_matrix_regularization: Optional[torch.Tensor] = None,
+):
+    """Close the loop with :mod:`blf_tpu_torch.models.contact`: wrenches
+    computed from the live frame kinematics.
+
+    ``contact_params_by_frame``: frame name -> ``ContactParams``. Returns a
+    dynamics function ``f(state, null_poses, t)`` where ``null_poses`` maps
+    frame name -> (null_rotation, null_position) (the contact model's
+    zero-force pose, typically the planned foothold); no joint torques.
+    """
+    from blf_tpu_torch.models import contact as contact_mod
+
+    def dynamics(state: FloatingBaseState, null_poses, t=0.0) -> FloatingBaseState:
+        poses = forward_kinematics(
+            tree, state.base_position, state.base_rotation, state.joint_positions)
+        nu = torch.cat([state.base_twist, state.joint_velocities], dim=-1)
+        wrenches = {}
+        for frame_name, cparams in contact_params_by_frame.items():
+            R_f, p_f, v_f = frame_kinematics(tree, poses, frame_name, nu)
+            R0, p0 = null_poses[frame_name]
+            wrenches[frame_name] = contact_mod.contact_wrench(
+                cparams, contact_mod.ContactState(
+                    position=p_f, rotation=R_f,
+                    linear_velocity=v_f[..., :3], angular_velocity=v_f[..., 3:],
+                    null_position=p0, null_rotation=R0))
+        inp = FloatingBaseInput(
+            joint_torques=torch.zeros_like(state.joint_positions),
+            contact_wrenches=wrenches)
+        return floating_base_dynamics(
+            tree, state, inp, t, rho=rho, gravity=gravity,
+            mass_matrix_regularization=mass_matrix_regularization)
+
+    return dynamics

@@ -9,9 +9,11 @@ into a shared library with a plain C interface and loaded with ``ctypes``:
 
 The build happens at first use, never at import, so every module of the
 package imports on a machine with no ``nvcc`` and no GPU. The library's name
-carries a hash of the source, the flags and the compile-time definitions, so
-a stale library is never loaded: a changed source builds anew. A failed build
-or load raises; nothing falls back.
+carries a hash of the source, of every header of ``csrc/`` it includes
+(``#include "..."``, followed through headers), of the flags and of the
+compile-time definitions, so a stale library is never loaded: a changed
+source or header builds anew. A failed build or load raises; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -19,15 +21,16 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "library_path",
-           "build_library", "load_library", "last_build_log"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "source_files",
+           "library_path", "build_library", "load_library", "last_build_log"]
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
@@ -68,11 +71,31 @@ def _definition_flags(defines: Optional[Mapping[str, object]]) -> Tuple[str, ...
     return tuple(f"-D{k}={v}" for k, v in sorted((defines or {}).items()))
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: str) -> List[Path]:
+    """``csrc/<source>`` and every header it includes with ``#include "..."``,
+    directly or through another header, in the order first met."""
+    found: List[Path] = []
+    todo = [CSRC_DIR / source]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in found:
+            continue
+        found.append(path)
+        todo.extend(path.parent / name
+                    for name in _LOCAL_INCLUDE.findall(path.read_text()))
+    return found
+
+
 def library_path(source: str, defines: Optional[Mapping[str, object]] = None) -> Path:
     """Where the library of ``csrc/<source>`` with these definitions lives."""
     src = CSRC_DIR / source
     h = hashlib.sha256()
-    h.update(src.read_bytes())
+    for path in source_files(source):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS + _definition_flags(defines)).encode())
     tag = "_".join(f"{k.lower()}{v}" for k, v in sorted((defines or {}).items()))
     stem = src.stem + (f"_{tag}" if tag else "")

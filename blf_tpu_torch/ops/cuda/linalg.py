@@ -1,56 +1,75 @@
-"""Batched inverse of small SPD matrices: CUDA kernel wrapper and plain version.
+"""Batched inverse and solve of small SPD matrices: CUDA kernel wrappers and
+plain versions.
 
-Counterpart of ``blf_tpu/ops/pallas/linalg.py``, of which this slice ports
-``cholesky_inverse_lane`` (``_inverse_kernel`` over ``_chol_into``): ``K``
-(B, n, n) -> ``K^-1`` (B, n, n) by a left-looking Cholesky factorization,
-``L^-1`` by forward substitution, then ``K^-1 = L^-T L^-1``. A matrix that is
-not positive definite, or holds a NaN, yields NaN in its own output only (no
-exception on the device; the callers' per-lane status absorbs it).
+Counterpart of ``blf_tpu/ops/pallas/linalg.py``; everything of it is ported.
+Two kernels share one left-looking Cholesky factorization (the reference's
+``_chol_into``; here ``csrc/chol_common.cuh``):
+
+- K3, ``cholesky_inverse_lane`` (``_inverse_kernel``): ``K`` (B, n, n) ->
+  ``K^-1`` (B, n, n) by the factor, ``L^-1`` by forward substitution, then
+  ``K^-1 = L^-T L^-1`` (``csrc/chol_lane.cu``);
+- K4, ``cholesky_solve_lane`` (``_solve_kernel``): ``K`` (B, n, n), ``b``
+  (B, n) -> ``K^-1 b`` (B, n) by the factor and a forward and a backward
+  substitution (``csrc/chol_solve.cu``); ``spd_solve_lane`` dispatches to it.
+
+A matrix that is not positive definite, or holds a NaN, yields NaN in its own
+output only (no exception on the device; the callers' per-lane status absorbs
+it).
 
 Layout is lane-major ``(B, n, n)`` at the boundary and in device memory, one
 contiguous block a matrix; the reference's batch-minor transpose, its padding
 of the batch with identities, ``block_lanes`` and ``interpret`` are TPU
 matters and have no counterpart here.
 
-- :func:`cholesky_inverse_lane_reference` is the plain PyTorch version: the
-  kernel's arithmetic column by column on batched tensors (it calls nothing
+- :func:`cholesky_inverse_lane_reference` and
+  :func:`cholesky_solve_lane_reference` are the plain PyTorch versions: the
+  kernels' arithmetic column by column on batched tensors (they call nothing
   of ``torch.linalg``), any float dtype.
-- :func:`cholesky_inverse_lane` runs the plain version for tensors that lie
-  on the CPU and launches the hand-written kernel ``csrc/chol_lane.cu`` for
-  CUDA tensors. There it launches or raises: nothing falls back.
-
-Not yet ported: ``cholesky_solve_lane`` / ``spd_solve_lane`` (the
-single-right-hand-side solve kernel; ROADMAP.md, slice 2b).
+- :func:`cholesky_inverse_lane` and :func:`cholesky_solve_lane` run the plain
+  version for tensors that lie on the CPU and launch the hand-written kernel
+  for CUDA tensors. There they launch or raise: nothing falls back. Each
+  kernel has its own counts (:func:`launch_count` / :func:`reference_count`
+  for K3, :func:`solve_launch_count` / :func:`solve_reference_count` for K4).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from blf_tpu_torch.ops.cuda import _build
+from blf_tpu_torch.ops.linalg import cholesky_nan
 
 __all__ = ["cholesky_inverse_lane", "cholesky_inverse_lane_reference",
-           "launch_count", "reference_count", "reset_counts",
-           "inverse_shared_bytes", "build_chol_lane", "SOURCE", "REPLACES"]
+           "cholesky_solve_lane", "cholesky_solve_lane_reference", "spd_solve_lane",
+           "launch_count", "reference_count", "solve_launch_count",
+           "solve_reference_count", "reset_counts", "inverse_shared_bytes",
+           "solve_shared_bytes", "build_chol_lane", "build_chol_solve",
+           "SOURCE", "REPLACES", "SOLVE_SOURCE", "SOLVE_REPLACES"]
 
 SOURCE = "chol_lane.cu"
-#: the TPU kernel this one replaces (file:line of ``_inverse_kernel``)
+#: the TPU kernel K3 replaces (file:line of ``_inverse_kernel``)
 REPLACES = "blf_tpu/ops/pallas/linalg.py:61"
+SOLVE_SOURCE = "chol_solve.cu"
+#: the TPU kernel K4 replaces (file:line of ``_solve_kernel``)
+SOLVE_REPLACES = "blf_tpu/ops/pallas/linalg.py:81"
 
 _MAX_SHARED = 232448        # bytes of shared memory a block may use on sm_90
 
-# Plain integers: how often the kernel was launched, and how often the plain
-# version ran because the tensors lie on the CPU.
-_counts = {"launch": 0, "reference": 0}
+# Plain integers, per kernel: how often it was launched, and how often its
+# plain version ran because the tensors lie on the CPU.
+_counts = {"launch": 0, "reference": 0, "solve_launch": 0, "solve_reference": 0}
+_launches_by_n: Dict[int, int] = {}       # K3 launches by matrix size
 _libs: Dict[int, ctypes.CDLL] = {}
+_solve_libs: Dict[int, ctypes.CDLL] = {}
 
 
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_counts`."""
-    return _counts["launch"]
+def launch_count(n: Optional[int] = None) -> int:
+    """K3 launches since the last :func:`reset_counts`; with ``n``, those at
+    matrix size ``n`` only."""
+    return _counts["launch"] if n is None else _launches_by_n.get(n, 0)
 
 
 def reference_count() -> int:
@@ -58,9 +77,37 @@ def reference_count() -> int:
     return _counts["reference"]
 
 
+def solve_launch_count() -> int:
+    """K4 launches since the last :func:`reset_counts`."""
+    return _counts["solve_launch"]
+
+
+def solve_reference_count() -> int:
+    """Plain-version runs made by :func:`cholesky_solve_lane` for CPU tensors."""
+    return _counts["solve_reference"]
+
+
 def reset_counts() -> None:
-    _counts["launch"] = 0
-    _counts["reference"] = 0
+    """Set the counts of both kernels to 0."""
+    for key in _counts:
+        _counts[key] = 0
+    _launches_by_n.clear()
+
+
+def _cholesky_columns(K: torch.Tensor):
+    """The kernels' factorization (``chol_common.cuh``): ``(L, diag)`` with the
+    strict lower factor in ``L`` and ``L[j, j] = s d`` in ``diag`` (B, n)."""
+    B, n, _ = K.shape
+    L = torch.zeros_like(K)
+    for j in range(n):
+        lj = L[:, j, :j]                                          # (B, j)
+        s = K[:, j, j] - (lj * lj).sum(dim=-1)
+        d = 1.0 / torch.sqrt(s)
+        L[:, j, j] = s * d
+        if j + 1 < n:
+            rows = K[:, j + 1:, j] - (L[:, j + 1:, :j] * lj[:, None, :]).sum(dim=-1)
+            L[:, j + 1:, j] = rows * d[:, None]
+    return L
 
 
 def cholesky_inverse_lane_reference(K: torch.Tensor) -> torch.Tensor:
@@ -76,16 +123,8 @@ def cholesky_inverse_lane_reference(K: torch.Tensor) -> torch.Tensor:
     """
     if K.dim() != 3 or K.shape[-1] != K.shape[-2]:
         raise ValueError(f"K must be (B, n, n), got {tuple(K.shape)}")
-    B, n, _ = K.shape
-    L = torch.zeros_like(K)
-    for j in range(n):
-        lj = L[:, j, :j]                                          # (B, j)
-        s = K[:, j, j] - (lj * lj).sum(dim=-1)
-        d = 1.0 / torch.sqrt(s)
-        L[:, j, j] = s * d
-        if j + 1 < n:
-            rows = K[:, j + 1:, j] - (L[:, j + 1:, :j] * lj[:, None, :]).sum(dim=-1)
-            L[:, j + 1:, j] = rows * d[:, None]
+    n = K.shape[-1]
+    L = _cholesky_columns(K)
     Linv = torch.zeros_like(K)
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
     for i in range(n):
@@ -154,4 +193,122 @@ def cholesky_inverse_lane(K: torch.Tensor) -> torch.Tensor:
                       -2: "bad batch"}.get(code, "?"))
         raise RuntimeError(f"cholesky_inverse_lane launch failed ({code}): {what}")
     _counts["launch"] += 1
+    _launches_by_n[n] = _launches_by_n.get(n, 0) + 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K4: the batched SPD solve, one right-hand side
+# ---------------------------------------------------------------------------
+
+def cholesky_solve_lane_reference(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version (any float dtype, any device): ``K`` (B, n, n),
+    ``b`` (B, n) -> ``K^-1 b`` (B, n), by the kernel's own steps.
+
+    The factor as in :func:`cholesky_inverse_lane_reference`, then
+    ``y[i] = (b[i] - sum_k<i L[i, k] y[k]) / L[i, i]`` and
+    ``x[i] = (y[i] - sum_k>i L[k, i] x[k]) / L[i, i]``. A lane whose pivot
+    has ``!(s > 0)`` or ``s = inf`` gets NaN in its whole ``x``, as the
+    kernel writes it; other lanes never mix in.
+    """
+    if K.dim() != 3 or K.shape[-1] != K.shape[-2]:
+        raise ValueError(f"K must be (B, n, n), got {tuple(K.shape)}")
+    if tuple(b.shape) != tuple(K.shape[:2]):
+        raise ValueError(f"b must be (B, n) = {tuple(K.shape[:2])}, got {tuple(b.shape)}")
+    n = K.shape[-1]
+    L = _cholesky_columns(K)
+    diag = torch.diagonal(L, dim1=-2, dim2=-1)                    # L[j, j] = s d
+    # s d is NaN exactly where the kernel flags the pivot: s <= 0, NaN or inf
+    bad = ~(diag > 0).all(dim=-1)
+    y = torch.zeros_like(b)
+    for i in range(n):
+        acc = (L[:, i, :i] * y[:, :i]).sum(dim=-1)
+        y[:, i] = (b[:, i] - acc) / diag[:, i]
+    x = torch.zeros_like(b)
+    for i in reversed(range(n)):
+        acc = (L[:, i + 1:, i] * x[:, i + 1:]).sum(dim=-1)
+        x[:, i] = (y[:, i] - acc) / diag[:, i]
+    return torch.where(bad[:, None], torch.full_like(x, float("nan")), x)
+
+
+def solve_shared_bytes(n: int) -> int:
+    """Shared memory one block of the solve kernel needs at size ``n``."""
+    return 4 * (n * (n + 1) + 3 * n)
+
+
+def build_chol_solve(n: int) -> ctypes.CDLL:
+    """Build (at first use) and load the solve kernel's library for size ``n``."""
+    lib = _solve_libs.get(n)
+    if lib is not None:
+        return lib
+    if n < 1 or solve_shared_bytes(n) > _MAX_SHARED:
+        raise ValueError(
+            f"cholesky_solve_lane kernel keeps the factor in shared memory: n = {n}"
+            f" needs {solve_shared_bytes(n)} bytes, the card offers {_MAX_SHARED}")
+    lib = _build.load_library(SOLVE_SOURCE, {"CHOL_N": n})
+    P = ctypes.c_void_p
+    lib.blf_chol_solve_f32.argtypes = [P, P, P, ctypes.c_longlong, ctypes.c_int, P]
+    lib.blf_chol_solve_f32.restype = ctypes.c_int
+    lib.blf_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.blf_cuda_error_string.restype = ctypes.c_char_p
+    lib.blf_chol_solve_n.argtypes = []
+    lib.blf_chol_solve_n.restype = ctypes.c_int
+    if lib.blf_chol_solve_n() != n:
+        raise RuntimeError("chol_solve library was compiled for another size")
+    _solve_libs[n] = lib
+    return lib
+
+
+def cholesky_solve_lane(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve: ``K`` (B, n, n), ``b`` (B, n) -> ``K^-1 b`` (B, n).
+
+    CPU tensors go through :func:`cholesky_solve_lane_reference`. CUDA
+    tensors must be contiguous float32 on one device; the kernel is launched
+    on the current stream, its launch error is checked, and the call does not
+    synchronise.
+    """
+    if K.device.type == "cpu" and b.device.type == "cpu":
+        _counts["solve_reference"] += 1
+        return cholesky_solve_lane_reference(K, b)
+    if K.device.type != "cuda" or b.device != K.device:
+        raise ValueError(
+            f"cholesky_solve_lane runs on cpu or cuda tensors of one device, not"
+            f" {K.device} and {b.device}")
+    if K.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(
+            f"cholesky_solve_lane kernel is float32 only; K is {K.dtype}, b is {b.dtype}")
+    if (K.dim() != 3 or K.shape[-1] != K.shape[-2] or K.shape[0] < 1
+            or tuple(b.shape) != tuple(K.shape[:2])):
+        raise ValueError(f"K must be (B, n, n) with B >= 1 and b (B, n), got"
+                         f" {tuple(K.shape)} and {tuple(b.shape)}")
+    if not (K.is_contiguous() and b.is_contiguous()):
+        raise ValueError("K and b must be contiguous")
+    B, n, _ = K.shape
+    lib = build_chol_solve(n)
+    out = torch.empty_like(b)
+    with torch.cuda.device(K.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.blf_chol_solve_f32(K.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                      B, n, stream)
+    if code != 0:
+        what = (lib.blf_cuda_error_string(code).decode() if code > 0
+                else {-1: "library compiled for another size",
+                      -2: "bad batch"}.get(code, "?"))
+        raise RuntimeError(f"cholesky_solve_lane launch failed ({code}): {what}")
+    _counts["solve_launch"] += 1
+    return out
+
+
+def spd_solve_lane(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dispatch: ``K`` (..., n, n), ``b`` (..., n) -> ``K^-1 b``.
+
+    Exactly one leading batch axis (a fleet) goes to :func:`cholesky_solve_lane`,
+    the kernel on CUDA tensors; anything else (an unbatched call, nested batch
+    axes) goes to a dense Cholesky solve by the library, as the reference's
+    ``cho_solve`` does, with a matrix that is not positive definite giving
+    NaN in its own solution.
+    """
+    if K.dim() == 3 and b.dim() == 2 and K.shape[0] == b.shape[0]:
+        return cholesky_solve_lane(K, b)
+    L = cholesky_nan(K)
+    return torch.cholesky_solve(b[..., None], L)[..., 0]

@@ -6,9 +6,12 @@ builds inline (time-invariant receding horizon, so the warm-started steady
 state is the production workload), and the closed whole-body-control loop
 that ``tests/test_wholebody.py`` of the JAX package pins
 (``TestClosedLoop::test_balance_hold_100hz`` over the perturbed fleet of
-``TestBatched``): :func:`standing_fleet` and :func:`wbc_balance_step`. Inputs
-are drawn with ``numpy.random.default_rng(seed)``, so the JAX package and the
-port can be fed the same numbers.
+``TestBatched``): :func:`standing_fleet` and :func:`wbc_balance_step`; and the
+push-recovery fleet of the whole control stack that
+``benchmarks/stack_bench.py`` runs: :func:`push_recovery_stack` in the
+``STACK_R05`` configuration. Inputs are drawn with
+``numpy.random.default_rng(seed)``, so the JAX package and the port can be fed
+the same numbers.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from blf_tpu_torch.models.kinematics import (KinematicTree, forward_kinematics,
                                              frame_pose)
 from blf_tpu_torch.models.lipm import LIPMParams, dcm_backward_recursion
 from blf_tpu_torch.models.robots import HUMANOID_SOLE_FRAMES, make_humanoid_23dof
+from blf_tpu_torch.mpc.stack import (StackConfig, StackState, init_stack,
+                                     make_fleet_stack_step)
 from blf_tpu_torch.mpc.wholebody import (WholeBodyParams, WholeBodySolution,
                                          WholeBodyTask, solve_wholebody_qp)
 from blf_tpu_torch.ops.integrators import integrate
@@ -30,7 +35,8 @@ from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 __all__ = ["example_problem", "PushRecoveryProblem", "stationary_push_recovery",
            "StandingFleet", "WBCWarmStart", "standing_fleet", "balance_task",
-           "apply_solution", "wbc_balance_step"]
+           "apply_solution", "wbc_balance_step", "STACK_R05", "PushRecoveryStack",
+           "push_recovery_stack", "stack_fleet_step"]
 
 _BOX = [[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]]
 
@@ -135,6 +141,17 @@ class WBCWarmStart(NamedTuple):
     s: torch.Tensor                # (B, 1)
 
 
+def _standing_posture(tree: KinematicTree) -> np.ndarray:
+    """Hip pitch 0.25, knee -0.5, ankle pitch 0.25 rad on both legs."""
+    q_nom = np.zeros(tree.num_dofs)
+    for side in ("l", "r"):
+        for link, value in ((f"{side}_upper_leg", 0.25),     # hip pitch
+                            (f"{side}_lower_leg", -0.5),     # knee
+                            (f"{side}_ankle_1", 0.25)):      # ankle pitch
+            q_nom[tree.dof_index[tree.link_names.index(link)]] = value
+    return q_nom
+
+
 def standing_fleet(batch: int, *, seed: int = 0, device=None,
                    dtype: Optional[torch.dtype] = None) -> StandingFleet:
     """``batch`` humanoids at rest in a slightly bent, statically stable
@@ -145,12 +162,7 @@ def standing_fleet(batch: int, *, seed: int = 0, device=None,
     dtype = resolve_dtype(dtype)
     tree = make_humanoid_23dof()
     n = tree.num_dofs
-    q_nom = np.zeros(n)
-    for side in ("l", "r"):
-        for link, value in ((f"{side}_upper_leg", 0.25),     # hip pitch
-                            (f"{side}_lower_leg", -0.5),     # knee
-                            (f"{side}_ankle_1", 0.25)):      # ankle pitch
-            q_nom[tree.dof_index[tree.link_names.index(link)]] = value
+    q_nom = _standing_posture(tree)
     dq = np.random.default_rng(seed).uniform(-0.02, 0.02, (batch, n))
     as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -239,3 +251,94 @@ def wbc_balance_step(
         eps_abs=eps, eps_rel=eps, backend=backend)
     new_state = apply_solution(fleet, state, sol)
     return new_state, sol, WBCWarmStart(sol.qp.x, sol.qp.y, sol.qp.rho_scale)
+
+
+# ---------------------------------------------------------------------------
+# The whole control stack: a push-recovery fleet of the humanoid
+# ---------------------------------------------------------------------------
+
+#: the production configuration of the stack (the JAX package's stack bench,
+#: ``STACK_r05.json`` ``detail.config``): horizon 8, 10 inner ticks an outer
+#: tick, 2 ROS2-W substeps with the lagged plant M^-1 and the stiff-path stage
+#: operator, MPC 100 iterations, WBC 150 iterations in one stage without
+#: polish and 4 Ruiz rounds, both solves on the kernels
+STACK_R05 = StackConfig(
+    mpc_dt=0.1, horizon=8, wbc_per_mpc=10, physics_per_wbc=2,
+    plant_method="rosenbrock", mpc_iterations=100, wbc_iterations=150,
+    wbc_check_every=150, wbc_polish_iters=0, wbc_scaling_iters=4,
+    mpc_backend="cuda", wbc_backend="cuda", plant_lagged_minv=True,
+    ros_op_stiff=True)
+
+#: the stance box around the CoM's ground projection: +-0.09 m in x, +-0.11 in y
+_STANCE_HALF = (0.09, 0.09, 0.11, 0.11)
+
+
+class PushRecoveryStack(NamedTuple):
+    """A fleet of standing humanoids, each pushed by its own unseen constant
+    force, and what the stack needs to balance them."""
+
+    tree: KinematicTree
+    params: WholeBodyParams
+    lipm: LIPMParams
+    config: StackConfig
+    null_poses: dict             # sole frame -> (R0 (3, 3), p0 (3,))
+    q_ref: torch.Tensor          # (n,) the posture held
+    com_height_ref: float
+    state: StackState            # every field (B, ...)
+    pushes: torch.Tensor         # (B, 2) the true pushes [N]
+    refs: tuple                  # (dcm_ref (N+1, 2), zmp_ref (N, 2), poly_A, poly_b)
+    stance: torch.Tensor         # (2,) the CoM's ground projection at rest
+
+
+def push_recovery_stack(batch: int, *, seed: int = 0, device=None,
+                        dtype: Optional[torch.dtype] = None,
+                        config: StackConfig = STACK_R05) -> PushRecoveryStack:
+    """The stack bench's workload: ``batch`` 23-DoF humanoids standing at rest
+    in the posture of :func:`standing_fleet` (no per-lane offsets), the DCM
+    and ZMP references on the stance point, the support box around it, each
+    sole's null pose one ``ground_sag`` above it (the ground starts loaded
+    with the standing weight), and per-lane pushes uniform in +-8 N on each
+    horizontal axis drawn from ``seed``."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    tree = make_humanoid_23dof()
+    n, horizon = tree.num_dofs, config.horizon
+    q_nom = as_t(_standing_posture(tree))
+    eye = torch.eye(3, dtype=dtype, device=device)
+    poses = forward_kinematics(tree, torch.zeros(3, dtype=dtype, device=device), eye, q_nom)
+    _, p_sole = frame_pose(tree, poses, "l_sole")
+    plant = rb.FloatingBaseState(
+        base_twist=torch.zeros(6, dtype=dtype, device=device),
+        joint_velocities=torch.zeros(n, dtype=dtype, device=device),
+        base_position=as_t([0.0, 0.0, -float(p_sole[2])]),
+        base_rotation=eye, joint_positions=q_nom)
+    poses = forward_kinematics(tree, plant.base_position, plant.base_rotation, q_nom)
+    com = rb.com_position(tree, poses)
+    lipm = LIPMParams(as_t(float(com[2])), as_t(9.81))
+    stance = com[:2]
+    refs = (stance.expand(horizon + 1, 2).clone(), stance.expand(horizon, 2).clone(),
+            as_t(_BOX).repeat(horizon, 1, 1),
+            (torch.stack([stance[0], -stance[0], stance[1], -stance[1]])
+             + as_t(_STANCE_HALF)).expand(horizon, 4).clone())
+    null_poses = {f: (eye, frame_pose(tree, poses, f)[1] + as_t([0.0, 0.0, config.ground_sag]))
+                  for f in HUMANOID_SOLE_FRAMES}
+    lanes = rb.FloatingBaseState(*(leaf.expand((batch,) + tuple(leaf.shape)).clone()
+                                   for leaf in plant))
+    return PushRecoveryStack(
+        tree=tree, params=WholeBodyParams(contact_frames=HUMANOID_SOLE_FRAMES),
+        lipm=lipm, config=config, null_poses=null_poses, q_ref=q_nom,
+        com_height_ref=float(com[2]),
+        state=init_stack(tree, lipm, config, lanes, 6 * horizon),
+        pushes=as_t(np.random.default_rng(seed).uniform(-8.0, 8.0, (batch, 2))),
+        refs=refs, stance=stance)
+
+
+def stack_fleet_step(problem: PushRecoveryStack, config: Optional[StackConfig] = None):
+    """:func:`blf_tpu_torch.mpc.stack.make_fleet_stack_step` for the problem,
+    in its own configuration unless ``config`` is given; called as
+    ``step(state, problem.pushes, *problem.refs)``."""
+    return make_fleet_stack_step(
+        problem.tree, problem.params, problem.lipm,
+        problem.config if config is None else config, problem.null_poses,
+        q_ref=problem.q_ref, com_height_ref=problem.com_height_ref)

@@ -13,12 +13,20 @@ paths through the entry points a user calls:
 * the 100 Hz whole-body-control loop of the 23-DoF humanoid over a fleet of
   4096 lanes, 30 ticks, 150 iterations in stages of 25, float32,
   ``solve_qp(backend="cuda")`` (kernels ``admm_lane_stage`` and
-  ``cholesky_inverse_lane``, six launches of each a tick).
+  ``cholesky_inverse_lane``, six launches of each a tick);
+* the whole control stack (DCM-MPC, whole-body QP, stiff ROS2-W plant,
+  momentum observer and RLS) over a push-recovery fleet of 4096 humanoids,
+  10 outer ticks of 10 inner ticks in the ``STACK_R05`` configuration, both
+  solves ``"cuda"`` (kernels ``admm_stage`` at (48, 32), ``admm_lane_stage``,
+  ``cholesky_inverse_lane`` at n = 64 and 29, ``cholesky_solve_lane``), and on
+  256 lanes the stiff plant against 40-substep RK4 and the kernel MPC against
+  the plain-tensor one.
 
 It checks each result and shows that each path went through its kernels by
 their launch counts, set to 0 just before the path and read just after. Each
 phase prints one JSON line; no phase's failure is caught, so any exception or
-failed check ends the run with a non-zero exit code.
+failed check ends the run with a non-zero exit code. The last JSON line but
+one lists every kernel at the shape of each path, with its launches there.
 
 Bounds are derived from NVIDIA's H100 SXM data sheet (67 TFLOP/s float32
 outside the tensor cores, 3.35 TB/s device memory) and are labelled so.
@@ -32,6 +40,8 @@ exits 4: a partial run is never a pass); ``--profile`` and
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -48,6 +58,7 @@ if not torch.cuda.is_available():
 
 import blf_tpu_torch.mpc.dcm as dcm_module
 import blf_tpu_torch.mpc.qp as qp_module
+import blf_tpu_torch.mpc.stack as stack_module
 from blf_tpu_torch.models import rigid_body as rb
 from blf_tpu_torch.models.kinematics import forward_kinematics
 from blf_tpu_torch.mpc.dcm import build_dcm_qp
@@ -60,7 +71,8 @@ from blf_tpu_torch.ops.cuda import linalg as chol_kernel
 from blf_tpu_torch.parallel.sweep import init_fleet, make_fleet_step
 from blf_tpu_torch.problems import WBC_CHECK_EVERY as WBC_STAGE
 from blf_tpu_torch.problems import WBC_ITERATIONS as WBC_ITERS
-from blf_tpu_torch.problems import (apply_solution, balance_task, standing_fleet,
+from blf_tpu_torch.problems import (STACK_R05, apply_solution, balance_task,
+                                    push_recovery_stack, stack_fleet_step, standing_fleet,
                                     stationary_push_recovery, wbc_balance_step)
 from blf_tpu_torch.utils.status import status_counts
 from blf_tpu_torch.utils.telemetry import TelemetryStream
@@ -106,8 +118,25 @@ WBC_SETTLED_TICKS, WBC_SETTLED_SHARE, WBC_LAST_SHARE = 15, 0.99, 0.80
 WBC_CROSS_LANES = 512
 WBC_CROSS_TOL = 5e-3                  # absolute, on x: the float32 limit of the two paths
 CHOL_SIZES = (1, 5, 29, 35, 64)        # 64: the loop's KKT; 29: the humanoid's mass matrix
+# the control stack: 23-DoF humanoid, STACK_R05 (horizon 8, 10 inner ticks,
+# MPC 100 iterations in stages of 25, WBC 150 in one stage)
+STACK_LANES = 4096
+STACK_WARM_TICKS, STACK_TIMED_TICKS = 5, 5            # 1 s of simulated time
+STACK_M, STACK_N = 6 * STACK_R05.horizon, 4 * STACK_R05.horizon      # (48, 32)
+STACK_MPC_STAGES = -(-STACK_R05.mpc_iterations // STAGE_ITERS)     # 4 K1 launches a tick
+STACK_INNER = STACK_R05.wbc_per_mpc                                 # 10 inner ticks
+NV = 29                                                             # the humanoid's nu
+SOLVE_SIZES = (1, 6, 29)              # 6: the stack's wrench attribution
+# the reference's contracts (tests/test_control_stack.py:129-141), every lane
+STACK_UPRIGHT, STACK_TWIST, STACK_DCM = 0.98, 0.6, 0.06
+STACK_EST_REL, STACK_EST_ABS = 0.3, 3.0
+STACK_CONVERGED_SHARE = 0.99
+STACK_CROSS_LANES, STACK_CROSS_TICKS = 256, 4
+STACK_CROSS_DCM, STACK_CROSS_EST = 3e-3, 1.5     # tests/test_control_stack.py:292-346
+STACK_PLAN_TOL = 1e-5
 DEVICE = torch.device("cuda")
-PHASES = ("device", "build", "kernels", "tick", "cross", "wbc", "wbc_cross")
+PHASES = ("device", "build", "kernels", "tick", "cross", "wbc", "wbc_cross", "stack",
+          "stack_cross")
 
 
 def emit(phase: str, **fields) -> dict:
@@ -170,8 +199,11 @@ def phase_build() -> dict:
     """Build every kernel library of both paths, one ``nvcc`` each, all
     started together; then load them through their wrappers."""
     jobs = [("admm_stage", admm_kernel.SOURCE, {"ADMM_M": M, "ADMM_N": N}),
+            ("admm_stage_stack", admm_kernel.SOURCE, {"ADMM_M": STACK_M, "ADMM_N": STACK_N}),
             ("admm_lane", lane_kernel.SOURCE, {"ADMM_M": WBC_M, "ADMM_N": WBC_N})]
     jobs += [(f"chol_lane_n{n}", chol_kernel.SOURCE, {"CHOL_N": n}) for n in CHOL_SIZES]
+    jobs += [(f"chol_solve_n{n}", chol_kernel.SOLVE_SOURCE, {"CHOL_N": n})
+             for n in SOLVE_SIZES]
 
     def build(job):
         t0 = time.perf_counter()
@@ -182,14 +214,20 @@ def phase_build() -> dict:
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         seconds = list(pool.map(build, jobs))
     admm_kernel.build_admm_stage(M, N)
+    admm_kernel.build_admm_stage(STACK_M, STACK_N)
     lane_kernel.build_admm_lane(WBC_M, WBC_N)
     for n in CHOL_SIZES:
         chol_kernel.build_chol_lane(n)
+    for n in SOLVE_SIZES:
+        chol_kernel.build_chol_solve(n)
     wall = time.perf_counter() - t0
     shared = {"admm_stage": admm_kernel.stage_shared_bytes(M, N),
+              "admm_stage_stack": admm_kernel.stage_shared_bytes(STACK_M, STACK_N),
               "admm_lane": lane_kernel.lane_shared_bytes(WBC_M, WBC_N)}
     shared.update({f"chol_lane_n{n}": chol_kernel.inverse_shared_bytes(n)
                    for n in CHOL_SIZES})
+    shared.update({f"chol_solve_n{n}": chol_kernel.solve_shared_bytes(n)
+                   for n in SOLVE_SIZES})
     libraries = []
     for (name, source, defines), sec in zip(jobs, seconds):
         log = _build.last_build_log(source, defines)
@@ -558,14 +596,269 @@ def kernels_chol_lane(seen) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# the control stack's kernels: K1 at (48, 32), K2 at 150 iterations, K3 at
+# n = 29, K4 at n = 6, on what the stack's own ticks hand them
+# --------------------------------------------------------------------------
+
+def capture_stack_inputs(lanes: int) -> dict:
+    """What the stack's two first outer ticks (cold, then warm) hand every
+    kernel wrapper: the MPC's stage arguments (K1), the WBC's stage arguments
+    (K2) and KKT matrices (K3, n = 64), the plant's mass matrices (K3, n = 29)
+    and the attribution's normal equations (K4)."""
+    seen = {"mpc": [], "lane": [], "kkt": [], "minv": [], "solve": []}
+
+    def record(key, fn):
+        def wrapped(*args, **kw):
+            seen[key].append((args, kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    problem = push_recovery_stack(lanes, seed=SEED, device=DEVICE, dtype=torch.float32)
+    step = stack_fleet_step(problem)
+    with mock.patch.object(qp_module, "admm_stage", record("mpc", admm_kernel.admm_stage)), \
+            mock.patch.object(qp_module, "admm_lane_stage",
+                              record("lane", lane_kernel.admm_lane_stage)), \
+            mock.patch.object(qp_module, "cholesky_inverse_lane",
+                              record("kkt", chol_kernel.cholesky_inverse_lane)), \
+            mock.patch.object(stack_module, "cholesky_inverse_lane",
+                              record("minv", chol_kernel.cholesky_inverse_lane)), \
+            mock.patch.object(stack_module, "spd_solve_lane",
+                              record("solve", chol_kernel.spd_solve_lane)):
+        state, _ = step(problem.state, problem.pushes, *problem.refs)
+        step(state, problem.pushes, *problem.refs)
+    torch.cuda.synchronize()
+    expected = {"mpc": 2 * STACK_MPC_STAGES, "lane": 2 * STACK_INNER,
+                "kkt": 2 * STACK_INNER, "minv": 2, "solve": 2 * STACK_INNER}
+    check({k: len(v) for k, v in seen.items()} == expected,
+          f"the stack's two ticks call each wrapper as configured: {expected}")
+    return seen
+
+
+def f64_distance(kernel_out, plain_out, exact) -> tuple:
+    return rel_err(kernel_out.double(), exact), rel_err(plain_out.double(), exact)
+
+
+def kernels_admm_stage_stack(seen) -> dict:
+    """K1 at the stack MPC's (48, 32) against its plain version, on the stage
+    inputs of the cold tick's first stage and the warm tick's last one."""
+    cases, max_rel, max_abs = [], 0.0, 0.0
+    sources = {"stack_tick1_stage1": seen["mpc"][0], "stack_tick2_stage4": seen["mpc"][-1]}
+    for name, (full, kw) in sources.items():
+        check(bool(torch.isinf(full[4]).any()), f"{name}: bounds include -inf rows")
+        for B in (STACK_LANES, 1000, 1):
+            args = lanes_of(full[:6], B) + tuple(full[6:])
+            v_k, tau_k = admm_kernel.admm_stage(*args, **kw)
+            torch.cuda.synchronize()
+            v_p, tau_p = admm_kernel.admm_stage_reference(*args, **kw)
+            v_e, _ = admm_kernel.admm_stage_reference(*(a.double() for a in args), **kw)
+            ev, et = rel_err(v_k, v_p), rel_err(tau_k, tau_p)
+            ea = max(float((v_k - v_p).abs().max()), float((tau_k - tau_p).abs().max()))
+            ek, ep = f64_distance(v_k, v_p, v_e)
+            cases.append({"inputs": name, "B": B, "rel_err_v": ev, "rel_err_tau": et,
+                          "max_abs_err": ea, "rel_err_vs_float64": ek,
+                          "plain_rel_err_vs_float64": ep})
+            max_rel, max_abs = max(max_rel, ev, et), max(max_abs, ea)
+            check(ev <= REL_TOL and et <= REL_TOL,
+                  f"admm_stage at ({STACK_M}, {STACK_N}) agrees with the plain version to"
+                  f" {REL_TOL} on {name} at B={B}: v {ev}, tau {et}")
+    args, kw = seen["mpc"][-1]
+    kernel_ms = median_ms(lambda: admm_kernel.admm_stage(*args, **kw), 3, 11)
+    plain_ms = median_ms(lambda: admm_kernel.admm_stage_reference(*args, **kw), 1, 3)
+    B, m, n, iters = args[0].shape[0], STACK_M, STACK_N, kw["iters"]
+    flops = iters * 2 * (2 * m * n) * B
+    nbytes = 4 * (B * ((3 * m + 2 * n + 1) + (m + n)) + m * n + m + n)
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {
+        "name": "admm_stage", "path": "stack", "shape": [m, n], "iters": iters,
+        "batch_timed": B, "cases": cases, "max_rel_err": max_rel, "max_abs_err": max_abs,
+        "tolerance_rel": REL_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s", "library_ms": None,
+    }
+
+
+def kernels_admm_lane_stack(seen) -> dict:
+    """K2 on the stack WBC's own operators: one stage of 150 iterations."""
+    cases, max_rel, max_abs = [], 0.0, 0.0
+    for name, (full, kw) in {"stack_tick1_inner1": seen["lane"][0],
+                             "stack_tick2_inner10": seen["lane"][-1]}.items():
+        for B in (STACK_LANES, 1000, 1):
+            args = lanes_of(full, B)
+            v_k, x_k = lane_kernel.admm_lane_stage(*args, **kw)
+            torch.cuda.synchronize()
+            v_p, x_p = lane_kernel.admm_lane_stage_reference(*args, **kw)
+            v_e, x_e = lane_kernel.admm_lane_stage_reference(*(a.double() for a in args), **kw)
+            ev, ex = rel_err(v_k, v_p), rel_err(x_k, x_p)
+            ea = max(float((v_k - v_p).abs().max()), float((x_k - x_p).abs().max()))
+            ek = max(rel_err(v_k.double(), v_e), rel_err(x_k.double(), x_e))
+            ep = max(rel_err(v_p.double(), v_e), rel_err(x_p.double(), x_e))
+            cases.append({"inputs": name, "B": B, "rel_err_v": ev, "rel_err_x": ex,
+                          "max_abs_err": ea, "rel_err_vs_float64": ek,
+                          "plain_rel_err_vs_float64": ep})
+            max_rel, max_abs = max(max_rel, ev, ex), max(max_abs, ea)
+            check(bool(torch.isfinite(v_k).all() and torch.isfinite(x_k).all()),
+                  f"{name}: kernel output finite at B={B}")
+            check(ev <= REAL_OPERATOR_TOL and ex <= REAL_OPERATOR_TOL,
+                  f"admm_lane_stage agrees with the plain version to {REAL_OPERATOR_TOL} on"
+                  f" {name} at B={B}: v {ev}, x {ex}")
+            check(ek <= 2 * ep + REL_TOL,
+                  f"{name}, B={B}: the kernel is as close to the float64 recursion as the"
+                  f" plain version: kernel {ek}, plain {ep}")
+    args, kw = seen["lane"][-1]
+    kernel_ms = median_ms(lambda: lane_kernel.admm_lane_stage(*args, **kw), 2, 9)
+    plain_ms = median_ms(lambda: lane_kernel.admm_lane_stage_reference(*args, **kw), 1, 3)
+    B, m, n, iters = args[0].shape[0], WBC_M, WBC_N, kw["iters"]
+    flops = iters * 2 * (2 * m * n + n * n) * B
+    nbytes = 4 * B * (m * n + n * n + 5 * m + 2 * n)
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {
+        "name": "admm_lane_stage", "path": "stack", "shape": [m, n], "iters": iters,
+        "batch_timed": B, "cases": cases, "max_rel_err": max_rel, "max_abs_err": max_abs,
+        "tolerance_rel": REAL_OPERATOR_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s", "library_ms": None,
+    }
+
+
+def kernels_chol_inverse_stack(seen) -> dict:
+    """K3 at n = 29 on the stack plant's own mass matrices (cold and warm
+    tick), held as on the whole-body loop's KKT matrices; timed beside the
+    library pair."""
+    cases, max_rel, max_abs = [], 0.0, 0.0
+    for tick, ((K,), _) in enumerate(seen["minv"], start=1):
+        out = chol_kernel.cholesky_inverse_lane(K)
+        torch.cuda.synchronize()
+        ref = chol_kernel.cholesky_inverse_lane_reference(K)
+        ek, ep = f64_distance(out, ref, torch.linalg.inv(K.double()))
+        e, ea = rel_err(out, ref), float((out - ref).abs().max())
+        cases.append({"inputs": f"stack_mass_matrix_tick{tick}", "n": NV, "B": K.shape[0],
+                      "rel_err": e, "rel_err_vs_float64": ek,
+                      "plain_rel_err_vs_float64": ep, "max_abs_err": ea})
+        max_rel, max_abs = max(max_rel, e), max(max_abs, ea)
+        check(bool(torch.isfinite(out).all()), f"tick {tick}: M inverts finitely")
+        check(e <= REL_TOL, f"tick {tick}: the stack's M^-1 agrees with the plain version"
+                            f" to {REL_TOL}, got {e}")
+        check(ek <= 4 * ep + REL_TOL, f"tick {tick}: on the stack's M the kernel is as close"
+                                      f" to float64 as the plain version: {ek}, {ep}")
+        check(bool(torch.equal(out, out.transpose(1, 2))), "symmetric bit for bit")
+    (K,), _ = seen["minv"][-1]
+    B, n = K.shape[0], K.shape[1]
+    kernel_ms = median_ms(lambda: chol_kernel.cholesky_inverse_lane(K), 3, 11)
+    plain_ms = median_ms(lambda: chol_kernel.cholesky_inverse_lane_reference(K), 1, 3)
+    library_ms = median_ms(
+        lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(K)[0]), 2, 9)
+    ops_ms = 1e3 * B * n ** 3 / PEAK_F32_FLOPS
+    bytes_ms = 1e3 * 4 * B * 2 * n * n / PEAK_BYTES_PER_S
+    return {
+        "name": "cholesky_inverse_lane", "path": "stack", "shape": [n, n], "batch_timed": B,
+        "cases": cases, "max_rel_err": max_rel, "max_abs_err": max_abs,
+        "tolerance_rel": REL_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "library_call": "torch.linalg.cholesky_ex + torch.cholesky_inverse",
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
+    }
+
+
+def kernels_chol_solve(seen) -> dict:
+    """K4 against its plain version at n in SOLVE_SIZES and on the stack's own
+    normal equations; NaN and non-SPD lanes stay local; timed at the stack's
+    (4096, 6, 6) beside the library pair, and at B = 1 (launch latency)."""
+    cases, max_rel, max_abs = [], 0.0, 0.0
+
+    def compare(K, b, inputs, exact_factor):
+        nonlocal max_rel, max_abs
+        out = chol_kernel.cholesky_solve_lane(K, b)
+        torch.cuda.synchronize()
+        ref = chol_kernel.cholesky_solve_lane_reference(K, b)
+        exact = torch.linalg.solve(K.double(), b.double()[..., None])[..., 0]
+        e, ea = rel_err(out, ref), float((out - ref).abs().max())
+        ek, ep = f64_distance(out, ref, exact)
+        cases.append({"inputs": inputs, "n": K.shape[1], "B": K.shape[0], "rel_err": e,
+                      "rel_err_vs_float64": ek, "plain_rel_err_vs_float64": ep,
+                      "max_abs_err": ea})
+        max_rel, max_abs = max(max_rel, e), max(max_abs, ea)
+        check(bool(torch.isfinite(out).all()), f"{inputs}: solve finite")
+        check(e <= REL_TOL, f"cholesky_solve_lane agrees with the plain version to {REL_TOL}"
+                            f" on {inputs}, n={K.shape[1]}, B={K.shape[0]}: {e}")
+        check(ek <= exact_factor * ep + REL_TOL,
+              f"{inputs}: the kernel is as close to float64 as the plain version: {ek}, {ep}")
+
+    for n in SOLVE_SIZES:
+        for B in (STACK_LANES, 1000, 1):
+            K = spd_batch(B, n, seed=100 + n)
+            b = torch.as_tensor(np.random.default_rng(n).normal(size=(B, n)).astype(np.float32),
+                                device=DEVICE)
+            compare(K, b, "spd", 1.0)
+    for inner in (0, len(seen["solve"]) - 1):
+        (K, b), _ = seen["solve"][inner]
+        compare(K, b, f"stack_attribution_{inner + 1}", 4.0)
+
+    B, n = 1000, 6
+    K = spd_batch(B, n, seed=3)
+    b = torch.ones((B, n), device=DEVICE)
+    clean = chol_kernel.cholesky_solve_lane(K, b)
+    for where, lane in (("nan", 137), ("not_spd", 500)):
+        bad = K.clone()
+        if where == "nan":
+            bad[lane, 4, 1] = float("nan")
+            bad[lane, 1, 4] = float("nan")
+        else:
+            bad[lane, 3, 3] = -1.0
+        out = chol_kernel.cholesky_solve_lane(bad, b)
+        torch.cuda.synchronize()
+        others = torch.ones(B, dtype=torch.bool, device=DEVICE)
+        others[lane] = False
+        check(bool(torch.isnan(out[lane]).all()), f"{where} lane: NaN in its whole x")
+        check(bool(torch.equal(out[others], clean[others])),
+              f"{where} lane: every other lane equals the clean run bit for bit")
+        check(bool(torch.isnan(chol_kernel.cholesky_solve_lane_reference(bad, b)[lane]).all()),
+              f"{where} lane: the plain version gives NaN in the whole lane too")
+
+    (K, b), _ = seen["solve"][-1]
+    B, n = K.shape[0], K.shape[1]
+    kernel_ms = median_ms(lambda: chol_kernel.cholesky_solve_lane(K, b), 5, 21)
+    one_ms = median_ms(lambda: chol_kernel.cholesky_solve_lane(K[:1], b[:1]), 5, 21)
+    plain_ms = median_ms(lambda: chol_kernel.cholesky_solve_lane_reference(K, b), 1, 5)
+    library_ms = median_ms(lambda: torch.cholesky_solve(
+        b[..., None], torch.linalg.cholesky_ex(K)[0])[..., 0], 3, 11)
+    ops_ms = 1e3 * B * (n ** 3 / 3 + 2 * n * n) / PEAK_F32_FLOPS
+    bytes_ms = 1e3 * 4 * B * (n * n + 2 * n) / PEAK_BYTES_PER_S
+    return {
+        "name": "cholesky_solve_lane", "path": "stack", "shape": [n, n], "batch_timed": B,
+        "cases": cases, "nan_lane": "confined", "not_spd_lane": "confined",
+        "max_rel_err": max_rel, "max_abs_err": max_abs, "tolerance_rel": REL_TOL,
+        "kernel_ms": kernel_ms, "kernel_ms_batch_1": one_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "library_call": "torch.linalg.cholesky_ex + torch.cholesky_solve",
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
+    }
+
+
 def phase_kernels(problem, device: dict) -> dict:
-    """Every kernel of both paths against its plain version on the card."""
+    """Every kernel of every path against its plain version on the card, at
+    each path's shapes; keyed ``name`` (the fleet tick's and the whole-body
+    loop's shapes) or ``name@stack``."""
     seen = capture_wbc_stage_inputs(WBC_LANES)
     entries = [kernels_admm_stage(problem),
                kernels_admm_lane(seen, device["max_sm_clock_mhz"] * 1e6, device["sm_count"]),
                kernels_chol_lane(seen)]
+    del seen
+    stack_seen = capture_stack_inputs(STACK_LANES)
+    entries += [kernels_admm_stage_stack(stack_seen), kernels_admm_lane_stack(stack_seen),
+                kernels_chol_inverse_stack(stack_seen), kernels_chol_solve(stack_seen)]
     emit("kernels", kernels=entries)
-    return {e["name"]: e for e in entries}
+    return {e["name"] + ("@stack" if e.get("path") == "stack" else ""): e for e in entries}
 
 
 def all_finite(state) -> bool:
@@ -925,6 +1218,195 @@ def phase_wbc_cross() -> dict:
     return out
 
 
+class PartTimer:
+    """``stack_module.part_timer``: CUDA events around each part of a tick."""
+
+    def __init__(self):
+        self.events = {part: [] for part in stack_module.PARTS}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self.events[name].append((start, end))
+
+    def ms(self) -> dict:
+        return {part: sum(a.elapsed_time(b) for a, b in pairs)
+                for part, pairs in self.events.items()}
+
+
+def stack_tick_record(trace) -> dict:
+    """One outer tick's convergence, as tensors (read after the timed run)."""
+    return {"status": trace.status, "mpc": trace.mpc_converged.sum(),
+            "wbc": trace.wbc_converged.sum(),
+            "rp": torch.stack([trace.wbc_max_rp.max(), trace.wbc_max_rp.median()]),
+            "rd": torch.stack([trace.wbc_max_rd.max(), trace.wbc_max_rd.median()])}
+
+
+def phase_stack(profile: bool) -> dict:
+    """The control stack over STACK_LANES pushed humanoids: STACK_WARM_TICKS
+    outer ticks, then STACK_TIMED_TICKS more, each timed alone by CUDA events
+    with the split by part; 1 s of simulated time in all, as the JAX
+    package's stack bench runs it."""
+    torch.cuda.reset_peak_memory_stats()
+    problem = push_recovery_stack(STACK_LANES, seed=SEED, device=DEVICE, dtype=torch.float32)
+    step = stack_fleet_step(problem)
+    state, records, tick_ms = problem.state, [], []
+    timer = PartTimer()
+    counted = (admm_kernel, lane_kernel, chol_kernel)
+    for module in counted:                # counts of this path start here
+        module.reset_counts()
+    for _ in range(STACK_WARM_TICKS):
+        state, trace = step(state, problem.pushes, *problem.refs)
+        records.append(stack_tick_record(trace))
+    with mock.patch.object(stack_module, "part_timer", timer):
+        for _ in range(STACK_TIMED_TICKS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, trace = step(state, problem.pushes, *problem.refs)
+            end.record()
+            records.append(stack_tick_record(trace))
+            torch.cuda.synchronize()
+            tick_ms.append(start.elapsed_time(end))
+    launches = {"admm_stage": admm_kernel.launch_count(),       # read just after the path
+                "admm_lane_stage": lane_kernel.launch_count(),
+                "cholesky_inverse_lane_n64": chol_kernel.launch_count(WBC_N),
+                "cholesky_inverse_lane_n29": chol_kernel.launch_count(NV),
+                "cholesky_solve_lane": chol_kernel.solve_launch_count()}
+    plain_runs = sum(m.reference_count() for m in counted) + chol_kernel.solve_reference_count()
+    n_ticks = STACK_WARM_TICKS + STACK_TIMED_TICKS
+    expected = {"admm_stage": STACK_MPC_STAGES * n_ticks,
+                "admm_lane_stage": STACK_INNER * n_ticks,
+                "cholesky_inverse_lane_n64": STACK_INNER * n_ticks,
+                "cholesky_inverse_lane_n29": n_ticks,
+                "cholesky_solve_lane": STACK_INNER * n_ticks}
+    split = {part: ms / STACK_TIMED_TICKS for part, ms in timer.ms().items()}
+
+    lanes = STACK_LANES
+    statuses = torch.stack([r["status"] for r in records]).cpu()         # (ticks, lanes)
+    converged = [int((row == 0).sum()) for row in statuses]
+    quarantined = [int((row == 2).sum()) for row in statuses]
+    p = state.plant
+    est_err = (state.push_theta - problem.pushes).abs()
+    est_limit = STACK_EST_REL * problem.pushes.abs() + STACK_EST_ABS
+    dcm_err = float((trace.dcm - problem.stance).abs().max())
+    upright = float(p.base_rotation[:, 2, 2].min())
+    twist = float(p.base_twist.abs().max())
+    med_ms = statistics.median(tick_ms)
+    out = {
+        "lanes": lanes, "robot": "humanoid_23dof", "config": "STACK_R05",
+        "config_fields": problem.config._asdict(),
+        "dtype": "float32", "ticks": n_ticks, "timed_ticks": STACK_TIMED_TICKS,
+        "outer_tick_ms": med_ms, "outer_tick_ms_min": min(tick_ms),
+        "outer_tick_ms_max": max(tick_ms), "outer_tick_ms_each": tick_ms,
+        "outer_lane_ticks_per_s": lanes / (med_ms * 1e-3),
+        "split_ms_per_tick": split, "split_sum_ms": sum(split.values()),
+        "converged_by_tick": converged,
+        "mpc_converged_by_tick": [int(r["mpc"]) for r in records],
+        "wbc_converged_by_tick": [int(r["wbc"]) for r in records],
+        "status_counts_by_tick": [status_counts(row) for row in statuses],
+        "wbc_rp_max_median_by_tick": [[float(f"{v:.3g}") for v in r["rp"].tolist()]
+                                      for r in records],
+        "wbc_rd_max_median_by_tick": [[float(f"{v:.3g}") for v in r["rd"].tolist()]
+                                      for r in records],
+        "push_estimate_err_max_n": float(est_err.max()),
+        "push_estimate_err_median_n": float(est_err.median()),
+        "push_estimate_worst_margin_n": float((est_limit - est_err).min()),
+        "dcm_err_max_m": dcm_err, "min_upright": upright, "max_base_twist": twist,
+        "launches": launches, "launches_expected": expected, "plain_version_runs": plain_runs,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if profile:
+        def run(st, n):
+            for _ in range(n):
+                st, _ = step(st, problem.pushes, *problem.refs)
+            return st, None
+        out["profile"] = profile_ticks(run, state)
+        out["device_idle_share"] = 1.0 - out["profile"]["device_ms_per_tick"] / med_ms
+    emit("stack", **out)
+    check(all(all_finite(leaf) for leaf in (p, state.observer))
+          and bool(torch.isfinite(state.push_theta).all()),
+          "every lane's plant, observer and estimate finite")
+    check(max(quarantined) == 0, f"no lane quarantined on any tick: {quarantined}")
+    check(launches == expected, f"kernel launches as the configuration implies: {launches}"
+                                f" against {expected}")
+    check(plain_runs == 0, "the plain versions never ran on this path")
+    # what the reference's own closed-loop test asserts, on every lane
+    check(upright > STACK_UPRIGHT, f"every lane upright (R[2,2] > {STACK_UPRIGHT}): {upright}")
+    check(twist < STACK_TWIST, f"every lane's base twist under {STACK_TWIST}: {twist}")
+    check(bool((est_err <= est_limit).all()),
+          f"every push estimate within {STACK_EST_REL:.0%} + {STACK_EST_ABS} N of the push:"
+          f" worst margin {out['push_estimate_worst_margin_n']}")
+    check(dcm_err < STACK_DCM, f"every lane's DCM within {STACK_DCM} m of the stance: {dcm_err}")
+    check(min(converged) >= STACK_CONVERGED_SHARE * lanes,
+          f"at least {STACK_CONVERGED_SHARE:.0%} of lanes CONVERGED on each tick: {converged}")
+    return out
+
+
+def phase_stack_cross() -> dict:
+    """The stack's two accuracy contracts on the card, STACK_CROSS_LANES lanes:
+    (a) the production plant (ROS2-W, 2 substeps, lagged M^-1, stiff-path
+    operator) against RK4 in 40 substeps with the exact M, over
+    STACK_CROSS_TICKS outer ticks from the same state and pushes; (b) one
+    outer tick from the same warm state with the MPC on the kernel and on the
+    plain-tensor backend (with and without its refinement pass)."""
+    t0 = time.perf_counter()
+    problem = push_recovery_stack(STACK_CROSS_LANES, seed=SEED, device=DEVICE,
+                                  dtype=torch.float32)
+    rk4 = problem.config._replace(plant_method="rk4", physics_per_wbc=40,
+                                  plant_lagged_minv=False, ros_op_stiff=False)
+    runs = {}
+    for name, config in (("ros2w", problem.config), ("rk4", rk4)):
+        step = stack_fleet_step(problem, config)
+        state, traces = problem.state, []
+        for _ in range(STACK_CROSS_TICKS):
+            state, trace = step(state, problem.pushes, *problem.refs)
+            traces.append(trace)
+        runs[name] = (state, traces)
+    (s_ros, tr_ros), (s_rk, tr_rk) = runs["ros2w"], runs["rk4"]
+    dcm_by_tick = [float((a.dcm - b.dcm).abs().max()) for a, b in zip(tr_ros, tr_rk)]
+    com_by_tick = [float((a.com - b.com).abs().max()) for a, b in zip(tr_ros, tr_rk)]
+    est = float((s_ros.push_theta - s_rk.push_theta).abs().max())
+    seconds_a = time.perf_counter() - t0
+
+    # (b) from the production run's warm state after one tick
+    warm, _ = stack_fleet_step(problem)(problem.state, problem.pushes, *problem.refs)
+    plans = {}
+    for name, backend, refine in (("cuda", "cuda", None), ("torch", "torch", None),
+                                  ("torch_no_refine", "torch", False)):
+        solve = dcm_module.solve_dcm_mpc if refine is None else functools.partial(
+            dcm_module.solve_dcm_mpc, refine=refine)
+        with mock.patch.object(stack_module, "solve_dcm_mpc", solve):
+            st, tr = stack_fleet_step(problem, problem.config._replace(mpc_backend=backend))(
+                warm, problem.pushes, *problem.refs)
+        plans[name] = (st.warm_zmp, st.warm_y, tr.mpc_converged)
+    diff = {name: {"plan": float((plans[name][0] - plans["cuda"][0]).abs().max()),
+                   "duals": float((plans[name][1] - plans["cuda"][1]).abs().max()),
+                   "mpc_status_mismatches": int((plans[name][2] != plans["cuda"][2]).sum())}
+            for name in ("torch", "torch_no_refine")}
+    out = emit("stack_cross", lanes=STACK_CROSS_LANES, ticks=STACK_CROSS_TICKS,
+               dcm_diff_by_tick_m=dcm_by_tick, com_diff_by_tick_m=com_by_tick,
+               push_estimate_diff_n=est, tolerance_dcm_m=STACK_CROSS_DCM,
+               tolerance_estimate_n=STACK_CROSS_EST,
+               rk4_status_counts=status_counts(tr_rk[-1].status),
+               ros2w_status_counts=status_counts(tr_ros[-1].status),
+               seconds_plants=seconds_a, mpc_backends=diff, tolerance_plan=STACK_PLAN_TOL,
+               mpc_converged_cuda=int(plans["cuda"][2].sum()))
+    check(all(all_finite(s.plant) for s in (s_ros, s_rk)), "both plants finite")
+    check(max(dcm_by_tick) <= STACK_CROSS_DCM,
+          f"ROS2-W within {STACK_CROSS_DCM} m of RK4 on the DCM at every tick: {dcm_by_tick}")
+    check(est <= STACK_CROSS_EST, f"push estimates within {STACK_CROSS_EST} N: {est}")
+    for name, d in diff.items():
+        check(d["plan"] <= STACK_PLAN_TOL and d["mpc_status_mismatches"] == 0,
+              f"MPC plan on {name} within {STACK_PLAN_TOL} of the kernel's, identical"
+              f" status: {d}")
+    return out
+
+
 def study_factorization(problem, lanes: int = STUDY_LANES, ticks: int = 8) -> dict:
     """Diagnostic, off by default: where the factorization is computed, and in
     which precision, against the fleet's convergence over the first ticks.
@@ -986,7 +1468,7 @@ def main() -> None:
     if "build" in phases:
         phase_build()
     kernels = phase_kernels(problem, device) if "kernels" in phases else None
-    tick = wbc = None
+    tick = wbc = stack = None
     if "tick" in phases:
         check(kernels is not None, "the tick phase needs the kernels phase's timing")
         tick = phase_tick(problem, kernels["admm_stage"]["kernel_ms"], opts.profile)
@@ -997,28 +1479,44 @@ def main() -> None:
         wbc = phase_wbc(kernels, opts.profile)
     if "wbc_cross" in phases:
         phase_wbc_cross()
+    if "stack" in phases:
+        stack = phase_stack(opts.profile)
+    if "stack_cross" in phases:
+        phase_stack_cross()
     if opts.study_factorization:
         study_factorization(problem)
 
     print(device["nvidia_smi"], flush=True)
     if kernels is not None:
-        launches = {
-            "admm_stage": tick["kernel_launches"] if tick else 0,
-            "admm_lane_stage": wbc["kernel_launches"]["admm_lane_stage"] if wbc else 0,
-            "cholesky_inverse_lane":
-                wbc["kernel_launches"]["cholesky_inverse_lane"] if wbc else 0}
-        modules = {"admm_stage": admm_kernel, "admm_lane_stage": lane_kernel,
-                   "cholesky_inverse_lane": chol_kernel}
+        # launches of each kernel on each path, counted from 0 just before it
+        none = {}
+        wbc_l = wbc["kernel_launches"] if wbc else none
+        stack_l = stack["launches"] if stack else none
+        by_path = {
+            "admm_stage": {"tick": tick["kernel_launches"] if tick else 0},
+            "admm_stage@stack": {"stack": stack_l.get("admm_stage", 0)},
+            "admm_lane_stage": {"wbc": wbc_l.get("admm_lane_stage", 0)},
+            "admm_lane_stage@stack": {"stack": stack_l.get("admm_lane_stage", 0)},
+            "cholesky_inverse_lane": {"wbc": wbc_l.get("cholesky_inverse_lane", 0),
+                                      "stack": stack_l.get("cholesky_inverse_lane_n64", 0)},
+            "cholesky_inverse_lane@stack": {
+                "stack": stack_l.get("cholesky_inverse_lane_n29", 0)},
+            "cholesky_solve_lane@stack": {"stack": stack_l.get("cholesky_solve_lane", 0)},
+        }
+        origin = {"admm_stage": (admm_kernel.SOURCE, admm_kernel.REPLACES),
+                  "admm_lane_stage": (lane_kernel.SOURCE, lane_kernel.REPLACES),
+                  "cholesky_inverse_lane": (chol_kernel.SOURCE, chol_kernel.REPLACES),
+                  "cholesky_solve_lane": (chol_kernel.SOLVE_SOURCE, chol_kernel.SOLVE_REPLACES)}
         print(json.dumps({"kernels": [{
-            "name": name, "route": "cuda",
-            "source": "blf_tpu_torch/csrc/" + modules[name].SOURCE,
-            "replaces": modules[name].REPLACES,
-            "launches": launches[name],
+            "name": k["name"], "route": "cuda", "shape": k["shape"],
+            "source": "blf_tpu_torch/csrc/" + origin[k["name"]][0],
+            "replaces": origin[k["name"]][1],
+            "launches": sum(by_path[key].values()), "launches_by_path": by_path[key],
             "max_abs_err": k["max_abs_err"], "max_rel_err": k["max_rel_err"],
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
-        } for name, k in kernels.items()],
+        } for key, k in kernels.items()],
             "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
     ran_all = set(phases) == set(PHASES)
     print(json.dumps({"ok": ran_all, "device": {

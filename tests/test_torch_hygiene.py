@@ -144,14 +144,69 @@ def test_kernel_sources_name_what_they_replace():
     ``REPLACES`` points at a line of the JAX package that opens that kernel."""
     from blf_tpu_torch.ops.cuda import admm, admm_lane, linalg
 
-    for module, function in ((admm, "_stage_kernel_t"), (admm_lane, "_lane_kernel"),
-                             (linalg, "_inverse_kernel")):
-        source = (PACKAGE / "csrc" / module.SOURCE).read_text()
+    for source_name, replaces, function in (
+            (admm.SOURCE, admm.REPLACES, "_stage_kernel_t"),
+            (admm_lane.SOURCE, admm_lane.REPLACES, "_lane_kernel"),
+            (linalg.SOURCE, linalg.REPLACES, "_inverse_kernel"),
+            (linalg.SOLVE_SOURCE, linalg.SOLVE_REPLACES, "_solve_kernel")):
+        source = (PACKAGE / "csrc" / source_name).read_text()
         assert "Replaces the TPU kernel" in source and function in source
         assert "What bounds it on an H100" in source and "Design" in source
         assert "use_fast_math" in source and "cublas" not in source.lower()
-        path, line = module.REPLACES.split(":")
+        path, line = replaces.split(":")
         assert f"def {function}(" in (ROOT / path).read_text().splitlines()[int(line) - 1]
+    # K3 and K4 share one factorization, in one header
+    for source_name in (linalg.SOURCE, linalg.SOLVE_SOURCE):
+        assert '#include "chol_common.cuh"' in (PACKAGE / "csrc" / source_name).read_text()
+
+
+def test_library_path_follows_the_headers_a_source_includes(monkeypatch, tmp_path):
+    """An edited header builds anew: the library's name hashes every header
+    of ``csrc/`` that a source includes, through other headers too."""
+    from blf_tpu_torch.ops.cuda import _build, linalg
+
+    assert [p.name for p in _build.source_files(linalg.SOLVE_SOURCE)] == [
+        "chol_solve.cu", "chol_common.cuh"]
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    paths = []
+    for content in ("int x = 1;", "int x = 2;"):
+        (tmp_path / "b.cuh").write_text(content)
+        paths.append(_build.library_path("k.cu", {"N": 6}))
+    assert paths[0] != paths[1] and paths[0].parent == tmp_path / "build"
+    assert _build.library_path("k.cu", {"N": 6}) == paths[1]     # stable otherwise
+
+
+def test_no_fallback_in_the_solve_kernel_wrapper(monkeypatch, tmp_path):
+    """K4's wrapper serves CPU and CUDA tensors and raises on anything else; a
+    failed build raises and leaves nothing behind."""
+    from blf_tpu_torch.ops.cuda import _build, linalg
+
+    K, b = torch.zeros((2, 6, 6), device="meta"), torch.zeros((2, 6), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        linalg.cholesky_solve_lane(K, b)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        linalg.spd_solve_lane(K, b)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "false")   # a compiler that fails
+    monkeypatch.setattr(linalg, "_solve_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc failed to build chol_solve.cu"):
+        linalg.build_chol_solve(6)
+    assert not list(tmp_path.glob("*.so")) and not linalg._solve_libs
+    assert "chol_solve_chol_n6" in _build.library_path(linalg.SOLVE_SOURCE, {"CHOL_N": 6}).name
+
+
+def test_the_stack_problem_takes_the_gpu_by_default(monkeypatch):
+    from blf_tpu_torch.convert import stack_state_from_numpy
+    from blf_tpu_torch.problems import push_recovery_stack
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        push_recovery_stack(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stack_state_from_numpy(push_recovery_stack(2, device="cpu").state)
 
 
 def test_f32_matmuls_turns_tf32_off_for_the_call():

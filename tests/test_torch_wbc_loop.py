@@ -72,8 +72,10 @@ def box_inertia(mass, lx, ly, lz):
     return mass / 12.0 * np.diag([ly * ly + lz * lz, lx * lx + lz * lz, lx * lx + ly * ly])
 
 
-def make_biped(builder_cls):
-    """Pelvis and two legs of three pitch joints each, a sole frame a foot."""
+def make_biped(builder_cls, push_frame=False):
+    """Pelvis and two legs of three pitch joints each, a sole frame a foot;
+    with ``push_frame`` also a frame "imu" on the pelvis, where the control
+    stack's push acts (``tests/test_torch_stack.py``)."""
     b = builder_cls(base_name="pelvis", base_mass=12.0, base_com=(0.0, 0.0, 0.1),
                     base_inertia=box_inertia(12.0, 0.2, 0.3, 0.4))
     for side, sgn in (("l", 1.0), ("r", -1.0)):
@@ -87,6 +89,8 @@ def make_biped(builder_cls):
                    joint_position=(0, 0, -0.24), mass=0.6, com=(0.03, 0, -0.03),
                    inertia=box_inertia(0.6, 0.14, 0.07, 0.04))
         b.add_frame(f"{side}_sole", f"{side}_foot", position=(0.03, 0.0, -0.05))
+    if push_frame:
+        b.add_frame("imu", "pelvis", position=(0.0, 0.0, 0.15))
     return b.finalize()
 
 
