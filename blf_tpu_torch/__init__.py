@@ -16,6 +16,12 @@ whole-body QP, per-lane ADMM, RK4 plant), with the per-lane ADMM stage and
 the batched Cholesky inverse as hand-written CUDA kernels
 (``csrc/admm_lane.cu``, ``csrc/chol_lane.cu``).
 
+Slice 2b: the whole control stack over a push-recovery fleet of the humanoid,
+:func:`blf_tpu_torch.mpc.stack.make_fleet_stack_step` (DCM-MPC, whole-body
+QP, contact model, stiff ROS2-W plant, momentum observer and RLS), with the
+batched SPD solve of the wrench attribution as a hand-written CUDA kernel
+(``csrc/chol_solve.cu``, sharing ``csrc/chol_common.cuh`` with the inverse).
+
 Rules that hold everywhere in the package:
 
 - **Device.** ``device=None`` means ``torch.device("cuda")``; without CUDA the

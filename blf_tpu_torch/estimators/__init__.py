@@ -1,4 +1,4 @@
 """Estimators (counterpart of ``blf_tpu/estimators``).
 
-Ported: ``rls``. Not yet ported: ``rls_parallel``, ``wrench_observer``.
+Ported: ``rls``, ``wrench_observer``. Not yet ported: ``rls_parallel``.
 """

@@ -1,6 +1,6 @@
 """Models (counterpart of ``blf_tpu/models``).
 
-Ported: ``lipm``, ``kinematics``, ``robots``, ``rigid_body`` (all but
-``make_contact_dynamics``). Not yet ported: ``systems``, ``contact``,
-``foot``, ``urdf``.
+Ported: ``lipm``, ``kinematics``, ``robots``, ``rigid_body``, ``contact``
+(all but ``params_from_handler``). Not yet ported: ``systems``, ``foot``,
+``urdf``.
 """

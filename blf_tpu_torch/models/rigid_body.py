@@ -28,6 +28,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from blf_tpu_torch.models.contact import ContactState, contact_wrench
 from blf_tpu_torch.models.kinematics import (
     KinematicTree,
     LinkPoses,
@@ -384,8 +385,6 @@ def make_contact_dynamics(
     frame name -> (null_rotation, null_position) (the contact model's
     zero-force pose, typically the planned foothold); no joint torques.
     """
-    from blf_tpu_torch.models import contact as contact_mod
-
     def dynamics(state: FloatingBaseState, null_poses, t=0.0) -> FloatingBaseState:
         poses = forward_kinematics(
             tree, state.base_position, state.base_rotation, state.joint_positions)
@@ -394,8 +393,8 @@ def make_contact_dynamics(
         for frame_name, cparams in contact_params_by_frame.items():
             R_f, p_f, v_f = frame_kinematics(tree, poses, frame_name, nu)
             R0, p0 = null_poses[frame_name]
-            wrenches[frame_name] = contact_mod.contact_wrench(
-                cparams, contact_mod.ContactState(
+            wrenches[frame_name] = contact_wrench(
+                cparams, ContactState(
                     position=p_f, rotation=R_f,
                     linear_velocity=v_f[..., :3], angular_velocity=v_f[..., 3:],
                     null_position=p0, null_rotation=R0))

@@ -1,6 +1,6 @@
 """Model-predictive control (counterpart of ``blf_tpu/mpc``).
 
 Ported: ``qp`` (shared-operator and per-lane solvers), ``dcm``,
-``wholebody``. Not yet ported: the row-sharded solve, ``stack``,
+``wholebody``, ``stack``. Not yet ported: the row-sharded solve,
 ``riccati``, ``sqp``, ``dcm_planner``.
 """

@@ -1,8 +1,8 @@
 """Numerical building blocks (counterpart of ``blf_tpu/ops``).
 
 Ported: ``precision``, ``linalg`` (the unrolled small-PSD solves), ``lie``,
-``integrators`` (the explicit steps), ``cuda/`` (the Hopper kernels that
-replace ``blf_tpu/ops/pallas``: ``admm``, ``admm_lane``, ``linalg``'s batched
-inverse). Not yet ported: ``advanceable``, the Rosenbrock integrator, and the
-Pallas kernels ``linalg`` (single-right-hand-side solve) and ``rollout``.
+``integrators`` (the explicit steps and the stiff ROS2-W integrator),
+``cuda/`` (the Hopper kernels that replace ``blf_tpu/ops/pallas``: ``admm``,
+``admm_lane``, ``linalg``'s batched inverse and solve). Not yet ported:
+``advanceable`` and the Pallas kernel ``rollout``.
 """

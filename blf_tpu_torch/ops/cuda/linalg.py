@@ -95,9 +95,9 @@ def reset_counts() -> None:
 
 
 def _cholesky_columns(K: torch.Tensor):
-    """The kernels' factorization (``chol_common.cuh``): ``(L, diag)`` with the
-    strict lower factor in ``L`` and ``L[j, j] = s d`` in ``diag`` (B, n)."""
-    B, n, _ = K.shape
+    """The kernels' factorization (``chol_common.cuh``), column by column: the
+    lower factor ``L`` (B, n, n) with ``L[j, j] = s d``."""
+    n = K.shape[-1]
     L = torch.zeros_like(K)
     for j in range(n):
         lj = L[:, j, :j]                                          # (B, j)

@@ -291,17 +291,17 @@ class PushRecoveryStack(NamedTuple):
 
 
 def push_recovery_stack(batch: int, *, seed: int = 0, device=None,
-                        dtype: Optional[torch.dtype] = None,
-                        config: StackConfig = STACK_R05) -> PushRecoveryStack:
+                        dtype: Optional[torch.dtype] = None) -> PushRecoveryStack:
     """The stack bench's workload: ``batch`` 23-DoF humanoids standing at rest
     in the posture of :func:`standing_fleet` (no per-lane offsets), the DCM
     and ZMP references on the stance point, the support box around it, each
     sole's null pose one ``ground_sag`` above it (the ground starts loaded
     with the standing weight), and per-lane pushes uniform in +-8 N on each
-    horizontal axis drawn from ``seed``."""
+    horizontal axis drawn from ``seed``; in the ``STACK_R05`` configuration."""
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    config = STACK_R05
     tree = make_humanoid_23dof()
     n, horizon = tree.num_dofs, config.horizon
     q_nom = as_t(_standing_posture(tree))

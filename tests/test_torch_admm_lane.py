@@ -19,6 +19,10 @@ import torch
 from blf_tpu.ops.pallas import admm_lane as jlane
 from blf_tpu_torch.ops.cuda import admm_lane as tlane
 
+# One intra-op thread: the tensors here are small, and test workers running side
+# by side would each start a thread per core and slow every other worker down.
+torch.set_num_threads(1)
+
 ALPHA = 1.6
 
 

@@ -23,6 +23,10 @@ from blf_tpu.mpc.qp import factor_shared_qp
 from blf_tpu.ops.pallas.admm import admm_stage as pallas_admm_stage
 from blf_tpu_torch.ops.cuda import admm as port
 
+# One intra-op thread: the tensors here are small, and test workers running side
+# by side would each start a thread per core and slow every other worker down.
+torch.set_num_threads(1)
+
 ALPHA = 1.6
 
 

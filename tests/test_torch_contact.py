@@ -22,7 +22,7 @@ from blf_tpu_torch.models import contact as tcontact
 from blf_tpu_torch.models import kinematics as tkin
 from blf_tpu_torch.models import rigid_body as trb
 from blf_tpu_torch.ops.lie import so3_exp
-from test_torch_wbc_loop import SOLES, make_biped
+from test_torch_wbc_loop import SOLES, make_biped, reference_jit
 
 torch.set_num_threads(1)
 
@@ -113,7 +113,7 @@ def test_contact_dynamics_on_the_biped_matches_the_reference():
     jparams = jcontact.ContactParams(*(jnp.asarray(v) for v in ground))
     jdyn = jrb.make_contact_dynamics(jtree, {f: jparams for f in SOLES}, **kw)
     jnull = {f: tuple(jnp.asarray(a) for a in v) for f, v in null.items()}
-    ref = jax.jit(jax.vmap(lambda s: jdyn(s, jnull)))(
+    ref = reference_jit(jax.vmap(lambda s: jdyn(s, jnull)))(
         jrb.FloatingBaseState(**{k: jnp.asarray(v) for k, v in state.items()}))
 
     ttree = make_biped(tkin.KinematicTreeBuilder)

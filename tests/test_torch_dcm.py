@@ -18,6 +18,10 @@ from blf_tpu_torch.convert import lipm_params_from_numpy
 from blf_tpu_torch.mpc import dcm as tdcm
 from blf_tpu_torch.problems import example_problem, stationary_push_recovery
 
+# One intra-op thread: the tensors here are small, and test workers running side
+# by side would each start a thread per core and slow every other worker down.
+torch.set_num_threads(1)
+
 NP_DTYPE = np.float32 if F32_LANE else np.float64
 T_DTYPE = torch.float32 if F32_LANE else torch.float64
 J_DTYPE = jnp.dtype(NP_DTYPE)

@@ -22,6 +22,10 @@ from blf_tpu_torch.parallel import sweep as tsweep
 from blf_tpu_torch.problems import stationary_push_recovery
 from blf_tpu_torch.utils.status import SolverStatus, status_counts
 
+# One intra-op thread: the tensors here are small, and test workers running side
+# by side would each start a thread per core and slow every other worker down.
+torch.set_num_threads(1)
+
 NP_DTYPE = np.float32 if F32_LANE else np.float64
 T_DTYPE = torch.float32 if F32_LANE else torch.float64
 J_DTYPE = jnp.dtype(NP_DTYPE)

@@ -17,6 +17,10 @@ import torch
 
 import blf_tpu_torch
 
+# One intra-op thread: the tensors here are small, and test workers running side
+# by side would each start a thread per core and slow every other worker down.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "blf_tpu_torch"
 FORBIDDEN = ("jax", "blf_tpu", "triton")

@@ -14,6 +14,10 @@ import torch
 from blf_tpu.ops import lie as jlie
 from blf_tpu_torch.ops import lie as tlie
 
+# One intra-op thread: the tensors here are small, and test workers running side
+# by side would each start a thread per core and slow every other worker down.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-12, atol=1e-12)
 RNG = np.random.default_rng(0)
 B = 7

@@ -18,6 +18,10 @@ from blf_tpu_torch.estimators import rls as trls
 from blf_tpu_torch.models import lipm as tlipm
 from blf_tpu_torch.ops import linalg as tlinalg
 
+# One intra-op thread: the tensors here are small, and test workers running side
+# by side would each start a thread per core and slow every other worker down.
+torch.set_num_threads(1)
+
 NP_DTYPE = np.float32 if F32_LANE else np.float64
 T_DTYPE = torch.float32 if F32_LANE else torch.float64
 DT = 0.1

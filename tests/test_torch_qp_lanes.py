@@ -34,6 +34,10 @@ from blf_tpu_torch.mpc import dcm as tdcm
 from blf_tpu_torch.mpc import qp as tqp
 from blf_tpu_torch.ops.cuda import admm_lane, linalg
 
+# One intra-op thread: the tensors here are small, and test workers running side
+# by side would each start a thread per core and slow every other worker down.
+torch.set_num_threads(1)
+
 TIGHT = 1e-8
 LOOSE = 1e-4
 FIELDS = ("x", "y", "z", "primal_residual", "dual_residual", "objective")

@@ -24,6 +24,10 @@ from blf_tpu_torch.convert import factors_from_numpy, qp_solution_to_numpy
 from blf_tpu_torch.mpc import qp as tqp
 from blf_tpu_torch.ops.cuda import admm as stage
 
+# One intra-op thread: the tensors here are small, and test workers running side
+# by side would each start a thread per core and slow every other worker down.
+torch.set_num_threads(1)
+
 NP_DTYPE = np.float32 if F32_LANE else np.float64
 T_DTYPE = torch.float32 if F32_LANE else torch.float64
 H = 8

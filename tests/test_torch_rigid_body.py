@@ -20,6 +20,11 @@ from blf_tpu_torch.models import kinematics as tkin
 from blf_tpu_torch.models import rigid_body as trb
 from blf_tpu_torch.models.robots import HUMANOID_SOLE_FRAMES, make_humanoid_23dof
 from blf_tpu_torch.ops.lie import so3_exp
+from test_torch_wbc_loop import reference_jit
+
+# One intra-op thread: the tensors here are small, and test workers running side
+# by side would each start a thread per core and slow every other worker down.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-9, atol=1e-9)
 JTREE = jax_humanoid()
@@ -124,7 +129,7 @@ def torch_everything(s):
 @pytest.fixture(scope="module")
 def both():
     s = random_states()
-    ref = jax.jit(jax.vmap(jax_everything))({k: jnp.asarray(v) for k, v in s.items()})
+    ref = reference_jit(jax.vmap(jax_everything))({k: jnp.asarray(v) for k, v in s.items()})
     ref = {k: np.asarray(v) for k, v in ref.items()}
     st = {k: torch.as_tensor(v) for k, v in s.items()}
     with torch.no_grad():
@@ -207,5 +212,18 @@ def test_a_matrix_that_is_not_positive_definite_gives_nan_in_its_lane_only():
 
 
 def test_contact_dynamics_wait_for_the_contact_model():
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        trb.make_contact_dynamics(TTREE, {})
+    """The contact model is ported (``tests/test_torch_contact.py`` holds the
+    closed loop to the reference on a biped): with no contact frame the
+    closed-loop dynamics are the engine's own under zero torques."""
+    rng = np.random.default_rng(9)
+    n = TTREE.num_dofs
+    f64 = dict(dtype=torch.float64)
+    state = trb.FloatingBaseState(
+        torch.as_tensor(rng.normal(0, 0.1, (2, 6))), torch.as_tensor(rng.normal(0, 0.1, (2, n))),
+        torch.zeros(2, 3, **f64), torch.eye(3, **f64).repeat(2, 1, 1),
+        torch.as_tensor(rng.uniform(-0.2, 0.2, (2, n))))
+    closed = trb.make_contact_dynamics(TTREE, {}, rho=1.0)(state, {})
+    plain = trb.floating_base_dynamics(
+        TTREE, state, trb.FloatingBaseInput(torch.zeros(2, n, **f64), {}), rho=1.0)
+    for a, b in zip(closed, plain):
+        assert torch.equal(a, b)

@@ -33,7 +33,7 @@ from blf_tpu_torch.mpc import stack as tstack
 from blf_tpu_torch.mpc.wholebody import WholeBodyParams
 from blf_tpu_torch.ops import integrators as tint
 from blf_tpu_torch.ops.lie import so3_exp
-from test_torch_wbc_loop import SOLES, make_biped
+from test_torch_wbc_loop import SOLES, make_biped, reference_jit
 
 torch.set_num_threads(1)
 
@@ -76,7 +76,7 @@ def both(lam, lanes):
 def test_step_response_and_stiff_decay_match_the_reference_and_the_closed_form():
     lam, lanes, dt, steps = 1e4, 3, 1e-2, 200
     fj, ft, sj, st = both(lam, lanes)
-    ref = jax.jit(jax.vmap(lambda s: jint.integrate_rosenbrock(
+    ref = reference_jit(jax.vmap(lambda s: jint.integrate_rosenbrock(
         fj, s, dt=dt, num_steps=steps, u=jnp.ones(1))))(sj)
     out = tint.integrate_rosenbrock(ft, st, dt=dt, num_steps=steps,
                                     u=torch.ones(1, dtype=torch.float64))
@@ -154,7 +154,7 @@ def test_stiff_plant_operator_and_substeps_match_the_reference():
                                         dt=dt, num_steps=2, u=tau, operator=op)
         return op, nxt
 
-    ref_op, ref_next = jax.jit(jax.vmap(jax_lane))(
+    ref_op, ref_next = reference_jit(jax.vmap(jax_lane))(
         jrb.FloatingBaseState(**{k: jnp.asarray(v) for k, v in state.items()}),
         jnp.asarray(torques), jnp.asarray(push))
 

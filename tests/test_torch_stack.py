@@ -48,7 +48,7 @@ from blf_tpu_torch.mpc import stack as tstack
 from blf_tpu_torch.mpc.wholebody import WholeBodyParams
 from blf_tpu_torch.ops.cuda import admm, admm_lane, linalg
 from blf_tpu_torch.utils.status import SolverStatus
-from test_torch_wbc_loop import SOLES, make_biped
+from test_torch_wbc_loop import SOLES, make_biped, reference_jit
 
 # One intra-op thread: the tensors here are a few lanes wide, so more threads
 # gain nothing, and test workers running side by side would each start a
@@ -94,7 +94,7 @@ def reference():
     config = jstack.StackConfig(**CONFIG, mpc_backend="pallas_f32", wbc_backend="pallas")
     lipm = JLIPMParams(jnp.asarray(s["com"][2]), jnp.asarray(9.81))
     null_poses = {f: (jnp.eye(3), jnp.asarray(p)) for f, p in s["anchors"].items()}
-    step = jax.jit(jstack.make_fleet_stack_step(
+    step = reference_jit(jstack.make_fleet_stack_step(
         tree, JWholeBodyParams(contact_frames=SOLES), lipm, config, null_poses,
         q_ref=jnp.asarray(s["q"]), com_height_ref=float(s["com"][2])))
     n = tree.num_dofs

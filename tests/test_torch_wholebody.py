@@ -28,6 +28,7 @@ from blf_tpu_torch.convert import (floating_base_state_from_numpy,
                                    wholebody_task_from_numpy)
 from blf_tpu_torch.mpc import wholebody as twb
 from blf_tpu_torch.ops.lie import so3_exp
+from test_torch_wbc_loop import reference_jit
 from blf_tpu_torch.problems import standing_fleet
 
 # One intra-op thread: the tensors here are a few lanes wide, so more threads
@@ -76,7 +77,7 @@ def test_build_wholebody_qp_matches_the_reference(fleet):
     at the IMU frame: every block of the transcription is exercised."""
     ext_frames = ("imu",)
     s, task = moving_states(fleet)
-    build = jax.jit(jax.vmap(lambda st, tk: jwb.build_wholebody_qp(
+    build = reference_jit(jax.vmap(lambda st, tk: jwb.build_wholebody_qp(
         JTREE, jparams(fleet), st, tk, ext_frames)))
     ref = build(jax_state(s), jax_task(task))
     out = twb.build_wholebody_qp(

@@ -23,7 +23,7 @@ from blf_tpu_torch.estimators import wrench_observer as tobs
 from blf_tpu_torch.models import kinematics as tkin
 from blf_tpu_torch.models import rigid_body as trb
 from blf_tpu_torch.ops.lie import so3_exp
-from test_torch_wbc_loop import make_biped
+from test_torch_wbc_loop import make_biped, reference_jit
 
 torch.set_num_threads(1)
 
@@ -53,7 +53,7 @@ def test_observer_steps_scan_and_attribution_match_the_reference():
     tstates = trb.FloatingBaseState(**{k: torch.as_tensor(v) for k, v in states.items()})
     first = lambda s: type(s)(*(leaf[0] for leaf in s))
 
-    @jax.jit
+    @reference_jit
     def reference(states, torques):
         def lane(st, tau):
             params, obs0 = jobs.init_momentum_observer(
