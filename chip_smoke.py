@@ -143,7 +143,7 @@ STACK_SETTLED_TICKS = 4
 STACK_CROSS_LANES, STACK_CROSS_TICKS = 256, 4
 STACK_CROSS_DCM, STACK_CROSS_EST = 3e-3, 1.5     # tests/test_control_stack.py:292-346
 STACK_PLAN_TOL = 1e-5
-GRAPH_TOL = 1e-4     # one inner tick of RK4, graph against eager: cuSOLVER against MAGMA
+GRAPH_TOL = 1e-4     # one inner tick of RK4, graph against eager: trsm against MAGMA's potrs
 DEVICE = torch.device("cuda")
 PHASES = ("device", "build", "kernels", "tick", "cross", "wbc", "wbc_cross", "stack",
           "stack_cross")
@@ -1369,17 +1369,26 @@ def phase_stack(profile: bool) -> dict:
     return out
 
 
+def triangular_cholesky_solve(b, L, upper=False):
+    """``torch.cholesky_solve`` of a lower factor as two triangular solves
+    (cuBLAS's batched ``trsm``), which a CUDA graph can capture: the batched
+    ``potrs`` behind ``torch.cholesky_solve``, MAGMA's by default and
+    cuSOLVER's, allocates or synchronises inside a capture."""
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
+
+
 class GraphedRK4:
     """Stands in for ``stack_module.integrate`` in the RK4 reference plant of
     phase ``stack_cross``. An inner tick there integrates 40 RK4 substeps of one
     dynamics closure: 160 evaluations that eager PyTorch dispatches a small
     kernel at a time, some 50 ms of host time each. Here each call captures one
     substep into a CUDA graph and replays it ``num_steps`` times: the same
-    arithmetic (the dynamics ignore ``t``), with the batched Cholesky solve of
-    the exact M on cuSOLVER while capturing (MAGMA's batched path, the default,
-    synchronises with the host). The first call is also run eagerly and the
-    two results are compared. Should a capture fail, the error is kept and
-    every call from then on runs eagerly: slower, and no less right."""
+    arithmetic (the dynamics ignore ``t``), with the Cholesky solve of the exact
+    M as two triangular solves (``triangular_cholesky_solve``). The first call
+    is also run eagerly and the two results are compared. Should a capture
+    fail, the error is kept and every call from then on runs eagerly: slower,
+    and no less right."""
 
     def __init__(self):
         self.calls = 0
@@ -1397,9 +1406,7 @@ class GraphedRK4:
     def replayed(self, f, x0, *, dt, num_steps, u, method):
         step = integrators.STEP_FUNCTIONS[method]
         static_x = type(x0)(*(leaf.clone() for leaf in x0))
-        linalg_backend = torch.backends.cuda.preferred_linalg_library()
-        torch.backends.cuda.preferred_linalg_library("cusolver")
-        try:
+        with mock.patch.object(torch, "cholesky_solve", triangular_cholesky_solve):
             if self.calls == 0:       # lazy initialisations happen outside a capture
                 side = torch.cuda.Stream()
                 side.wait_stream(torch.cuda.current_stream())
@@ -1409,8 +1416,6 @@ class GraphedRK4:
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 static_out = step(f, static_x, u, 0.0, dt)
-        finally:
-            torch.backends.cuda.preferred_linalg_library(linalg_backend)
         for _ in range(num_steps):
             graph.replay()
             for dst, src in zip(static_x, static_out):

@@ -22,6 +22,7 @@ from blf_tpu.mpc.dcm import build_dcm_qp
 from blf_tpu.mpc.qp import factor_shared_qp
 from blf_tpu.ops.pallas.admm import admm_stage as pallas_admm_stage
 from blf_tpu_torch.ops.cuda import admm as port
+from test_torch_wbc_loop import run_reference
 
 # One intra-op thread: the tensors here are small, and test workers running side
 # by side would each start a thread per core and slow every other worker down.
@@ -43,8 +44,8 @@ def stage_problem(horizon, B, np_dtype, seed=0):
     pb = jnp.broadcast_to(jnp.asarray([0.1, 0.1, 0.06, 0.06], jd), (N, 4))
     rng = np.random.default_rng(seed)
     dcm0 = jnp.asarray(rng.normal(0, 0.02, (B, 2)), jd)
-    P, q, A, l, u = build_dcm_qp(params, 0.1, dcm0, dr, zr, pA, pb)
-    f = factor_shared_qp(P, A, jnp.arange(A.shape[0]) < 2 * N)
+    P, q, A, l, u = run_reference(build_dcm_qp, params, 0.1, dcm0, dr, zr, pA, pb)
+    f = run_reference(factor_shared_qp, P, A, jnp.arange(A.shape[0]) < 2 * N)
     m, n = f.A_s.shape
     q = q + jnp.asarray(rng.normal(0, 0.05, (B, n)), jd)
     arrs = dict(
@@ -85,8 +86,8 @@ def test_f32_matches_pallas_interpret(B, iters):
     """(m, n) = (96, 64), float32, against the TPU kernel in interpret mode."""
     a = stage_problem(16, B, np.float32)
     assert a["G2"].shape == (96, 64) and np.isinf(a["l"]).any()
-    ref_v, ref_tau = pallas_admm_stage(
-        *(jnp.asarray(a[k]) for k in ORDER), iters=iters, alpha=ALPHA,
+    ref_v, ref_tau = run_reference(
+        pallas_admm_stage, *(jnp.asarray(a[k]) for k in ORDER), iters=iters, alpha=ALPHA,
         matmul="f32")
     v, tau = run_port(a, iters, torch.float32)
     ref_v, ref_tau = np.asarray(ref_v), np.asarray(ref_tau)

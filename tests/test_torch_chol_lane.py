@@ -24,6 +24,7 @@ torch.set_num_threads(1)
 
 from blf_tpu.ops.pallas import linalg as jlinalg
 from blf_tpu_torch.ops.cuda import linalg as tlinalg
+from test_torch_wbc_loop import run_reference
 
 
 def spd(rng, B, n, dtype):
@@ -46,7 +47,8 @@ def test_f32_matches_pallas_interpret(B, n):
     assert tlinalg.reference_count() == 1 and tlinalg.launch_count() == 0
     assert out.dtype == torch.float32 and tuple(out.shape) == (B, n, n)
     if n <= INTERPRET_MAX_N:
-        ref = np.asarray(jlinalg.cholesky_inverse_lane(jnp.asarray(K), interpret=True))
+        ref = np.asarray(run_reference(jlinalg.cholesky_inverse_lane, jnp.asarray(K),
+                                       interpret=True))
         assert rel(out.numpy(), ref) < 1e-5
     assert rel(out.numpy(), np.linalg.inv(K.astype(np.float64))) < 1e-5
 
@@ -57,7 +59,8 @@ def test_f64_matches_pallas_interpret_and_numpy(B, n):
     out = tlinalg.cholesky_inverse_lane(torch.as_tensor(K)).numpy()
     assert out.dtype == np.float64
     if n <= INTERPRET_MAX_N:
-        ref = np.asarray(jlinalg.cholesky_inverse_lane(jnp.asarray(K), interpret=True))
+        ref = np.asarray(run_reference(jlinalg.cholesky_inverse_lane, jnp.asarray(K),
+                                       interpret=True))
         assert rel(out, ref) < 1e-10
     assert rel(out, np.linalg.inv(K)) < 1e-10
     # L^-T L^-1 is formed from one factor: symmetric to rounding
@@ -80,7 +83,8 @@ def test_a_failed_lane_is_nan_and_stays_local(poison):
     out = tlinalg.cholesky_inverse_lane(torch.as_tensor(K))
     assert bool(torch.isnan(out[2]).all())
     assert torch.equal(out[[0, 1, 3]], clean[[0, 1, 3]])
-    ref = np.asarray(jlinalg.cholesky_inverse_lane(jnp.asarray(K), interpret=True))
+    ref = np.asarray(run_reference(jlinalg.cholesky_inverse_lane, jnp.asarray(K),
+                                   interpret=True))
     assert np.isnan(ref[2]).all() and np.isfinite(ref[[0, 1, 3]]).all()
 
 
@@ -108,8 +112,8 @@ def rhs(rng, B, n, dtype):
 def test_solve_f32_matches_pallas_interpret(B, n):
     rng = np.random.default_rng(n)
     K, b = spd(rng, B, n, np.float32), rhs(rng, B, n, np.float32)
-    ref = np.asarray(jlinalg.cholesky_solve_lane(jnp.asarray(K), jnp.asarray(b),
-                                                 interpret=True))
+    ref = np.asarray(run_reference(jlinalg.cholesky_solve_lane, jnp.asarray(K),
+                                   jnp.asarray(b), interpret=True))
     tlinalg.reset_counts()
     out = tlinalg.cholesky_solve_lane(torch.as_tensor(K), torch.as_tensor(b))
     assert tlinalg.solve_reference_count() == 1 and tlinalg.solve_launch_count() == 0
@@ -127,8 +131,8 @@ def test_solve_f64_matches_numpy_and_pallas_interpret(B, n):
     out = tlinalg.cholesky_solve_lane(torch.as_tensor(K), torch.as_tensor(b)).numpy()
     assert out.dtype == np.float64
     assert rel(out, np.linalg.solve(K, b[..., None])[..., 0]) < 1e-10
-    ref = np.asarray(jlinalg.cholesky_solve_lane(jnp.asarray(K), jnp.asarray(b),
-                                                 interpret=True))
+    ref = np.asarray(run_reference(jlinalg.cholesky_solve_lane, jnp.asarray(K),
+                                   jnp.asarray(b), interpret=True))
     assert rel(out, ref) < 1e-10
 
 
@@ -146,8 +150,8 @@ def test_a_failed_solve_lane_is_nan_and_stays_local(poison):
     out = tlinalg.cholesky_solve_lane(torch.as_tensor(K), torch.as_tensor(b))
     assert bool(torch.isnan(out[2]).all())
     assert torch.equal(out[[0, 1, 3]], clean[[0, 1, 3]])
-    ref = np.asarray(jlinalg.cholesky_solve_lane(jnp.asarray(K), jnp.asarray(b),
-                                                 interpret=True))
+    ref = np.asarray(run_reference(jlinalg.cholesky_solve_lane, jnp.asarray(K),
+                                   jnp.asarray(b), interpret=True))
     assert np.isnan(ref[2]).all() and np.isfinite(ref[[0, 1, 3]]).all()
 
 

@@ -17,6 +17,7 @@ from blf_tpu.mpc import dcm as jdcm
 from blf_tpu_torch.convert import lipm_params_from_numpy
 from blf_tpu_torch.mpc import dcm as tdcm
 from blf_tpu_torch.problems import example_problem, stationary_push_recovery
+from test_torch_wbc_loop import run_reference
 
 # One intra-op thread: the tensors here are small, and test workers running side
 # by side would each start a thread per core and slow every other worker down.
@@ -64,8 +65,8 @@ KEYS = ("dcm_ref", "zmp_ref", "poly_A", "poly_b")
 def test_build_dcm_qp_entrywise(make, N):
     a = make(N, 5)
     pj, pt = params_pair()
-    ref = jdcm.build_dcm_qp(pj, DT, jnp.asarray(a["dcm0"], J_DTYPE),
-                            *(jnp.asarray(a[k], J_DTYPE) for k in KEYS))
+    ref = run_reference(jdcm.build_dcm_qp, pj, DT, jnp.asarray(a["dcm0"], J_DTYPE),
+                        *(jnp.asarray(a[k], J_DTYPE) for k in KEYS))
     out = tdcm.build_dcm_qp(pt, DT, to_t(a["dcm0"]), *(to_t(a[k]) for k in KEYS))
     for name, o, r in zip(("P", "q", "A", "l", "u"), out, ref):
         r = np.asarray(r)
@@ -85,9 +86,9 @@ def test_solve_dcm_mpc_shared_plan(make, N, iters):
     a = make(N, 24)
     pj, pt = params_pair()
     kw = dict(iterations=iters, shared=True, polish_iters=25)
-    ref = jdcm.solve_dcm_mpc(
-        pj, DT, jnp.asarray(a["dcm0"], J_DTYPE), jnp.asarray(a["com0"], J_DTYPE),
-        *(jnp.asarray(a[k], J_DTYPE) for k in KEYS), **kw)
+    ref = run_reference(
+        jdcm.solve_dcm_mpc, pj, DT, jnp.asarray(a["dcm0"], J_DTYPE),
+        jnp.asarray(a["com0"], J_DTYPE), *(jnp.asarray(a[k], J_DTYPE) for k in KEYS), **kw)
     out = tdcm.solve_dcm_mpc(pt, DT, to_t(a["dcm0"]), to_t(a["com0"]),
                              *(to_t(a[k]) for k in KEYS), **kw)
     atol = tol(1e-7, 5e-4)
@@ -108,10 +109,9 @@ def test_warm_started_resolve_matches():
     pj, pt = params_pair()
     jargs = [jnp.asarray(a[k], J_DTYPE) for k in ("dcm0", "com0") + KEYS]
     targs = [to_t(a[k]) for k in ("dcm0", "com0") + KEYS]
-    j1 = jdcm.solve_dcm_mpc(pj, DT, *jargs, iterations=100, shared=True)
-    j2 = jdcm.solve_dcm_mpc(pj, DT, *jargs, iterations=50, shared=True,
-                            warm_start=j1.zmp, warm_start_dual=j1.qp.y,
-                            s0=j1.qp.rho_scale)
+    j1 = run_reference(jdcm.solve_dcm_mpc, pj, DT, *jargs, iterations=100, shared=True)
+    j2 = run_reference(jdcm.solve_dcm_mpc, pj, DT, *jargs, iterations=50, shared=True,
+                       warm_start=j1.zmp, warm_start_dual=j1.qp.y, s0=j1.qp.rho_scale)
     t2 = tdcm.solve_dcm_mpc(pt, DT, *targs, iterations=50, shared=True,
                             warm_start=to_t(j1.zmp), warm_start_dual=to_t(j1.qp.y),
                             s0=to_t(j1.qp.rho_scale), backend="cuda")

@@ -33,6 +33,7 @@ from blf_tpu_torch.convert import lipm_params_from_numpy, qp_solution_to_numpy
 from blf_tpu_torch.mpc import dcm as tdcm
 from blf_tpu_torch.mpc import qp as tqp
 from blf_tpu_torch.ops.cuda import admm_lane, linalg
+from test_torch_wbc_loop import run_reference
 
 # One intra-op thread: the tensors here are small, and test workers running side
 # by side would each start a thread per core and slow every other worker down.
@@ -88,7 +89,7 @@ def assert_same_solution(sol_t, sol_j, atol=TIGHT, s_rtol=None):
 ], ids=["50", "400_eps1e-4", "120", "cho_solve", "polish"])
 def test_solve_qp_matches_the_reference(kw, s_rtol):
     args = make_fleet()
-    sol_j = jqp.solve_qp(*to_j(args), **kw)
+    sol_j = run_reference(jqp.solve_qp, *to_j(args), **kw)
     sol_t = tqp.solve_qp(*to_t(args), **kw)
     assert_same_solution(sol_t, sol_j, s_rtol=s_rtol)
     s = sol_t.rho_scale
@@ -150,8 +151,8 @@ def test_warm_start_converges_and_polish():
     assert_same_solution(warm_t, warm_j, atol=LOOSE)
     # solve_qp takes the same warm start, s0 as (B, 1) or (B,)
     warm_q = tqp.solve_qp(*to_t(args), iterations=50, x0=x0, y0=y0, s0=s0[:, 0], **kw)
-    warm_qj = jqp.solve_qp(*to_j(args), iterations=50, x0=cold_j.x, y0=cold_j.y,
-                           s0=cold_j.rho_scale, **kw)
+    warm_qj = run_reference(jqp.solve_qp, *to_j(args), iterations=50, x0=cold_j.x,
+                            y0=cold_j.y, s0=cold_j.rho_scale, **kw)
     assert_same_solution(warm_q, warm_qj)
 
 
@@ -205,7 +206,7 @@ def test_solve_dcm_mpc_per_lane_matches_the_reference():
     keys = ("dcm0", "com0", "dcm_ref", "zmp_ref", "poly_A", "poly_b")
     pj = JLIPMParams(jnp.asarray(0.9), jnp.asarray(9.81))
     pt = lipm_params_from_numpy(0.9, 9.81, device="cpu", dtype=torch.float64)
-    ref = jdcm.solve_dcm_mpc(pj, dt, *to_j(a[k] for k in keys), iterations=100)
+    ref = run_reference(jdcm.solve_dcm_mpc, pj, dt, *to_j(a[k] for k in keys), iterations=100)
     out = tdcm.solve_dcm_mpc(pt, dt, *to_t(a[k] for k in keys), iterations=100)
     for name in ("zmp", "dcm", "com"):
         np.testing.assert_allclose(getattr(out, name).numpy(),

@@ -23,6 +23,7 @@ from blf_tpu.mpc.dcm import build_dcm_qp
 from blf_tpu_torch.convert import factors_from_numpy, qp_solution_to_numpy
 from blf_tpu_torch.mpc import qp as tqp
 from blf_tpu_torch.ops.cuda import admm as stage
+from test_torch_wbc_loop import run_reference
 
 # One intra-op thread: the tensors here are small, and test workers running side
 # by side would each start a thread per core and slow every other worker down.
@@ -46,7 +47,7 @@ def fleet_problem(B, np_dtype=NP_DTYPE, horizon=H, seed=0):
     rng = np.random.default_rng(seed)
     dcm0 = jnp.asarray(rng.normal(0, 0.02, (B, 2)), jd)
     return tuple(np.asarray(a) for a in
-                 build_dcm_qp(params, 0.1, dcm0, dr, zr, pA, pb))
+                 run_reference(build_dcm_qp, params, 0.1, dcm0, dr, zr, pA, pb))
 
 
 def to_t(a, dtype=None):
@@ -66,11 +67,11 @@ class Shared:
     def get(cls):
         if not cls._cache:
             P, q, A, l, u = fleet_problem(32)
-            fj = jqp.factor_shared_qp(jnp.asarray(P), jnp.asarray(A),
-                                      jnp.asarray(is_eq_of(A)))
+            fj = run_reference(jqp.factor_shared_qp, jnp.asarray(P), jnp.asarray(A),
+                               jnp.asarray(is_eq_of(A)))
             ft = factors_from_numpy(fj, device="cpu", dtype=T_DTYPE)
-            cold = jqp.solve_qp_factored(fj, jnp.asarray(q), jnp.asarray(l),
-                                         jnp.asarray(u), iterations=100)
+            cold = run_reference(jqp.solve_qp_factored, fj, jnp.asarray(q), jnp.asarray(l),
+                                 jnp.asarray(u), iterations=100)
             cls._cache.update(P=P, q=q, A=A, l=l, u=u, fj=fj, ft=ft, cold=cold)
         return cls._cache
 
@@ -166,9 +167,9 @@ class TestSolveFactored:
             jkw.update(x0=cold.x, y0=cold.y, s0=cold.rho_scale)
             tkw.update(x0=to_t(cold.x), y0=to_t(cold.y), s0=to_t(cold.rho_scale))
         jax_refine = refine if backend == "torch" else False
-        sol_j = jqp.solve_qp_factored(
-            c["fj"], jnp.asarray(c["q"]), jnp.asarray(c["l"]), jnp.asarray(c["u"]),
-            backend=jax_backend, refine=jax_refine, **jkw)
+        sol_j = run_reference(
+            jqp.solve_qp_factored, c["fj"], jnp.asarray(c["q"]), jnp.asarray(c["l"]),
+            jnp.asarray(c["u"]), backend=jax_backend, refine=jax_refine, **jkw)
         sol_t = tqp.solve_qp_factored(
             c["ft"], to_t(c["q"]), to_t(c["l"]), to_t(c["u"]),
             backend=backend, refine=refine, **tkw)
@@ -180,8 +181,8 @@ class TestSolveFactored:
         TPU kernel in interpret mode: 1e-5, as the JAX package holds its
         kernel to its XLA path."""
         P, q, A, l, u = fleet_problem(256, np.float32)
-        fj = jqp.factor_shared_qp(jnp.asarray(P), jnp.asarray(A),
-                                  jnp.asarray(is_eq_of(A)))
+        fj = run_reference(jqp.factor_shared_qp, jnp.asarray(P), jnp.asarray(A),
+                           jnp.asarray(is_eq_of(A)))
         ft = factors_from_numpy(fj, device="cpu", dtype=torch.float32)
         sol_j = jqp.solve_qp_factored(fj, jnp.asarray(q), jnp.asarray(l),
                                       jnp.asarray(u), iterations=50,
@@ -252,8 +253,9 @@ class TestSolveFactored:
 class TestSolveShared:
     def test_end_to_end_with_the_ports_own_factorization(self):
         c = Shared.get()
-        sol_j = jqp.solve_qp_shared(
-            *(jnp.asarray(c[k]) for k in ("P", "q", "A", "l", "u")), iterations=100)
+        sol_j = run_reference(
+            jqp.solve_qp_shared, *(jnp.asarray(c[k]) for k in ("P", "q", "A", "l", "u")),
+            iterations=100)
         sol_t = tqp.solve_qp_shared(
             *(to_t(c[k]) for k in ("P", "q", "A", "l", "u")), iterations=100)
         np.testing.assert_allclose(sol_t.x.numpy(), np.asarray(sol_j.x),
@@ -306,6 +308,6 @@ class TestFloat32FactorizationIsMadeInFloat64:
         f = tqp.factor_shared_qp(to_t(P, torch.float64), to_t(A, torch.float64),
                                  torch.as_tensor(is_eq))
         assert all(t.dtype == torch.float64 for t in f)
-        fj = jqp.factor_shared_qp(jnp.asarray(P, jnp.float64), jnp.asarray(A, jnp.float64),
-                                  jnp.asarray(is_eq))
+        fj = run_reference(jqp.factor_shared_qp, jnp.asarray(P, jnp.float64),
+                           jnp.asarray(A, jnp.float64), jnp.asarray(is_eq))
         np.testing.assert_allclose(f.d.numpy(), np.asarray(fj.d), rtol=1e-8, atol=1e-10)

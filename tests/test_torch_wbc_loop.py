@@ -67,18 +67,36 @@ torch.set_num_threads(1)
 
 SOLES = ("l_sole", "r_sole")
 
-#: XLA's least optimization for the float64 JAX references these tests
-#: compile: at a few lanes they run in milliseconds either way, and the compile
-#: is what the test waits for (about a third less of it). Not for float32: it
-#: moves the reference's rounding, and the float32 test holds the reference's
-#: own rounding-driven behaviour.
+#: XLA's least optimization for the JAX references the port's tests compile:
+#: at a few lanes they run in milliseconds either way, and the compile is what
+#: a test waits for (about a third less of it). Not for the float32 test of
+#: this file: it moves the reference's rounding, and that test holds the
+#: reference's own rounding-driven behaviour.
 FAST_COMPILE = {"xla_backend_optimization_level": 0,
                 "xla_llvm_disable_expensive_passes": True}
 
 
 def reference_jit(fn):
-    """``jax.jit`` of a float64 JAX reference with :data:`FAST_COMPILE`."""
+    """``jax.jit`` of a JAX reference with :data:`FAST_COMPILE`."""
     return jax.jit(fn, compiler_options=FAST_COMPILE)
+
+
+def run_reference(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` of ``blf_tpu`` as one program compiled with
+    :data:`FAST_COMPILE`: the arrays among the arguments (at any depth) are
+    traced, everything else (sizes, options, time steps) is static. Called
+    eagerly, a reference compiles each of its operations and inner jits at
+    XLA's default optimization, which costs several times more."""
+    leaves, treedef = jax.tree_util.tree_flatten((args, kwargs))
+    traced = [isinstance(leaf, (jax.Array, np.ndarray)) for leaf in leaves]
+
+    def call(arrays):
+        it = iter(arrays)
+        a, kw = jax.tree_util.tree_unflatten(
+            treedef, [next(it) if t else leaf for leaf, t in zip(leaves, traced)])
+        return fn(*a, **kw)
+
+    return reference_jit(call)([leaf for leaf, t in zip(leaves, traced) if t])
 
 
 def box_inertia(mass, lx, ly, lz):
