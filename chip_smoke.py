@@ -64,7 +64,6 @@ from blf_tpu_torch.models.kinematics import forward_kinematics
 from blf_tpu_torch.mpc.dcm import build_dcm_qp
 from blf_tpu_torch.mpc.qp import SharedQPFactors, factor_shared_qp, solve_qp, solve_qp_lanes
 from blf_tpu_torch.mpc.wholebody import build_wholebody_qp
-from blf_tpu_torch.ops import integrators
 from blf_tpu_torch.ops.cuda import _build
 from blf_tpu_torch.ops.cuda import admm as admm_kernel
 from blf_tpu_torch.ops.cuda import admm_lane as lane_kernel
@@ -143,7 +142,6 @@ STACK_SETTLED_TICKS = 4
 STACK_CROSS_LANES, STACK_CROSS_TICKS = 256, 4
 STACK_CROSS_DCM, STACK_CROSS_EST = 3e-3, 1.5     # tests/test_control_stack.py:292-346
 STACK_PLAN_TOL = 1e-5
-GRAPH_TOL = 1e-4     # one inner tick of RK4, graph against eager: trsm against MAGMA's potrs
 DEVICE = torch.device("cuda")
 PHASES = ("device", "build", "kernels", "tick", "cross", "wbc", "wbc_cross", "stack",
           "stack_cross")
@@ -1369,86 +1367,25 @@ def phase_stack(profile: bool) -> dict:
     return out
 
 
-def triangular_cholesky_solve(b, L, upper=False):
-    """``torch.cholesky_solve`` of a lower factor as two triangular solves
-    (cuBLAS's batched ``trsm``), which a CUDA graph can capture: the batched
-    ``potrs`` behind ``torch.cholesky_solve``, MAGMA's by default and
-    cuSOLVER's, allocates or synchronises inside a capture."""
-    y = torch.linalg.solve_triangular(L, b, upper=False)
-    return torch.linalg.solve_triangular(L.mT, y, upper=True)
-
-
-class GraphedRK4:
-    """Stands in for ``stack_module.integrate`` in the RK4 reference plant of
-    phase ``stack_cross``. An inner tick there integrates 40 RK4 substeps of one
-    dynamics closure: 160 evaluations that eager PyTorch dispatches a small
-    kernel at a time, some 50 ms of host time each. Here each call captures one
-    substep into a CUDA graph and replays it ``num_steps`` times: the same
-    arithmetic (the dynamics ignore ``t``), with the Cholesky solve of the exact
-    M as two triangular solves (``triangular_cholesky_solve``). The first call
-    is also run eagerly and the two results are compared. Should a capture
-    fail, the error is kept and every call from then on runs eagerly: slower,
-    and no less right."""
-
-    def __init__(self):
-        self.calls = 0
-        self.vs_eager = None
-        self.error = None
-
-    def __call__(self, f, x0, *, dt, num_steps, u, method):
-        if self.error is None:
-            try:
-                return self.replayed(f, x0, dt=dt, num_steps=num_steps, u=u, method=method)
-            except RuntimeError as err:
-                self.error = str(err)[:300]
-        return integrators.integrate(f, x0, dt=dt, num_steps=num_steps, u=u, method=method)
-
-    def replayed(self, f, x0, *, dt, num_steps, u, method):
-        step = integrators.STEP_FUNCTIONS[method]
-        static_x = type(x0)(*(leaf.clone() for leaf in x0))
-        with mock.patch.object(torch, "cholesky_solve", triangular_cholesky_solve):
-            if self.calls == 0:       # lazy initialisations happen outside a capture
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    step(f, static_x, u, 0.0, dt)
-                torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                static_out = step(f, static_x, u, 0.0, dt)
-        for _ in range(num_steps):
-            graph.replay()
-            for dst, src in zip(static_x, static_out):
-                dst.copy_(src)
-        if self.calls == 0:
-            eager = integrators.integrate(f, x0, dt=dt, num_steps=num_steps, u=u, method=method)
-            self.vs_eager = max(float((a - b).abs().max()) for a, b in zip(eager, static_x))
-        self.calls += 1
-        return type(x0)(*(leaf.clone() for leaf in static_x))
-
-
 def phase_stack_cross() -> dict:
     """The stack's two accuracy contracts on the card, STACK_CROSS_LANES lanes:
     (a) the production plant (ROS2-W, 2 substeps, lagged M^-1, stiff-path
-    operator) against RK4 in 40 substeps with the exact M (replayed from a CUDA
-    graph, ``GraphedRK4``), over STACK_CROSS_TICKS outer ticks from the same
-    state and pushes; (b) one outer tick from the same warm state with the MPC
-    on the kernel and on the plain-tensor backend (with and without its
-    refinement pass)."""
+    operator) against RK4 in 40 substeps with the exact M, over
+    STACK_CROSS_TICKS outer ticks from the same state and pushes; (b) one
+    outer tick from the same warm state with the MPC on the kernel and on the
+    plain-tensor backend (with and without its refinement pass)."""
     problem = push_recovery_stack(STACK_CROSS_LANES, seed=SEED, device=DEVICE,
                                   dtype=torch.float32)
     rk4 = problem.config._replace(plant_method="rk4", physics_per_wbc=40,
                                   plant_lagged_minv=False, ros_op_stiff=False)
-    runs, seconds, graphed = {}, {}, GraphedRK4()
+    runs, seconds = {}, {}
     for name, config in (("ros2w", problem.config), ("rk4", rk4)):
         t0 = time.perf_counter()
         step = stack_fleet_step(problem, config)
         state, traces = problem.state, []
-        with (mock.patch.object(stack_module, "integrate", graphed) if name == "rk4"
-              else contextlib.nullcontext()):
-            for _ in range(STACK_CROSS_TICKS):
-                state, trace = step(state, problem.pushes, *problem.refs)
-                traces.append(trace)
+        for _ in range(STACK_CROSS_TICKS):
+            state, trace = step(state, problem.pushes, *problem.refs)
+            traces.append(trace)
         runs[name] = (state, traces)
         seconds[name] = time.perf_counter() - t0
     (s_ros, tr_ros), (s_rk, tr_rk) = runs["ros2w"], runs["rk4"]
@@ -1477,13 +1414,8 @@ def phase_stack_cross() -> dict:
                tolerance_estimate_n=STACK_CROSS_EST,
                rk4_status_counts=status_counts(tr_rk[-1].status),
                ros2w_status_counts=status_counts(tr_ros[-1].status),
-               seconds_by_plant=seconds, rk4_graphed_calls=graphed.calls,
-               rk4_graph_vs_eager=graphed.vs_eager, rk4_graph_error=graphed.error,
-               mpc_backends=diff, tolerance_plan=STACK_PLAN_TOL,
+               seconds_by_plant=seconds, mpc_backends=diff, tolerance_plan=STACK_PLAN_TOL,
                mpc_converged_cuda=int(plans["cuda"][2].sum()))
-    check(graphed.vs_eager is None or graphed.vs_eager <= GRAPH_TOL,
-          f"the graph-replayed RK4 inner tick within {GRAPH_TOL} of the eager one:"
-          f" {graphed.vs_eager}")
     check(all(all_finite(s.plant) for s in (s_ros, s_rk)), "both plants finite")
     check(max(dcm_by_tick) <= STACK_CROSS_DCM,
           f"ROS2-W within {STACK_CROSS_DCM} m of RK4 on the DCM at every tick: {dcm_by_tick}")
