@@ -22,6 +22,12 @@ QP, contact model, stiff ROS2-W plant, momentum observer and RLS), with the
 batched SPD solve of the wrench attribution as a hand-written CUDA kernel
 (``csrc/chol_solve.cu``, sharing ``csrc/chol_common.cuh`` with the inverse).
 
+Slice 3: BASELINE config 2, the spring-damper foot rollout over a fleet,
+:func:`blf_tpu_torch.models.foot.foot_rollout`, with the whole horizon in
+one hand-written CUDA kernel (``csrc/foot_rollout.cu``), and contact
+identification on it, :func:`blf_tpu_torch.problems.identify_contacts`
+(RLS in three forms: sequential, one reduction, a log-depth scan).
+
 Rules that hold everywhere in the package:
 
 - **Device.** ``device=None`` means ``torch.device("cuda")``; without CUDA the

@@ -2,8 +2,9 @@
 
 No counterpart in ``blf_tpu``. The system has no weights; what both sides
 share is the problem, the solver state, the rigid-body state, the whole-body
-task, the control stack's state (with its momentum observer) and the contact
-parameters (a kinematic tree is plain numpy on both sides already). Every converter takes or returns
+task, the control stack's state (with its momentum observer), the contact
+parameters, the foot's parameters and state, and an RLS filter's state (a
+kinematic tree is plain numpy on both sides already). Every converter takes or returns
 plain numpy arrays (``np.asarray`` of a JAX array on the other side), so this
 module needs nothing of the JAX package.
 
@@ -23,8 +24,10 @@ from typing import Any, Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from blf_tpu_torch.estimators.rls import RLSState
 from blf_tpu_torch.estimators.wrench_observer import MomentumObserverState
 from blf_tpu_torch.models.contact import ContactParams
+from blf_tpu_torch.models.foot import FootParams, FootState
 from blf_tpu_torch.models.lipm import LIPMParams
 from blf_tpu_torch.models.rigid_body import FloatingBaseState
 from blf_tpu_torch.mpc.qp import QPSolution, SharedQPFactors
@@ -39,7 +42,9 @@ __all__ = ["lipm_params_from_numpy", "factors_from_numpy",
            "floating_base_state_to_numpy", "wholebody_task_from_numpy",
            "momentum_observer_state_from_numpy", "momentum_observer_state_to_numpy",
            "stack_state_from_numpy", "stack_state_to_numpy",
-           "contact_params_from_numpy", "contact_params_to_numpy"]
+           "contact_params_from_numpy", "contact_params_to_numpy",
+           "foot_params_from_numpy", "foot_state_from_numpy", "foot_state_to_numpy",
+           "rls_state_from_numpy", "rls_state_to_numpy"]
 
 
 def _fields(obj: Union[Mapping[str, Any], Any], names) -> Dict[str, Any]:
@@ -185,3 +190,29 @@ def contact_params_from_numpy(params, *, device=None,
 def contact_params_to_numpy(params: ContactParams) -> Dict[str, np.ndarray]:
     return {k: np.asarray(_to_numpy(v) if isinstance(v, torch.Tensor) else v)
             for k, v in params._asdict().items()}
+
+
+def foot_params_from_numpy(params, *, device=None,
+                           dtype: Optional[torch.dtype] = None) -> FootParams:
+    """:class:`FootParams` from a mapping or an object with its field names."""
+    return _named_tuple_from_numpy(FootParams, params, device, dtype)
+
+
+def foot_state_from_numpy(state, *, device=None,
+                          dtype: Optional[torch.dtype] = None) -> FootState:
+    """:class:`FootState` from a mapping or an object with its field names."""
+    return _named_tuple_from_numpy(FootState, state, device, dtype)
+
+
+def foot_state_to_numpy(state: FootState) -> Dict[str, np.ndarray]:
+    return {k: _to_numpy(v) for k, v in state._asdict().items()}
+
+
+def rls_state_from_numpy(state, *, device=None,
+                         dtype: Optional[torch.dtype] = None) -> RLSState:
+    """:class:`RLSState` from a mapping or an object with its field names."""
+    return _named_tuple_from_numpy(RLSState, state, device, dtype)
+
+
+def rls_state_to_numpy(state: RLSState) -> Dict[str, np.ndarray]:
+    return {k: _to_numpy(v) for k, v in state._asdict().items()}

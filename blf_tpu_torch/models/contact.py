@@ -2,9 +2,9 @@
 
 Counterpart of ``blf_tpu/models/contact.py``. Ported: ``ContactParams``,
 ``ContactState``, ``contact_wrench``, ``autonomous_dynamics``,
-``control_matrix``, ``wrench_rate``, ``regressor``, ``force_at_point`` and
-``torque_at_point``. Not yet ported: ``params_from_handler``, which needs the
-parameters handler of ``utils/params.py`` (ROADMAP.md, 4.2).
+``control_matrix``, ``wrench_rate``, ``regressor``, ``force_at_point``,
+``torque_at_point`` and ``params_from_handler`` (which reads a handler of
+:mod:`blf_tpu_torch.utils.params`); everything of it is ported.
 
 Each product is a pure function of
 
@@ -21,11 +21,12 @@ products below are the closed-form surface integrals of the pointwise law
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from blf_tpu_torch.ops.lie import rotation_rate_mixed, skew
+from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 __all__ = [
     "ContactParams",
@@ -37,6 +38,7 @@ __all__ = [
     "wrench_rate",
     "force_at_point",
     "torque_at_point",
+    "params_from_handler",
 ]
 
 
@@ -47,6 +49,19 @@ class ContactParams(NamedTuple):
     width: torch.Tensor         # patch size along the frame y axis [m]
     spring_coeff: torch.Tensor  # spring density k [N/m^3]
     damper_coeff: torch.Tensor  # damper density b [N s/m^3]
+
+
+def params_from_handler(handler, *, device=None,
+                        dtype: Optional[torch.dtype] = None) -> ContactParams:
+    """The four named parameters of the reference's ``initialize``
+    (``length``, ``width``, ``spring_coeff``, ``damper_coeff``), read as
+    floats; a missing key raises ``KeyError``, a non-number ``TypeError``.
+    ``handler`` is duck-typed (``get_parameter(name, type)``)."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    return ContactParams(*(
+        torch.tensor(handler.get_parameter(name, float), dtype=dtype, device=device)
+        for name in ContactParams._fields))
 
 
 class ContactState(NamedTuple):

@@ -9,19 +9,27 @@ that ``tests/test_wholebody.py`` of the JAX package pins
 ``TestBatched``): :func:`standing_fleet` and :func:`wbc_balance_step`; and the
 push-recovery fleet of the whole control stack that
 ``benchmarks/stack_bench.py`` runs: :func:`push_recovery_stack` in the
-``STACK_R05`` configuration. Inputs are drawn with
-``numpy.random.default_rng(seed)``, so the JAX package and the port can be fed
-the same numbers.
+``STACK_R05`` configuration. BASELINE config 2: the Monte-Carlo foot
+rollout of ``benchmarks/rollout_bench.py`` (:func:`foot_drop_fleet`) and the
+contact identification of ``examples/02_contact_identification.py`` over a
+fleet (:func:`contact_identification_fleet`, :func:`identify_contacts`).
+Inputs are drawn with ``numpy.random.default_rng(seed)``, so the JAX package
+and the port can be fed the same numbers.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import contextlib
+from typing import Callable, ContextManager, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from blf_tpu_torch.estimators.rls import RLSState, init_from_handler, rls_scan
+from blf_tpu_torch.estimators.rls_parallel import rls_fit, rls_parallel
+from blf_tpu_torch.models import contact
 from blf_tpu_torch.models import rigid_body as rb
+from blf_tpu_torch.models.foot import FootParams, FootState, foot_rollout
 from blf_tpu_torch.models.kinematics import (KinematicTree, forward_kinematics,
                                              frame_pose)
 from blf_tpu_torch.models.lipm import LIPMParams, dcm_backward_recursion
@@ -31,12 +39,16 @@ from blf_tpu_torch.mpc.stack import (StackConfig, StackState, init_stack,
 from blf_tpu_torch.mpc.wholebody import (WholeBodyParams, WholeBodySolution,
                                          WholeBodyTask, solve_wholebody_qp)
 from blf_tpu_torch.ops.integrators import integrate
+from blf_tpu_torch.ops.lie import so3_exp
 from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
+from blf_tpu_torch.utils.params import ParametersHandler
 
 __all__ = ["example_problem", "PushRecoveryProblem", "stationary_push_recovery",
            "StandingFleet", "WBCWarmStart", "standing_fleet", "balance_task",
            "apply_solution", "wbc_balance_step", "STACK_R05", "PushRecoveryStack",
-           "push_recovery_stack", "stack_fleet_step"]
+           "push_recovery_stack", "stack_fleet_step", "FootDropFleet", "foot_drop_fleet",
+           "ContactIdentificationFleet", "contact_identification_fleet",
+           "Identification", "identify_contacts", "IDENTIFY_PARTS"]
 
 _BOX = [[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]]
 
@@ -342,3 +354,155 @@ def stack_fleet_step(problem: PushRecoveryStack, config: Optional[StackConfig] =
         problem.tree, problem.params, problem.lipm,
         problem.config if config is None else config, problem.null_poses,
         q_ref=problem.q_ref, com_height_ref=problem.com_height_ref)
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config 2: the spring-damper foot rollout and contact identification
+# ---------------------------------------------------------------------------
+
+class FootDropFleet(NamedTuple):
+    """Inputs of :func:`blf_tpu_torch.models.foot.foot_rollout` for a fleet."""
+
+    cparams: contact.ContactParams
+    fparams: FootParams
+    state: FootState               # every field (B, ...)
+    null_position: torch.Tensor    # (B, 3)
+    null_rotation: torch.Tensor    # (B, 3, 3), one pose for all lanes (lane stride 0)
+    dt: float
+
+
+def _foot_params(mass, inertia, rho, as_t) -> FootParams:
+    return FootParams(mass=as_t(mass), inertia=as_t(inertia), baumgarte_rho=as_t(rho))
+
+
+def foot_drop_fleet(batch: int, *, seed: int = 0, device=None,
+                    dtype: Optional[torch.dtype] = None) -> FootDropFleet:
+    """The Monte-Carlo workload of ``benchmarks/rollout_bench.py``: a 0.2 m x
+    0.1 m patch with k = 2e5, b = 2e3, a 0.75 kg foot with inertia
+    (2e-3, 4e-3, 5e-3), rho = 10, dt = 1 ms, every lane's state drawn (in this
+    order) as position N(0, 1e-3), rotation exp(N(0, 0.02)), linear and
+    angular velocity N(0, 0.05); the null pose at the origin."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    rng = np.random.default_rng(seed)
+    state = FootState(
+        position=as_t(rng.normal(0, 1e-3, (batch, 3))),
+        rotation=so3_exp(as_t(rng.normal(0, 0.02, (batch, 3)))),
+        linear_velocity=as_t(rng.normal(0, 0.05, (batch, 3))),
+        angular_velocity=as_t(rng.normal(0, 0.05, (batch, 3))))
+    return FootDropFleet(
+        cparams=contact.ContactParams(as_t(0.2), as_t(0.1), as_t(2e5), as_t(2e3)),
+        fparams=_foot_params(0.75, [2e-3, 4e-3, 5e-3], 10.0, as_t),
+        state=state,
+        null_position=torch.zeros((batch, 3), dtype=dtype, device=device),
+        null_rotation=torch.eye(3, dtype=dtype, device=device).expand(batch, 3, 3),
+        dt=1e-3)
+
+
+class ContactIdentificationFleet(NamedTuple):
+    """A fleet of feet dropped on patches of unknown (k, b), and what each
+    lane's RLS estimator is configured with."""
+
+    cparams: contact.ContactParams  # length, width scalar; k, b (B, 1), the truth
+    fparams: FootParams
+    state: FootState                # every field (B, ...)
+    null_position: torch.Tensor     # (3,)
+    null_rotation: torch.Tensor     # (3, 3)
+    dt: float
+    noise: torch.Tensor             # (T, B, 6) wrench measurement noise
+    handler: ParametersHandler      # the estimator's configuration
+
+
+def contact_identification_fleet(batch: int, *, samples: int = 200, seed: int = 0,
+                                 device=None, dtype: Optional[torch.dtype] = None
+                                 ) -> ContactIdentificationFleet:
+    """The physics of ``examples/02_contact_identification.py`` over a fleet:
+    a 0.12 m x 0.09 m patch, a 0.8 kg foot with inertia (2e-3, 3e-3, 4e-3),
+    rho = 1, dt = 0.1 ms, dropped 5 mm below the null pose at the origin,
+    moving. Per lane, drawn in this order: k uniform in [4000, 12000],
+    b uniform in [200, 600], position (0, 0, -0.005) + N(0, 1e-3), rotation
+    exp(N(0, 0.02)), linear velocity (0.05, -0.03, 0) + N(0, 0.02), angular
+    velocity (0.1, 0.2, -0.1) + N(0, 0.05), and the wrench noise N(0, 0.05)
+    of ``samples`` measurements; the RLS keys of the example."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    rng = np.random.default_rng(seed)
+    k = rng.uniform(4000.0, 12000.0, (batch, 1))
+    b = rng.uniform(200.0, 600.0, (batch, 1))
+    state = FootState(
+        position=as_t(np.array([0.0, 0.0, -0.005]) + rng.normal(0, 1e-3, (batch, 3))),
+        rotation=so3_exp(as_t(rng.normal(0, 0.02, (batch, 3)))),
+        linear_velocity=as_t(np.array([0.05, -0.03, 0.0]) + rng.normal(0, 0.02, (batch, 3))),
+        angular_velocity=as_t(np.array([0.1, 0.2, -0.1]) + rng.normal(0, 0.05, (batch, 3))))
+    noise = as_t(rng.normal(0, 0.05, (samples, batch, 6)))
+    return ContactIdentificationFleet(
+        cparams=contact.ContactParams(as_t(0.12), as_t(0.09), as_t(k), as_t(b)),
+        fparams=_foot_params(0.8, [2e-3, 3e-3, 4e-3], 1.0, as_t),
+        state=state,
+        null_position=torch.zeros(3, dtype=dtype, device=device),
+        null_rotation=torch.eye(3, dtype=dtype, device=device),
+        dt=1e-4, noise=noise,
+        handler=ParametersHandler({
+            "lambda": 1.0, "measurement_covariance": [0.05 ** 2] * 6,
+            "state": [0.0, 0.0], "state_covariance": [1e6, 1e6]}))
+
+
+class Identification(NamedTuple):
+    """Each lane's (k, b): the three RLS forms' final estimates and the truth."""
+
+    scan: torch.Tensor      # (B, 2) rls_scan, the reference's sequential filter
+    fit: torch.Tensor       # (B, 2) rls_fit, one weighted reduction
+    parallel: torch.Tensor  # (B, 2) rls_parallel, the log-depth scan
+    true: torch.Tensor      # (B, 2)
+
+
+#: the parts of :func:`identify_contacts` that ``part_timer`` is wrapped around
+IDENTIFY_PARTS = ("rollout", "wrench", "rls_scan", "rls_fit", "rls_parallel")
+
+#: ``part_timer(name)`` returns the context manager wrapped around each part
+#: of :func:`identify_contacts` (``IDENTIFY_PARTS``). The default does
+#: nothing; a caller that wants the split replaces it.
+part_timer: Callable[[str], ContextManager] = lambda name: contextlib.nullcontext()
+
+
+def identify_contacts(problem: ContactIdentificationFleet, *, samples: int = 200,
+                      steps_per_sample: int = 10, backend: str = "cuda") -> Identification:
+    """Example 02 over the fleet: roll every foot out in ``samples`` segments
+    of ``steps_per_sample`` Euler steps (``foot_rollout(backend=...)``, one
+    kernel launch a segment on ``"cuda"``), record the state after each, take
+    the contact regressor and the wrench plus the fleet's noise along the
+    (T, B) record, and identify each lane's (k, b) with ``rls_scan``,
+    ``rls_fit`` and ``rls_parallel`` configured from the handler, one filter a
+    lane."""
+    if problem.noise.shape[0] < samples:
+        raise ValueError(f"the fleet drew noise for {problem.noise.shape[0]} samples,"
+                         f" not {samples}")
+    cp, dtype, device = problem.cparams, problem.noise.dtype, problem.noise.device
+    with part_timer("rollout"):
+        state, record = problem.state, []
+        for _ in range(samples):
+            state = foot_rollout(cp, problem.fparams, state, problem.null_position,
+                                 problem.null_rotation, problem.dt, steps_per_sample,
+                                 backend=backend)
+            record.append(state)
+        traj = FootState(*(torch.stack(field) for field in zip(*record)))   # (T, B, ...)
+    with part_timer("wrench"):
+        shape = traj.position.shape
+        cstates = contact.ContactState(
+            *traj, null_position=problem.null_position.expand(shape),
+            null_rotation=problem.null_rotation.expand(shape + (3,)))
+        regressors = contact.regressor(cp, cstates)                         # (T, B, 6, 2)
+        wrenches = contact.contact_wrench(cp, cstates) + problem.noise[:samples]
+    params, rls0 = init_from_handler(problem.handler, device=device, dtype=dtype)
+    lanes = regressors.shape[1]
+    rls0 = RLSState(rls0.theta.expand(lanes, -1), rls0.covariance.expand(lanes, -1, -1))
+    with part_timer("rls_scan"):
+        scan = rls_scan(params, rls0, regressors, wrenches)
+    with part_timer("rls_fit"):
+        fit = rls_fit(params, rls0, regressors, wrenches)
+    with part_timer("rls_parallel"):
+        par, _ = rls_parallel(params, rls0, regressors, wrenches)
+    return Identification(scan=scan.theta, fit=fit.theta, parallel=par.theta,
+                          true=torch.cat([cp.spring_coeff, cp.damper_coeff], dim=-1))

@@ -1,5 +1,5 @@
 """Utilities (counterpart of ``blf_tpu/utils``).
 
-Ported: ``status``, ``telemetry``; new: ``device``. Not yet ported:
-``params``, ``containers``, ``checkpoint``, ``profiling``.
+Ported: ``status``, ``telemetry``, ``params`` (a copy); new: ``device``.
+Not yet ported: ``containers``, ``checkpoint``, ``profiling``.
 """

@@ -20,7 +20,13 @@ paths through the entry points a user calls:
   solves ``"cuda"`` (kernels ``admm_stage`` at (48, 32), ``admm_lane_stage``,
   ``cholesky_inverse_lane`` at n = 64 and 29, ``cholesky_solve_lane``), and on
   256 lanes the stiff plant against 40-substep RK4 and the kernel MPC against
-  the plain-tensor one.
+  the plain-tensor one;
+* BASELINE config 2 (kernel ``foot_rollout_fused``): the Monte-Carlo
+  spring-damper foot rollout of 65536 lanes over 1000 Euler steps,
+  ``foot_rollout(backend="cuda")``, one launch a rollout; and the contact
+  identification of 65536 lanes, each with its own (k, b): the foot rolled
+  out in 200 segments of 10 steps (one launch each), the wrench measured
+  after each, and (k, b) identified by three forms of RLS.
 
 It checks each result and shows that each path went through its kernels by
 their launch counts, set to 0 just before the path and read just after. Each
@@ -59,7 +65,10 @@ if not torch.cuda.is_available():
 import blf_tpu_torch.mpc.dcm as dcm_module
 import blf_tpu_torch.mpc.qp as qp_module
 import blf_tpu_torch.mpc.stack as stack_module
+import blf_tpu_torch.problems as problems_module
 from blf_tpu_torch.models import rigid_body as rb
+from blf_tpu_torch.models.contact import ContactState, contact_wrench
+from blf_tpu_torch.models.foot import foot_rollout
 from blf_tpu_torch.models.kinematics import forward_kinematics
 from blf_tpu_torch.mpc.dcm import build_dcm_qp
 from blf_tpu_torch.mpc.qp import SharedQPFactors, factor_shared_qp, solve_qp, solve_qp_lanes
@@ -68,12 +77,14 @@ from blf_tpu_torch.ops.cuda import _build
 from blf_tpu_torch.ops.cuda import admm as admm_kernel
 from blf_tpu_torch.ops.cuda import admm_lane as lane_kernel
 from blf_tpu_torch.ops.cuda import linalg as chol_kernel
+from blf_tpu_torch.ops.cuda import rollout as rollout_kernel
 from blf_tpu_torch.parallel.sweep import init_fleet, make_fleet_step
 from blf_tpu_torch.problems import WBC_CHECK_EVERY as WBC_STAGE
 from blf_tpu_torch.problems import WBC_ITERATIONS as WBC_ITERS
-from blf_tpu_torch.problems import (STACK_R05, apply_solution, balance_task,
-                                    push_recovery_stack, stack_fleet_step, standing_fleet,
-                                    stationary_push_recovery, wbc_balance_step)
+from blf_tpu_torch.problems import (IDENTIFY_PARTS, STACK_R05, apply_solution, balance_task,
+                                    contact_identification_fleet, foot_drop_fleet,
+                                    identify_contacts, push_recovery_stack, stack_fleet_step,
+                                    standing_fleet, stationary_push_recovery, wbc_balance_step)
 from blf_tpu_torch.utils.status import status_counts
 from blf_tpu_torch.utils.telemetry import TelemetryStream
 
@@ -142,9 +153,33 @@ STACK_SETTLED_TICKS = 4
 STACK_CROSS_LANES, STACK_CROSS_TICKS = 256, 4
 STACK_CROSS_DCM, STACK_CROSS_EST = 3e-3, 1.5     # tests/test_control_stack.py:292-346
 STACK_PLAN_TOL = 1e-5
+# BASELINE config 2: the foot rollout fleet (benchmarks/rollout_bench.py's workload)
+FOOT_LANES, FOOT_STEPS = 65536, 1000
+FOOT_RUNS = 7                         # timed rollouts, after one warm-up
+FOOT_SETTLE_STEPS = 4000
+FOOT_ODD_LANES = 65533
+FOOT_CHECK_STEPS = (300, 1000)
+FOOT_TOL = 2e-5       # absolute, every field: the reference's own (tests/test_foot_rollout.py)
+# operations of one lane-step of csrc/foot_rollout.cu, counted from its source: a
+# multiply, an add or subtract, an |.| and a division one each (an FMA two), 376 in
+# all (7 divisions among them)
+FOOT_OPS_PER_LANE_STEP = 376
+# the settled state the reference's test requires (tests/test_foot_rollout.py:47-62)
+FOOT_SINK_TOL, FOOT_V_TOL, FOOT_W_TOL, FOOT_R_TOL = 1e-4, 1e-4, 1e-3, 1e-3
+# the contact identification fleet (examples/02_contact_identification.py, batched)
+IDENT_LANES, IDENT_SAMPLES, IDENT_STEPS = 65536, 200, 10
+IDENT_CROSS_LANES = 256
+IDENT_FORMS_TOL = 1e-4    # relative, per lane: rls_fit and rls_parallel against rls_scan
+IDENT_CROSS_TOL = 1e-4    # relative, per lane: backend "cuda" against "torch"
+# against the truth, every RLS form; from the float32 study of both packages on the CPU
+# (tests/test_torch_identification.py run as a script, 4096 lanes: k within 1 % on
+# 4092 lanes, b on 3989-3990, medians 1.24e-3 and 2.65e-3, max 1.31e-2 and 1.99e-2)
+IDENT_SHARE_K, IDENT_SHARE_B = 0.995, 0.96      # lanes within 1 % of the truth
+IDENT_MEDIAN_K, IDENT_MEDIAN_B = 2.5e-3, 5e-3   # median relative error
+IDENT_MAX = 5e-2                                # max relative error, k and b
 DEVICE = torch.device("cuda")
 PHASES = ("device", "build", "kernels", "tick", "cross", "wbc", "wbc_cross", "stack",
-          "stack_cross")
+          "stack_cross", "foot", "identify")
 
 
 START = time.perf_counter()
@@ -216,6 +251,7 @@ def phase_build() -> dict:
     jobs += [(f"chol_lane_n{n}", chol_kernel.SOURCE, {"CHOL_N": n}) for n in CHOL_SIZES]
     jobs += [(f"chol_solve_n{n}", chol_kernel.SOLVE_SOURCE, {"CHOL_N": n})
              for n in SOLVE_SIZES]
+    jobs += [("foot_rollout", rollout_kernel.SOURCE, {})]
 
     def build(job):
         t0 = time.perf_counter()
@@ -232,6 +268,7 @@ def phase_build() -> dict:
         chol_kernel.build_chol_lane(n)
     for n in SOLVE_SIZES:
         chol_kernel.build_chol_solve(n)
+    rollout_kernel.build_foot_rollout()
     wall = time.perf_counter() - t0
     shared = {"admm_stage": admm_kernel.stage_shared_bytes(M, N),
               "admm_stage_stack": admm_kernel.stage_shared_bytes(STACK_M, STACK_N),
@@ -240,6 +277,7 @@ def phase_build() -> dict:
                    for n in CHOL_SIZES})
     shared.update({f"chol_solve_n{n}": chol_kernel.solve_shared_bytes(n)
                    for n in SOLVE_SIZES})
+    shared["foot_rollout"] = 0
     libraries = []
     for (name, source, defines), sec in zip(jobs, seconds):
         log = _build.last_build_log(source, defines)
@@ -860,6 +898,98 @@ def kernels_chol_solve(seen) -> dict:
     }
 
 
+def foot_max_abs(a, b) -> float:
+    """Largest absolute difference of two foot states over every field."""
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def foot_bound_ms(fleet, steps: int) -> tuple:
+    """(bound, by operations, by bytes) in ms of one rollout of ``fleet``: each
+    lane's state read and written once, the per-lane operands read once."""
+    _, _, _, _, p0, R0, k, b, scal, _ = rollout_kernel.rollout_operands(
+        fleet.cparams, fleet.fparams, fleet.state, fleet.null_position, fleet.null_rotation,
+        fleet.dt)
+    B = fleet.state.position.shape[0]
+    floats = 2 * 18 * B + sum(t.numel() for t in (p0, R0, k, b, scal))
+    ops_ms = 1e3 * B * steps * FOOT_OPS_PER_LANE_STEP / PEAK_F32_FLOPS
+    bytes_ms = 1e3 * 4 * floats / PEAK_BYTES_PER_S
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms
+
+
+def kernels_foot_rollout() -> dict:
+    """K5 against its plain version at the foot fleet's width, 300 and 1000
+    steps, scalar and per-lane (k, b), at an odd batch; a NaN lane stays in
+    its lane; timed at (65536, 1000) and (65536, 10)."""
+    fleet = foot_drop_fleet(FOOT_LANES, seed=SEED, device=DEVICE, dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    per_lane = fleet._replace(cparams=fleet.cparams._replace(
+        spring_coeff=torch.as_tensor(rng.uniform(1e5, 3e5, (FOOT_LANES, 1)),
+                                     dtype=torch.float32, device=DEVICE),
+        damper_coeff=torch.as_tensor(rng.uniform(1e3, 3e3, (FOOT_LANES, 1)),
+                                     dtype=torch.float32, device=DEVICE)))
+    odd = per_lane._replace(
+        cparams=per_lane.cparams._replace(
+            spring_coeff=per_lane.cparams.spring_coeff[:FOOT_ODD_LANES],
+            damper_coeff=per_lane.cparams.damper_coeff[:FOOT_ODD_LANES]),
+        state=type(fleet.state)(*(t[:FOOT_ODD_LANES] for t in fleet.state)),
+        null_position=fleet.null_position[:FOOT_ODD_LANES],
+        null_rotation=fleet.null_rotation[:FOOT_ODD_LANES])
+
+    def args(f):
+        return f.cparams, f.fparams, f.state, f.null_position, f.null_rotation
+
+    cases, max_abs = [], 0.0
+    for name, f in (("scalar_kb", fleet), ("per_lane_kb", per_lane), ("odd_batch", odd)):
+        for steps in FOOT_CHECK_STEPS:
+            out = rollout_kernel.foot_rollout_fused(*args(f), dt=f.dt, steps=steps)
+            torch.cuda.synchronize()
+            ref = rollout_kernel.foot_rollout_fused_reference(*args(f), dt=f.dt, steps=steps)
+            err = foot_max_abs(out, ref)
+            cases.append({"inputs": name, "B": f.state.position.shape[0], "steps": steps,
+                          "max_abs_err": err})
+            max_abs = max(max_abs, err)
+            check(all(bool(torch.isfinite(t).all()) for t in out),
+                  f"{name}, {steps} steps: every lane finite")
+            check(err <= FOOT_TOL, f"foot_rollout_fused agrees with the plain version to"
+                                   f" {FOOT_TOL} on every field: {name}, {steps} steps: {err}")
+
+    lane = FOOT_LANES // 3
+    bad_state = type(fleet.state)(*(t.clone() for t in fleet.state))
+    bad_state.rotation[lane, 2, 2] = float("nan")
+    bad = per_lane._replace(state=bad_state)
+    clean = rollout_kernel.foot_rollout_fused(*args(per_lane), dt=fleet.dt, steps=FOOT_CHECK_STEPS[0])
+    poisoned = rollout_kernel.foot_rollout_fused(*args(bad), dt=fleet.dt, steps=FOOT_CHECK_STEPS[0])
+    torch.cuda.synchronize()
+    others = torch.ones(FOOT_LANES, dtype=torch.bool, device=DEVICE)
+    others[lane] = False
+    for a, b in zip(poisoned, clean):
+        check(bool(torch.isnan(a[lane]).all()), "NaN lane: NaN in every field of its state")
+        check(bool(torch.equal(a[others], b[others])),
+              "NaN lane: every other lane equals the clean run bit for bit")
+
+    kernel_ms = median_ms(lambda: rollout_kernel.foot_rollout_fused(
+        *args(fleet), dt=fleet.dt, steps=FOOT_STEPS), 2, 11)
+    short_ms = median_ms(lambda: rollout_kernel.foot_rollout_fused(
+        *args(fleet), dt=fleet.dt, steps=IDENT_STEPS), 5, 21)
+    plain_ms = median_ms(lambda: rollout_kernel.foot_rollout_fused_reference(
+        *args(fleet), dt=fleet.dt, steps=FOOT_STEPS), 0, 3)
+    bound, ops_ms, bytes_ms = foot_bound_ms(fleet, FOOT_STEPS)
+    short_bound = foot_bound_ms(fleet, IDENT_STEPS)[0]
+    ops = FOOT_LANES * FOOT_STEPS * FOOT_OPS_PER_LANE_STEP
+    return {
+        "name": "foot_rollout_fused", "path": "foot", "shape": [FOOT_LANES, FOOT_STEPS],
+        "cases": cases, "nan_lane": "confined", "max_abs_err": max_abs, "max_rel_err": None,
+        "tolerance_abs": FOOT_TOL, "kernel_ms": kernel_ms, "kernel_ms_10_steps": short_ms,
+        "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": bound, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms, "bound_ms_10_steps": short_bound,
+        "ops_per_lane_step": FOOT_OPS_PER_LANE_STEP,
+        "tops": ops / (kernel_ms * 1e-3) / 1e12,
+        "lane_steps_per_s": FOOT_LANES * FOOT_STEPS / (kernel_ms * 1e-3),
+        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
+    }
+
+
 def phase_kernels(problem, device: dict) -> dict:
     """Every kernel of every path against its plain version on the card, at
     each path's shapes; keyed ``name`` (the fleet tick's and the whole-body
@@ -872,6 +1002,8 @@ def phase_kernels(problem, device: dict) -> dict:
     stack_seen = capture_stack_inputs(STACK_LANES)
     entries += [kernels_admm_stage_stack(stack_seen), kernels_admm_lane_stack(stack_seen),
                 kernels_chol_inverse_stack(stack_seen), kernels_chol_solve(stack_seen)]
+    del stack_seen
+    entries.append(kernels_foot_rollout())
     emit("kernels", kernels=entries)
     return {e["name"] + ("@stack" if e.get("path") == "stack" else ""): e for e in entries}
 
@@ -882,6 +1014,7 @@ def all_finite(state) -> bool:
 
 def phase_tick(problem, kernel_ms: float, profile: bool) -> dict:
     batch, ticks, scans = BATCH, TICKS, SCANS
+    torch.cuda.reset_peak_memory_stats()      # the tick's own peak, not the kernels phase's
     state = init_fleet(batch, HORIZON, problem.num_constraints, problem.dcm0,
                        problem.com0, device=DEVICE, dtype=torch.float32)
     step = make_fleet_step(problem.params, problem.dt, iterations=2 * STAGE_ITERS,
@@ -1234,10 +1367,11 @@ def phase_wbc_cross() -> dict:
 
 
 class PartTimer:
-    """``stack_module.part_timer``: CUDA events around each part of a tick."""
+    """``part_timer`` of ``mpc/stack.py`` or ``problems.py``: CUDA events
+    around each part of a tick (``parts``)."""
 
-    def __init__(self):
-        self.events = {part: [] for part in stack_module.PARTS}
+    def __init__(self, parts=stack_module.PARTS):
+        self.events = {part: [] for part in parts}
 
     @contextlib.contextmanager
     def __call__(self, name):
@@ -1427,6 +1561,140 @@ def phase_stack_cross() -> dict:
     return out
 
 
+def phase_foot() -> dict:
+    """The foot rollout fleet of ``benchmarks/rollout_bench.py``: FOOT_LANES
+    lanes, FOOT_STEPS Euler steps, ``backend="cuda"``, one warm-up and
+    FOOT_RUNS timed rollouts, then FOOT_SETTLE_STEPS steps that must settle
+    every lane; the plain-tensor backend at the same width beside it."""
+    torch.cuda.reset_peak_memory_stats()
+    fleet = foot_drop_fleet(FOOT_LANES, seed=SEED, device=DEVICE, dtype=torch.float32)
+    args = (fleet.cparams, fleet.fparams, fleet.state, fleet.null_position,
+            fleet.null_rotation, fleet.dt)
+    rollout_kernel.reset_counts()                 # counts of this path start here
+    rollout = lambda steps: foot_rollout(*args, steps, backend="cuda")
+    times = time_cuda(lambda: rollout(FOOT_STEPS), warmup=1, reps=FOOT_RUNS)
+    out = rollout(FOOT_STEPS)
+    settled = rollout(FOOT_SETTLE_STEPS)
+    torch.cuda.synchronize()
+    launches = rollout_kernel.launch_count()      # read just after the path
+    plain_runs = rollout_kernel.reference_count()
+    expected = 1 + FOOT_RUNS + 2
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    t0 = time.perf_counter()
+    plain = foot_rollout(*args, FOOT_STEPS, backend="torch")
+    torch.cuda.synchronize()
+    torch_ms = 1e3 * (time.perf_counter() - t0)
+    parted = foot_max_abs(out, plain)
+
+    cp, fp = fleet.cparams, fleet.fparams
+    sink = float(fp.mass) * 9.81 / (float(cp.spring_coeff) * float(cp.length * cp.width))
+    sink_err = float((settled.position[:, 2] + sink).abs().max())
+    v_max = float(settled.linear_velocity.abs().max())
+    w_max = float(settled.angular_velocity.abs().max())
+    r_err = float((settled.rotation - torch.eye(3, device=DEVICE)).abs().max())
+    wrench = contact_wrench(cp, ContactState(*settled, null_position=fleet.null_position,
+                                             null_rotation=fleet.null_rotation))
+    weight_err = float((wrench[:, 2] / (float(fp.mass) * 9.81) - 1.0).abs().max())
+    med = statistics.median(times)
+    record = emit(
+        "foot", lanes=FOOT_LANES, steps=FOOT_STEPS, dt=fleet.dt, dtype="float32",
+        backend="cuda", rollout_ms=med, rollout_ms_min=min(times), rollout_ms_max=max(times),
+        rollout_ms_each=times, lane_steps_per_s=FOOT_LANES * FOOT_STEPS / (med * 1e-3),
+        torch_backend_ms=torch_ms, cuda_vs_torch_max_abs=parted,
+        settle_steps=FOOT_SETTLE_STEPS, settled_sink_err_m=sink_err,
+        settled_max_linear_velocity=v_max, settled_max_angular_velocity=w_max,
+        settled_max_rotation_err=r_err, settled_weight_rel_err=weight_err,
+        mean_final_pz=float(out.position[:, 2].mean()),
+        launches=launches, launches_expected=expected, plain_version_runs=plain_runs,
+        peak_memory_gb=peak)
+    check(launches == expected, f"one kernel launch a rollout: {launches}, not {expected}")
+    check(plain_runs == 0, "the plain version never ran on this path")
+    check(all(bool(torch.isfinite(t).all()) for t in out),
+          "every lane finite")
+    check(parted <= FOOT_TOL, f"backend torch agrees with cuda to {FOOT_TOL}: {parted}")
+    check(sink_err < FOOT_SINK_TOL, f"every lane sinks to -mg/(kA) within {FOOT_SINK_TOL} m:"
+                                    f" {sink_err}")
+    check(v_max < FOOT_V_TOL and w_max < FOOT_W_TOL,
+          f"every lane at rest: |v| {v_max} < {FOOT_V_TOL}, |w| {w_max} < {FOOT_W_TOL}")
+    check(r_err < FOOT_R_TOL, f"every lane's rotation within {FOOT_R_TOL} of I: {r_err}")
+    return record
+
+
+def relative_errors(estimate, true) -> dict:
+    rel = ((estimate.double() - true.double()).abs() / true.double()).cpu()
+    return {"within_1pct_k": int((rel[:, 0] <= 0.01).sum()),
+            "within_1pct_b": int((rel[:, 1] <= 0.01).sum()),
+            "median_rel_k": float(rel[:, 0].median()), "median_rel_b": float(rel[:, 1].median()),
+            "max_rel_k": float(rel[:, 0].max()), "max_rel_b": float(rel[:, 1].max())}
+
+
+def max_rel_parted(a, b) -> float:
+    return float(((a.double() - b.double()).abs() / b.double().abs()).max())
+
+
+def phase_identify() -> dict:
+    """Contact identification over IDENT_LANES lanes with their own (k, b):
+    IDENT_SAMPLES segments of IDENT_STEPS Euler steps on the kernel, the
+    wrench measured after each, three RLS forms; one warm-up run, then one
+    run counted and timed by part. Then IDENT_CROSS_LANES lanes on both
+    backends."""
+    problem = contact_identification_fleet(IDENT_LANES, samples=IDENT_SAMPLES, seed=SEED,
+                                           device=DEVICE, dtype=torch.float32)
+    run = lambda p, backend="cuda": identify_contacts(
+        p, samples=IDENT_SAMPLES, steps_per_sample=IDENT_STEPS, backend=backend)
+    run(problem)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = PartTimer(IDENTIFY_PARTS)
+    rollout_kernel.reset_counts()                  # counts of this path start here
+    t0 = time.perf_counter()
+    with mock.patch.object(problems_module, "part_timer", timer):
+        result = run(problem)
+    torch.cuda.synchronize()
+    total_ms = 1e3 * (time.perf_counter() - t0)
+    launches = rollout_kernel.launch_count()       # read just after the path
+    plain_runs = rollout_kernel.reference_count()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    split = timer.ms()
+
+    accuracy = {form: relative_errors(getattr(result, form), result.true)
+                for form in ("scan", "fit", "parallel")}
+    forms = {"fit_vs_scan": max_rel_parted(result.fit, result.scan),
+             "parallel_vs_scan": max_rel_parted(result.parallel, result.scan)}
+    small = contact_identification_fleet(IDENT_CROSS_LANES, samples=IDENT_SAMPLES, seed=SEED,
+                                         device=DEVICE, dtype=torch.float32)
+    on_kernel, on_torch = run(small), run(small, backend="torch")
+    cross = {form: max_rel_parted(getattr(on_kernel, form), getattr(on_torch, form))
+             for form in ("scan", "fit", "parallel")}
+    record = emit(
+        "identify", lanes=IDENT_LANES, samples=IDENT_SAMPLES, steps_per_sample=IDENT_STEPS,
+        dt=problem.dt, dtype="float32", backend="cuda", total_ms=total_ms,
+        split_ms=split, split_sum_ms=sum(split.values()),
+        lane_identifications_per_s=IDENT_LANES / (total_ms * 1e-3),
+        accuracy=accuracy, forms_max_rel=forms, cross_lanes=IDENT_CROSS_LANES,
+        cuda_vs_torch_max_rel=cross, launches=launches, launches_expected=IDENT_SAMPLES,
+        plain_version_runs=plain_runs, peak_memory_gb=peak)
+    check(launches == IDENT_SAMPLES, f"one kernel launch a segment: {launches}")
+    check(plain_runs == 0, "the plain version never ran on this path")
+    for form, a in accuracy.items():
+        check(a["within_1pct_k"] >= IDENT_SHARE_K * IDENT_LANES
+              and a["within_1pct_b"] >= IDENT_SHARE_B * IDENT_LANES,
+              f"{form}: k within 1 % on {IDENT_SHARE_K:.1%} of lanes and b on"
+              f" {IDENT_SHARE_B:.0%}: {a}")
+        check(a["median_rel_k"] <= IDENT_MEDIAN_K and a["median_rel_b"] <= IDENT_MEDIAN_B,
+              f"{form}: median relative error within {IDENT_MEDIAN_K} (k), {IDENT_MEDIAN_B}"
+              f" (b): {a}")
+        check(max(a["max_rel_k"], a["max_rel_b"]) <= IDENT_MAX,
+              f"{form}: every lane within {IDENT_MAX} of the truth: {a}")
+    check(max(forms.values()) <= IDENT_FORMS_TOL,
+          f"rls_fit and rls_parallel agree with rls_scan to {IDENT_FORMS_TOL}: {forms}")
+    check(max(cross.values()) <= IDENT_CROSS_TOL,
+          f"{IDENT_CROSS_LANES} lanes: backend cuda and torch agree to {IDENT_CROSS_TOL}:"
+          f" {cross}")
+    return record
+
+
 def study_factorization(problem, lanes: int = STUDY_LANES, ticks: int = 8) -> dict:
     """Diagnostic, off by default: where the factorization is computed, and in
     which precision, against the fleet's convergence over the first ticks.
@@ -1503,6 +1771,8 @@ def main() -> None:
         stack = phase_stack(opts.profile)
     if "stack_cross" in phases:
         phase_stack_cross()
+    foot = phase_foot() if "foot" in phases else None
+    ident = phase_identify() if "identify" in phases else None
     if opts.study_factorization:
         study_factorization(problem)
 
@@ -1522,11 +1792,14 @@ def main() -> None:
             "cholesky_inverse_lane@stack": {
                 "stack": stack_l.get("cholesky_inverse_lane_n29", 0)},
             "cholesky_solve_lane@stack": {"stack": stack_l.get("cholesky_solve_lane", 0)},
+            "foot_rollout_fused": {"foot": foot["launches"] if foot else 0,
+                                   "identify": ident["launches"] if ident else 0},
         }
         origin = {"admm_stage": (admm_kernel.SOURCE, admm_kernel.REPLACES),
                   "admm_lane_stage": (lane_kernel.SOURCE, lane_kernel.REPLACES),
                   "cholesky_inverse_lane": (chol_kernel.SOURCE, chol_kernel.REPLACES),
-                  "cholesky_solve_lane": (chol_kernel.SOLVE_SOURCE, chol_kernel.SOLVE_REPLACES)}
+                  "cholesky_solve_lane": (chol_kernel.SOLVE_SOURCE, chol_kernel.SOLVE_REPLACES),
+                  "foot_rollout_fused": (rollout_kernel.SOURCE, rollout_kernel.REPLACES)}
         print(json.dumps({"kernels": [{
             "name": k["name"], "route": "cuda", "shape": k["shape"],
             "source": "blf_tpu_torch/csrc/" + origin[k["name"]][0],

@@ -49,14 +49,17 @@ def test_every_module_imports_without_jax_or_a_gpu_toolchain():
     assert "blf_tpu_torch.ops.cuda.admm" in modules and len(modules) >= 20
     assert {"blf_tpu_torch.ops.cuda.admm_lane", "blf_tpu_torch.ops.cuda.linalg",
             "blf_tpu_torch.mpc.wholebody", "blf_tpu_torch.models.rigid_body"} <= set(modules)
+    assert {"blf_tpu_torch.ops.cuda.rollout", "blf_tpu_torch.models.foot",
+            "blf_tpu_torch.models.systems", "blf_tpu_torch.estimators.rls_parallel",
+            "blf_tpu_torch.utils.params"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
-        "from blf_tpu_torch.ops.cuda import admm, admm_lane, linalg\n"
-        "assert not admm._libs and not admm_lane._libs and not linalg._libs\n"
+        "from blf_tpu_torch.ops.cuda import admm, admm_lane, linalg, rollout\n"
+        "assert not (admm._libs or admm_lane._libs or linalg._libs or rollout._libs)\n"
         "print('clean', len(sys.modules))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
@@ -146,13 +149,14 @@ def test_kernel_sources_name_what_they_replace():
     """Each CUDA source carries its note: the TPU kernel it replaces, what
     bounds it on the card, what the design does about it; and each wrapper's
     ``REPLACES`` points at a line of the JAX package that opens that kernel."""
-    from blf_tpu_torch.ops.cuda import admm, admm_lane, linalg
+    from blf_tpu_torch.ops.cuda import admm, admm_lane, linalg, rollout
 
     for source_name, replaces, function in (
             (admm.SOURCE, admm.REPLACES, "_stage_kernel_t"),
             (admm_lane.SOURCE, admm_lane.REPLACES, "_lane_kernel"),
             (linalg.SOURCE, linalg.REPLACES, "_inverse_kernel"),
-            (linalg.SOLVE_SOURCE, linalg.SOLVE_REPLACES, "_solve_kernel")):
+            (linalg.SOLVE_SOURCE, linalg.SOLVE_REPLACES, "_solve_kernel"),
+            (rollout.SOURCE, rollout.REPLACES, "_rollout_kernel")):
         source = (PACKAGE / "csrc" / source_name).read_text()
         assert "Replaces the TPU kernel" in source and function in source
         assert "What bounds it on an H100" in source and "Design" in source
@@ -200,6 +204,36 @@ def test_no_fallback_in_the_solve_kernel_wrapper(monkeypatch, tmp_path):
         linalg.build_chol_solve(6)
     assert not list(tmp_path.glob("*.so")) and not linalg._solve_libs
     assert "chol_solve_chol_n6" in _build.library_path(linalg.SOLVE_SOURCE, {"CHOL_N": 6}).name
+
+
+def test_no_fallback_in_the_rollout_kernel_wrapper(monkeypatch, tmp_path):
+    """K5's wrapper serves CPU and CUDA tensors and raises on anything else; a
+    failed build raises and leaves nothing behind; it catches nothing."""
+    from blf_tpu_torch.ops.cuda import _build, rollout
+    from blf_tpu_torch.problems import foot_drop_fleet
+
+    fleet = foot_drop_fleet(3, device="cpu")
+    meta = type(fleet.state)(*(torch.zeros_like(x, device="meta") for x in fleet.state))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rollout.foot_rollout_fused(fleet.cparams, fleet.fparams, meta, fleet.null_position,
+                                   fleet.null_rotation, dt=fleet.dt, steps=2)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "false")   # a compiler that fails
+    monkeypatch.setattr(rollout, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc failed to build foot_rollout.cu"):
+        rollout.build_foot_rollout()
+    assert not list(tmp_path.glob("*.so")) and not rollout._libs
+    tree = ast.parse(Path(rollout.__file__).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_the_config2_problems_take_the_gpu_by_default(monkeypatch):
+    from blf_tpu_torch.problems import contact_identification_fleet, foot_drop_fleet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (foot_drop_fleet, contact_identification_fleet):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(2)
 
 
 def test_the_stack_problem_takes_the_gpu_by_default(monkeypatch):
