@@ -48,7 +48,8 @@ __all__ = ["example_problem", "PushRecoveryProblem", "stationary_push_recovery",
            "apply_solution", "wbc_balance_step", "STACK_R05", "PushRecoveryStack",
            "push_recovery_stack", "stack_fleet_step", "FootDropFleet", "foot_drop_fleet",
            "ContactIdentificationFleet", "contact_identification_fleet",
-           "Identification", "identify_contacts", "IDENTIFY_PARTS"]
+           "Identification", "identify_contacts", "IDENTIFY_PARTS",
+           "IDENTIFY_STEPS_PER_SAMPLE"]
 
 _BOX = [[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]]
 
@@ -458,6 +459,10 @@ class Identification(NamedTuple):
     true: torch.Tensor      # (B, 2)
 
 
+#: Euler steps between two wrench samples of :func:`identify_contacts`: the
+#: example's 1 kHz measurements of a 10 kHz simulation
+IDENTIFY_STEPS_PER_SAMPLE = 10
+
 #: the parts of :func:`identify_contacts` that ``part_timer`` is wrapped around
 IDENTIFY_PARTS = ("rollout", "wrench", "rls_scan", "rls_fit", "rls_parallel")
 
@@ -467,25 +472,22 @@ IDENTIFY_PARTS = ("rollout", "wrench", "rls_scan", "rls_fit", "rls_parallel")
 part_timer: Callable[[str], ContextManager] = lambda name: contextlib.nullcontext()
 
 
-def identify_contacts(problem: ContactIdentificationFleet, *, samples: int = 200,
-                      steps_per_sample: int = 10, backend: str = "cuda") -> Identification:
-    """Example 02 over the fleet: roll every foot out in ``samples`` segments
-    of ``steps_per_sample`` Euler steps (``foot_rollout(backend=...)``, one
-    kernel launch a segment on ``"cuda"``), record the state after each, take
-    the contact regressor and the wrench plus the fleet's noise along the
-    (T, B) record, and identify each lane's (k, b) with ``rls_scan``,
-    ``rls_fit`` and ``rls_parallel`` configured from the handler, one filter a
-    lane."""
-    if problem.noise.shape[0] < samples:
-        raise ValueError(f"the fleet drew noise for {problem.noise.shape[0]} samples,"
-                         f" not {samples}")
+def identify_contacts(problem: ContactIdentificationFleet, *,
+                      backend: str = "cuda") -> Identification:
+    """Example 02 over the fleet: roll every foot out in T segments of
+    ``IDENTIFY_STEPS_PER_SAMPLE`` Euler steps, T the fleet's samples of noise
+    (``foot_rollout(backend=...)``, one kernel launch a segment on
+    ``"cuda"``), record the state after each, take the contact regressor and
+    the wrench plus the fleet's noise along the (T, B) record, and identify
+    each lane's (k, b) with ``rls_scan``, ``rls_fit`` and ``rls_parallel``
+    configured from the handler, one filter a lane."""
     cp, dtype, device = problem.cparams, problem.noise.dtype, problem.noise.device
     with part_timer("rollout"):
         state, record = problem.state, []
-        for _ in range(samples):
+        for _ in range(problem.noise.shape[0]):
             state = foot_rollout(cp, problem.fparams, state, problem.null_position,
-                                 problem.null_rotation, problem.dt, steps_per_sample,
-                                 backend=backend)
+                                 problem.null_rotation, problem.dt,
+                                 IDENTIFY_STEPS_PER_SAMPLE, backend=backend)
             record.append(state)
         traj = FootState(*(torch.stack(field) for field in zip(*record)))   # (T, B, ...)
     with part_timer("wrench"):
@@ -494,7 +496,7 @@ def identify_contacts(problem: ContactIdentificationFleet, *, samples: int = 200
             *traj, null_position=problem.null_position.expand(shape),
             null_rotation=problem.null_rotation.expand(shape + (3,)))
         regressors = contact.regressor(cp, cstates)                         # (T, B, 6, 2)
-        wrenches = contact.contact_wrench(cp, cstates) + problem.noise[:samples]
+        wrenches = contact.contact_wrench(cp, cstates) + problem.noise
     params, rls0 = init_from_handler(problem.handler, device=device, dtype=dtype)
     lanes = regressors.shape[1]
     rls0 = RLSState(rls0.theta.expand(lanes, -1), rls0.covariance.expand(lanes, -1, -1))

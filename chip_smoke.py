@@ -81,10 +81,11 @@ from blf_tpu_torch.ops.cuda import rollout as rollout_kernel
 from blf_tpu_torch.parallel.sweep import init_fleet, make_fleet_step
 from blf_tpu_torch.problems import WBC_CHECK_EVERY as WBC_STAGE
 from blf_tpu_torch.problems import WBC_ITERATIONS as WBC_ITERS
-from blf_tpu_torch.problems import (IDENTIFY_PARTS, STACK_R05, apply_solution, balance_task,
-                                    contact_identification_fleet, foot_drop_fleet,
-                                    identify_contacts, push_recovery_stack, stack_fleet_step,
-                                    standing_fleet, stationary_push_recovery, wbc_balance_step)
+from blf_tpu_torch.problems import (IDENTIFY_PARTS, IDENTIFY_STEPS_PER_SAMPLE, STACK_R05,
+                                    apply_solution, balance_task, contact_identification_fleet,
+                                    foot_drop_fleet, identify_contacts, push_recovery_stack,
+                                    stack_fleet_step, standing_fleet, stationary_push_recovery,
+                                    wbc_balance_step)
 from blf_tpu_torch.utils.status import status_counts
 from blf_tpu_torch.utils.telemetry import TelemetryStream
 
@@ -158,7 +159,8 @@ FOOT_LANES, FOOT_STEPS = 65536, 1000
 FOOT_RUNS = 7                         # timed rollouts, after one warm-up
 FOOT_SETTLE_STEPS = 4000
 FOOT_ODD_LANES = 65533
-FOOT_CHECK_STEPS = (300, 1000)
+FOOT_CHECK_STEPS = (10, 300, 1000)   # the fleet still moving at 10 and 300, settled at 1000
+FOOT_NAN_STEPS = 300
 FOOT_TOL = 2e-5       # absolute, every field: the reference's own (tests/test_foot_rollout.py)
 # operations of one lane-step of csrc/foot_rollout.cu, counted from its source: a
 # multiply, an add or subtract, an |.| and a division one each (an FMA two), 376 in
@@ -167,7 +169,8 @@ FOOT_OPS_PER_LANE_STEP = 376
 # the settled state the reference's test requires (tests/test_foot_rollout.py:47-62)
 FOOT_SINK_TOL, FOOT_V_TOL, FOOT_W_TOL, FOOT_R_TOL = 1e-4, 1e-4, 1e-3, 1e-3
 # the contact identification fleet (examples/02_contact_identification.py, batched)
-IDENT_LANES, IDENT_SAMPLES, IDENT_STEPS = 65536, 200, 10
+IDENT_LANES, IDENT_SAMPLES = 65536, 200
+IDENT_STEPS = IDENTIFY_STEPS_PER_SAMPLE   # Euler steps a sample, a kernel launch each
 IDENT_CROSS_LANES = 256
 IDENT_FORMS_TOL = 1e-4    # relative, per lane: rls_fit and rls_parallel against rls_scan
 IDENT_CROSS_TOL = 1e-4    # relative, per lane: backend "cuda" against "torch"
@@ -916,10 +919,44 @@ def foot_bound_ms(fleet, steps: int) -> tuple:
     return max(ops_ms, bytes_ms), ops_ms, bytes_ms
 
 
+def foot_identify_segments(lanes: int = IDENT_LANES) -> dict:
+    """K5 against its plain version on every input the identification path
+    gives it: the fleet of ``identify`` (dt 0.1 ms, rho 1, per-lane (k, b),
+    one (3,) null position), walked through its IDENT_SAMPLES segments of
+    IDENT_STEPS steps by the kernel. At each segment the plain version runs
+    from the kernel's state (``max_abs_err``), and the plain version's own
+    walk along the path is held to the kernel's record (``path_max_abs``).
+    The lanes are still moving, so each segment starts from a new state."""
+    fleet = contact_identification_fleet(lanes, samples=IDENT_SAMPLES, seed=SEED,
+                                         device=DEVICE, dtype=torch.float32)
+    params = (fleet.cparams, fleet.fparams)
+    null = (fleet.null_position, fleet.null_rotation)
+    per_lane = rollout_kernel.rollout_operands(*params, fleet.state, *null, fleet.dt)[-1]
+    check(per_lane == (False, False, True, True),
+          f"identify's operands: one null pose for every lane, (k, b) per lane: {per_lane}")
+    segment = lambda fn, state: fn(*params, state, *null, dt=fleet.dt, steps=IDENT_STEPS)
+    state = alone = fleet.state
+    worst, path, moved = 0.0, 0.0, 0.0
+    for _ in range(IDENT_SAMPLES):
+        out = segment(rollout_kernel.foot_rollout_fused, state)
+        torch.cuda.synchronize()
+        ref = segment(rollout_kernel.foot_rollout_fused_reference, state)
+        alone = segment(rollout_kernel.foot_rollout_fused_reference, alone)
+        check(all(bool(torch.isfinite(t).all()) for t in out), "identify: every lane finite")
+        worst = max(worst, foot_max_abs(out, ref))
+        path = max(path, foot_max_abs(out, alone))
+        moved = max(moved, float(out.linear_velocity.abs().max()))
+        state = out
+    return {"inputs": "identify_segments", "B": lanes, "steps": IDENT_STEPS,
+            "segments": IDENT_SAMPLES, "max_abs_err": worst, "path_max_abs": path,
+            "max_linear_velocity": moved}
+
+
 def kernels_foot_rollout() -> dict:
-    """K5 against its plain version at the foot fleet's width, 300 and 1000
-    steps, scalar and per-lane (k, b), at an odd batch; a NaN lane stays in
-    its lane; timed at (65536, 1000) and (65536, 10)."""
+    """K5 against its plain version at the foot fleet's width, 10, 300 and
+    1000 steps, scalar and per-lane (k, b), at an odd batch, and on every
+    segment of the identification path; a NaN lane stays in its lane; timed
+    at (65536, 1000) and (65536, 10)."""
     fleet = foot_drop_fleet(FOOT_LANES, seed=SEED, device=DEVICE, dtype=torch.float32)
     rng = np.random.default_rng(3)
     per_lane = fleet._replace(cparams=fleet.cparams._replace(
@@ -952,13 +989,19 @@ def kernels_foot_rollout() -> dict:
                   f"{name}, {steps} steps: every lane finite")
             check(err <= FOOT_TOL, f"foot_rollout_fused agrees with the plain version to"
                                    f" {FOOT_TOL} on every field: {name}, {steps} steps: {err}")
+    ident = foot_identify_segments()
+    cases.append(ident)
+    max_abs = max(max_abs, ident["max_abs_err"], ident["path_max_abs"])
+    check(max(ident["max_abs_err"], ident["path_max_abs"]) <= FOOT_TOL,
+          f"foot_rollout_fused agrees with the plain version to {FOOT_TOL} on every field"
+          f" of every identify segment, and along the whole path: {ident}")
 
     lane = FOOT_LANES // 3
     bad_state = type(fleet.state)(*(t.clone() for t in fleet.state))
     bad_state.rotation[lane, 2, 2] = float("nan")
     bad = per_lane._replace(state=bad_state)
-    clean = rollout_kernel.foot_rollout_fused(*args(per_lane), dt=fleet.dt, steps=FOOT_CHECK_STEPS[0])
-    poisoned = rollout_kernel.foot_rollout_fused(*args(bad), dt=fleet.dt, steps=FOOT_CHECK_STEPS[0])
+    clean = rollout_kernel.foot_rollout_fused(*args(per_lane), dt=fleet.dt, steps=FOOT_NAN_STEPS)
+    poisoned = rollout_kernel.foot_rollout_fused(*args(bad), dt=fleet.dt, steps=FOOT_NAN_STEPS)
     torch.cuda.synchronize()
     others = torch.ones(FOOT_LANES, dtype=torch.bool, device=DEVICE)
     others[lane] = False
@@ -1641,8 +1684,7 @@ def phase_identify() -> dict:
     backends."""
     problem = contact_identification_fleet(IDENT_LANES, samples=IDENT_SAMPLES, seed=SEED,
                                            device=DEVICE, dtype=torch.float32)
-    run = lambda p, backend="cuda": identify_contacts(
-        p, samples=IDENT_SAMPLES, steps_per_sample=IDENT_STEPS, backend=backend)
+    run = lambda p, backend="cuda": identify_contacts(p, backend=backend)
     run(problem)                                   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()

@@ -40,13 +40,15 @@ from blf_tpu_torch.estimators.rls import init_from_handler, rls_scan
 from blf_tpu_torch.models import contact as tcontact
 from blf_tpu_torch.ops.cuda import rollout as rollout_kernel
 from blf_tpu_torch.ops.lie import so3_exp
-from blf_tpu_torch.problems import contact_identification_fleet, identify_contacts
+from blf_tpu_torch.problems import (IDENTIFY_STEPS_PER_SAMPLE, contact_identification_fleet,
+                                    identify_contacts)
 from blf_tpu_torch.utils.params import ParametersHandler
 from test_torch_wbc_loop import reference_jit
 
 torch.set_num_threads(1)
 
-LANES, SAMPLES, STEPS = 32, 50, 10
+LANES, SAMPLES = 32, 50
+STEPS = IDENTIFY_STEPS_PER_SAMPLE
 REL_TOL = 1e-8
 
 
@@ -99,7 +101,7 @@ def test_identification_matches_the_reference(fleet_and_reference, backend):
     runs K5's plain version, once a segment."""
     fleet, ref = fleet_and_reference
     rollout_kernel.reset_counts()
-    out = identify_contacts(fleet, samples=SAMPLES, steps_per_sample=STEPS, backend=backend)
+    out = identify_contacts(fleet, backend=backend)
     assert rollout_kernel.reference_count() == (SAMPLES if backend == "cuda" else 0)
     assert rollout_kernel.launch_count() == 0
     for name, expected in zip(("scan", "fit", "parallel"), ref):
@@ -110,9 +112,13 @@ def test_identification_matches_the_reference(fleet_and_reference, backend):
 
 
 def test_identify_contacts_checks_the_noise_it_was_given():
+    """The fleet's noise sets the number of samples: one segment, one
+    measurement and one filter step each."""
     fleet = contact_identification_fleet(2, samples=3, device="cpu", dtype=torch.float64)
-    with pytest.raises(ValueError, match="noise for 3 samples"):
-        identify_contacts(fleet, samples=4, backend="torch")
+    rollout_kernel.reset_counts()
+    out = identify_contacts(fleet, backend="cuda")
+    assert rollout_kernel.reference_count() == 3
+    assert out.scan.shape == out.fit.shape == out.parallel.shape == (2, 2)
 
 
 class TestContactIdentification:
@@ -147,7 +153,7 @@ class TestContactIdentification:
         np.testing.assert_allclose(final.theta.numpy(), [true_k, true_b], rtol=1e-2)
 
 
-def study(lanes: int = 4096, samples: int = 200, steps: int = 10) -> dict:
+def study(lanes: int = 4096, samples: int = 200) -> dict:
     """Float32 on the CPU, both packages, the fleet ``chip_smoke.py`` runs
     cut to ``lanes``: the share of lanes within 1 % of the truth, the median
     and max relative error of each RLS form, and how far the forms and the
@@ -155,9 +161,9 @@ def study(lanes: int = 4096, samples: int = 200, steps: int = 10) -> dict:
     fleet = contact_identification_fleet(lanes, samples=samples, seed=0, device="cpu",
                                          dtype=torch.float32)
     t0 = time.perf_counter()
-    ref = reference_identification(fleet, samples, steps, jnp.float32)
+    ref = reference_identification(fleet, samples, STEPS, jnp.float32)
     t1 = time.perf_counter()
-    port = identify_contacts(fleet, samples=samples, steps_per_sample=steps, backend="cuda")
+    port = identify_contacts(fleet, backend="cuda")
     t2 = time.perf_counter()
     true = port.true.double().numpy()
 
@@ -173,7 +179,7 @@ def study(lanes: int = 4096, samples: int = 200, steps: int = 10) -> dict:
         a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
         return float((np.abs(a - b) / np.abs(b)).max())
 
-    out = {"lanes": lanes, "samples": samples, "steps_per_sample": steps,
+    out = {"lanes": lanes, "samples": samples, "steps_per_sample": STEPS,
            "dtype": "float32", "seconds_blf_tpu": t1 - t0, "seconds_port": t2 - t1}
     for side, (scan, fit, par) in (("blf_tpu", ref), ("port", (port.scan, port.fit,
                                                               port.parallel))):
