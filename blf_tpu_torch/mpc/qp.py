@@ -32,14 +32,19 @@ Backends of :func:`solve_qp_factored`:
   including ``refine``, the x5 hysteresis of the per-lane penalty rule and
   the per-lane acceptance of the dual polish.
 - ``"cuda"``: the stage runs in the hand-written kernel
-  :func:`blf_tpu_torch.ops.cuda.admm.admm_stage` (the reference's
-  ``backend="pallas_f32"``); stage-boundary math and the finish are the same
-  tensor ops. Exact f32 arithmetic, no refinement. Any batch size: the kernel
-  masks its own ragged edge, and this backend never gives way to another.
-- ``"cuda_split"``, ``"cuda_delta"``: raise ``NotImplementedError``. The
-  reference's reduced-precision modes exist for a bf16 matrix unit; their
-  tensor-core counterparts belong to the kernel redesign named in ROADMAP.md
-  ("K1 follow-ups").
+  :func:`blf_tpu_torch.ops.cuda.admm.admm_stage` with ``matmul="f32"`` (the
+  reference's ``backend="pallas_f32"``); stage-boundary math and the finish
+  are the same tensor ops. Exact f32 arithmetic, no refinement.
+- ``"cuda_split"``, ``"cuda_delta"``: the same, with the stage on the
+  tensor-core kernel in mode ``matmul="split"`` (3-pass bf16 split products,
+  the reference's ``"pallas_split"``) or ``matmul="delta"`` (delta-form
+  accumulation, the reference's ``"pallas"``, which ``bench.py`` runs).
+  float32 only, no refinement; held to the reference's loose contract for
+  these modes (the 1e-4 tolerance).
+
+The kernel backends take any batch size: the kernels mask their own ragged
+edge, and none of these backends ever gives way to another (the reference's
+``batch % 256`` fall-back to XLA is a TPU matter).
 
 Not yet ported: ``shard_factors_rows`` and ``solve_qp_factored_rowsharded``.
 """
@@ -61,8 +66,9 @@ __all__ = ["QPSolution", "SharedQPFactors", "factor_shared_qp",
            "solve_qp_factored", "solve_qp_shared", "solve_qp",
            "solve_qp_lanes", "BACKENDS"]
 
-BACKENDS = ("torch", "cuda")
-_REDUCED = ("cuda_split", "cuda_delta")
+BACKENDS = ("torch", "cuda", "cuda_split", "cuda_delta")
+#: the stage kernel's matmul mode of each kernel backend of solve_qp_factored
+_STAGE_MATMUL = {"cuda": "f32", "cuda_split": "split", "cuda_delta": "delta"}
 
 
 class QPSolution(NamedTuple):
@@ -240,8 +246,9 @@ def solve_qp_factored(
     own primal/dual residual ratio (OSQP rule with x5 hysteresis, clipped to
     ``[s_min, s_max]``). ``iterations`` is rounded up to whole stages.
     ``refine`` adds one iterative-refinement pass per x-solve; it defaults to
-    True on ``backend="torch"`` and is not supported by the kernel backend,
-    where asking for it warns and ``QPSolution.refined`` records False.
+    True on ``backend="torch"`` and is not supported by the kernel backends
+    (``"cuda"``, ``"cuda_split"``, ``"cuda_delta"``), where asking for it
+    warns and ``QPSolution.refined`` records False.
 
     ``polish_iters > 0`` appends a final stage at ``s * polish_scale``,
     accepted per lane only where it lowered the tolerance-normalized
@@ -251,18 +258,12 @@ def solve_qp_factored(
     Shapes: ``q`` (..., n), ``l``/``u`` (..., m), broadcast against each other
     over the leading axes; ``x0`` (..., n), ``y0`` (..., m), ``s0`` (..., 1).
     """
-    if backend in _REDUCED:
-        raise NotImplementedError(
-            f"backend={backend!r}: the reduced-precision tensor-core forms of"
-            " the ADMM stage (3xTF32 / bf16 split, delta accumulation) are not"
-            " written yet; see ROADMAP.md, 'K1 follow-ups: tensor-core"
-            " split/delta counterparts'. Use backend='cuda' (exact f32).")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     f = factors
     n, m = f.P_s.shape[-1], f.A_s.shape[-2]
     dtype, device = f.P_s.dtype, f.P_s.device
-    is_kernel = backend == "cuda"
+    is_kernel = backend in _STAGE_MATMUL
     if refine and is_kernel:
         warnings.warn(
             "refine=True is not supported by the fused CUDA ADMM kernel; "
@@ -337,7 +338,8 @@ def solve_qp_factored(
 
     def run_stage_kernel(v, tau, s, iters):
         return admm_stage(v.contiguous(), tau, s.contiguous(), gq, lb, ub, G2,
-                          f.d, f.base_rho, iters=iters, alpha=alpha)
+                          f.d, f.base_rho, iters=iters, alpha=alpha,
+                          matmul=_STAGE_MATMUL[backend])
 
     run_stage = run_stage_kernel if is_kernel else run_stage_torch
 
@@ -613,7 +615,7 @@ def solve_qp(
             check_every=check_every, x0=x0, y0=y0, s0=s0,
             polish_iters=polish_iters, polish_scale=polish_scale)
     if backend != "torch":
-        raise ValueError(f"unknown solve_qp backend {backend!r}; expected one of {BACKENDS}")
+        raise ValueError(f"unknown solve_qp backend {backend!r}; expected 'torch' or 'cuda'")
     n, m = P.shape[-1], A.shape[-2]
     dtype, device = P.dtype, P.device
     if rho_eq_scale is None:

@@ -22,9 +22,10 @@ fleet as the leading axis of every field of :class:`StackState` (and of the
 per-lane pushes); references and polygons are shared. ``lax.scan`` over
 inner ticks is a Python loop. Backends: ``"torch"`` is the reference's
 ``"xla"``, ``"cuda"`` its ``"pallas"`` (WBC, ``solve_qp_lanes`` on K2 and K3)
-and ``"pallas_f32"`` (MPC, the exact-f32 shared-operator kernel K1; the
-reference's ``"pallas"`` MPC is its bf16 ``delta`` mode, which the port has
-not written, ROADMAP.md "K1 follow-ups"). As in the reference, the fleet
+and ``"pallas_f32"`` (MPC, the exact-f32 shared-operator kernel K1); the MPC
+also takes ``"cuda_split"`` and ``"cuda_delta"`` (K1's tensor-core kernel, the
+reference's ``"pallas_split"`` and its bf16 ``delta`` mode ``"pallas"``, which
+``STACK_r05.json`` ran). As in the reference, the fleet
 step's lagged plant M^-1 always goes through K3 and its attribution solve
 through K4 (``spd_solve_lane``), whatever the backends say.
 """
@@ -102,7 +103,8 @@ class StackConfig(NamedTuple):
     compensate_push: bool = True    # feed the estimate into the WBC model
     wbc_eps: Optional[float] = None  # WBC tolerance; None -> 1e-5 in f64,
     #                                  1e-4 in f32
-    mpc_backend: str = "torch"      # fleet step only: "torch" or "cuda" (K1)
+    mpc_backend: str = "torch"      # fleet step only: "torch", "cuda" (K1, f32),
+    #                                 "cuda_split" or "cuda_delta" (K1, tensor cores)
     wbc_backend: str = "torch"      # fleet step only: "torch" or "cuda" (K2, K3)
     wbc_scaling_iters: int = 10     # Ruiz rounds per WBC solve
     plant_lagged_minv: bool = False  # fleet step only: per-tick plant M^-1
@@ -489,7 +491,8 @@ def make_fleet_stack_step(
     emerges from the contact dynamics and plays the soles' F/T sensors.
 
     Both QP solves are single batched calls: ``config.mpc_backend`` routes the
-    DCM-MPC (``"cuda"``: K1), ``config.wbc_backend`` the WBC (``"cuda"``:
+    DCM-MPC (``"cuda"``: K1; ``"cuda_split"``/``"cuda_delta"``: its
+    tensor-core kernel), ``config.wbc_backend`` the WBC (``"cuda"``:
     ``solve_qp_lanes`` on K2 and K3). ``plant_lagged_minv`` inverts the plant's
     mass matrix once a tick on K3; ``ros_op_stiff`` builds the ROS2-W operator
     from the stiff path alone. The attribution solve runs through

@@ -1,8 +1,8 @@
-"""Fused shared-operator ADMM stage: CUDA kernel wrapper and plain version.
+"""Fused shared-operator ADMM stage: CUDA kernel wrappers and plain versions.
 
 Counterpart of ``blf_tpu/ops/pallas/admm.py`` (``admm_stage`` /
-``admm_stage_t`` over ``_stage_kernel_t``, ``matmul="f32"``). One call runs
-``iters`` iterations, at a fixed per-lane penalty multiplier ``s``, of the
+``admm_stage_t`` over ``_stage_kernel_t``) in its three matmul modes. One call
+runs ``iters`` iterations, at a fixed per-lane penalty multiplier ``s``, of the
 v-space recursion of :func:`blf_tpu_torch.mpc.qp.solve_qp_factored`::
 
     z   = clip(v, l, u)
@@ -10,61 +10,97 @@ v-space recursion of :func:`blf_tpu_torch.mpc.qp.solve_qp_factored`::
     tau = (w @ G2 - gq / s) * s / (1 + s d)
     v  += alpha (tau @ G2.T - z)
 
+``matmul`` takes the reference's names:
+
+- ``"f32"`` (the port's default): exact float32 products, the kernel
+  ``csrc/admm_stage.cu`` (FMA units).
+- ``"split"``: every product a 3-pass sum of bf16 hi/lo products,
+  ``A_hi b_hi + A_hi b_lo + A_lo b_hi`` (``admm.py:93-135``, ``:234-255``).
+- ``"delta"``: 3-pass products in iteration 1, then 2-pass products of the
+  bf16-rounded increments added into float32 carries (``admm.py:197-233``).
+  ``"split"`` and ``"delta"`` run on the kernel ``csrc/admm_stage_tc.cu``
+  (Hopper's tensor cores, ``wgmma``), float32 only. rho is folded into the
+  first operator before its split, ``(rho . G2)^T``, as the reference does.
+
 Layout is lane-major, ``(B, .)``, at the public boundary and inside the
-kernel's device-memory traffic; the batch-minor transpose, the 128-lane
+kernels' device-memory traffic; the batch-minor transpose, the 128-lane
 padding, ``block_lanes``/``chunks``/``unroll``/``interpret`` and the VMEM
 guard of the reference are TPU matters and have no counterpart here.
 
-- :func:`admm_stage_reference` is the plain PyTorch loop, any float dtype.
+- :func:`admm_stage_reference` is the plain PyTorch loop (``"f32"`` any float
+  dtype; ``"split"``/``"delta"`` with the bf16 casts in torch and each pass a
+  float32 product of bf16-valued tensors, TF32 off, summed in the reference's
+  order).
 - :func:`admm_stage` runs the plain loop for tensors that lie on the CPU and
-  launches the hand-written kernel ``csrc/admm_stage.cu`` for CUDA tensors.
-  There it launches or raises: nothing falls back.
-
-Not ported from the reference module: the reduced-precision ``"delta"`` and
-``"split"`` modes (bf16 hi/lo passes for the TPU's matrix unit). Their
-tensor-core counterparts are a later kernel (see ROADMAP.md, "K1
-follow-ups").
+  launches the mode's hand-written kernel for CUDA tensors. There it launches
+  or raises: nothing falls back.
+- Counts are kept per kernel: :func:`launch_count` / :func:`reference_count`
+  for the f32 kernel, :func:`tc_launch_count` / :func:`tc_reference_count`
+  for the tensor-core kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from blf_tpu_torch.ops.cuda import _build
+from blf_tpu_torch.ops.precision import f32_matmuls
 
 __all__ = ["admm_stage", "admm_stage_reference", "launch_count",
-           "reference_count", "reset_counts", "stage_shared_bytes",
-           "build_admm_stage", "SOURCE", "REPLACES"]
+           "reference_count", "tc_launch_count", "tc_reference_count",
+           "reset_counts", "stage_shared_bytes", "stage_tc_shared_bytes",
+           "build_admm_stage", "build_admm_stage_tc", "MATMUL_MODES", "SOURCE",
+           "REPLACES", "TC_SOURCE", "TC_REPLACES"]
 
+MATMUL_MODES = ("f32", "split", "delta")
 SOURCE = "admm_stage.cu"
 #: the TPU kernel this one replaces (file:line of ``_stage_kernel_t``)
 REPLACES = "blf_tpu/ops/pallas/admm.py:138"
+#: the tensor-core kernel of modes "split" and "delta", and what it replaces
+TC_SOURCE = "admm_stage_tc.cu"
+TC_REPLACES = "blf_tpu/ops/pallas/admm.py:138"
 
 _LANES = 32                 # lanes per block (csrc/admm_stage.cu)
+_TC_LANES = 16              # lanes per warpgroup tile (csrc/admm_stage_tc.cu)
 _MAX_SHARED = 232448        # bytes of shared memory a block may use on sm_90
 
-# Plain integers: how often the kernel was launched, and how often the plain
-# version ran because the tensors lie on the CPU.
-_counts = {"launch": 0, "reference": 0}
+# Plain integers: how often each kernel was launched (the tensor-core one by
+# mode), and how often a plain version ran because the tensors lie on the CPU.
+_counts = {"launch": 0, "reference": 0, "tc_split": 0, "tc_delta": 0, "tc_reference": 0}
 _libs: Dict[Tuple[int, int], ctypes.CDLL] = {}
+_tc_libs: Dict[Tuple[int, int, str], ctypes.CDLL] = {}
 
 
 def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_counts`."""
+    """Launches of the f32 kernel since the last :func:`reset_counts`."""
     return _counts["launch"]
 
 
 def reference_count() -> int:
-    """Plain-version runs made by :func:`admm_stage` for CPU tensors."""
+    """Plain-version runs of mode ``"f32"`` made by :func:`admm_stage` for CPU
+    tensors."""
     return _counts["reference"]
 
 
+def tc_launch_count(matmul: Optional[str] = None) -> int:
+    """Launches of the tensor-core kernel, in mode ``matmul`` or in both."""
+    if matmul is None:
+        return _counts["tc_split"] + _counts["tc_delta"]
+    return _counts["tc_" + matmul]
+
+
+def tc_reference_count() -> int:
+    """Plain-version runs of modes ``"split"``/``"delta"`` made by
+    :func:`admm_stage` for CPU tensors."""
+    return _counts["tc_reference"]
+
+
 def reset_counts() -> None:
-    _counts["launch"] = 0
-    _counts["reference"] = 0
+    for key in _counts:
+        _counts[key] = 0
 
 
 def _clip(v, l, u):
@@ -72,17 +108,82 @@ def _clip(v, l, u):
     return torch.minimum(torch.maximum(v, l), u)
 
 
+def _bf16(x):
+    """``x`` rounded to bf16 (to nearest even), kept in ``x``'s dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _split(x):
+    """bf16 hi/lo pair of ``x``: ``hi = bf16(x)``, ``lo = bf16(x - hi)``."""
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def _lsplit_dot3(a_pair, b):
+    """3-pass product of a split operator (k, out) and ``b`` (B, k), ``b``
+    split too: ``A_hi b_hi + A_hi b_lo + A_lo b_hi``, summed in that order."""
+    a_hi, a_lo = a_pair
+    b_hi, b_lo = _split(b)
+    return b_hi @ a_hi + b_lo @ a_hi + b_hi @ a_lo
+
+
+def _lsplit_dot2(a_pair, b16):
+    """2-pass product of a split operator and a bf16-valued increment."""
+    a_hi, a_lo = a_pair
+    return b16 @ a_hi + b16 @ a_lo
+
+
+@f32_matmuls
+def _reduced_stage_reference(v, s, gq, l, u, G2, d, base_rho, *, iters: int,
+                             alpha: float, matmul: str):
+    """Modes ``"split"`` and ``"delta"`` (``admm.py:166-255``), lane-major."""
+    sdinv = s / (1.0 + s * d)           # (B, n), fixed over the stage
+    gqs = gq / s
+    gt = _split(base_rho[:, None] * G2)             # (m, n): the reference's Gt_rho, transposed
+    g2 = tuple(h.T for h in _split(G2))             # (n, m)
+    if matmul == "split":
+        for _ in range(iters):
+            z = _clip(v, l, u)
+            w_hat = 2.0 * z - v
+            tau = (_lsplit_dot3(gt, w_hat) - gqs) * sdinv
+            v = v + alpha * (_lsplit_dot3(g2, tau) - z)
+        return v, tau
+    # iteration 1 applies the full w and tau through 3-pass splits; later ones
+    # accumulate 2-pass products of the bf16-rounded increments
+    z = _clip(v, l, u)
+    w_hat = 2.0 * z - v
+    t_acc = _lsplit_dot3(gt, w_hat)
+    tau = (t_acc - gqs) * sdinv
+    u_acc = _lsplit_dot3(g2, tau)
+    v = v + alpha * (u_acc - z)
+    for _ in range(iters - 1):
+        z = _clip(v, l, u)
+        w_prev, w_hat = w_hat, 2.0 * z - v
+        t_acc = t_acc + _lsplit_dot2(gt, _bf16(w_hat - w_prev))
+        tau_prev, tau = tau, (t_acc - gqs) * sdinv
+        u_acc = u_acc + _lsplit_dot2(g2, _bf16(tau - tau_prev))
+        v = v + alpha * (u_acc - z)
+    return v, tau
+
+
 def admm_stage_reference(v, tau, s, gq, l, u, G2, d, base_rho, *,
-                         iters: int, alpha: float):
-    """Plain PyTorch version of the stage (any float dtype, any device).
+                         iters: int, alpha: float, matmul: str = "f32"):
+    """Plain PyTorch version of the stage (any device).
 
     Shapes: ``v, l, u`` (B, m); ``tau, gq`` (B, n); ``s`` (B, 1); ``G2``
     (m, n); ``d`` (n,); ``base_rho`` (m,). Returns ``(v, tau)``. ``tau`` on
     entry does not feed the recursion (it is overwritten by the first
     iteration) and is accepted for symmetry with the reference's signature.
+    ``"f32"`` takes any float dtype; ``"split"`` and ``"delta"`` round to bf16
+    as the reference does and are meant for float32.
     """
+    if matmul not in MATMUL_MODES:
+        raise ValueError(f"unknown matmul mode {matmul!r}; expected one of {MATMUL_MODES}")
     if iters < 1:
         raise ValueError("iters must be >= 1")
+    if matmul != "f32":
+        return _reduced_stage_reference(v, s, gq, l, u, G2, d, base_rho, iters=iters,
+                                        alpha=alpha, matmul=matmul)
     sdinv = s / (1.0 + s * d)           # (B, n), fixed over the stage
     gqs = gq / s
     G2t = G2.T
@@ -135,6 +236,61 @@ def build_admm_stage(m: int, n: int) -> ctypes.CDLL:
     return lib
 
 
+def stage_tc_shared_bytes(m: int, n: int, matmul: str) -> int:
+    """Shared memory one block of the tensor-core kernel needs at ``(m, n)``
+    in mode ``matmul`` (csrc/admm_stage_tc.cu): both bf16 operator pairs,
+    rows padded to 64 and the contraction to 16, and two warpgroups' 16-lane
+    operand buffers (hi and lo side by side for ``"split"``; one buffer and
+    the f32 gq / s of a warpgroup's fragments for ``"delta"``)."""
+    up = lambda x, k: -(-x // k) * k
+    k1, k2 = up(m, 16), up(n, 16)
+    operators = 2 * (2 * up(n, 64) * k1 + 2 * up(m, 64) * k2)
+    buffer = 2 * _TC_LANES * max(k1, k2)
+    if matmul == "split":
+        return operators + 2 * 2 * buffer
+    return operators + 2 * (buffer + 4 * up(n, 64) // 64 * 8 * 128)
+
+
+def _check_tc_shape(m: int, n: int, matmul: str) -> None:
+    need = stage_tc_shared_bytes(m, n, matmul)
+    if m < 1 or n < 1 or need > _MAX_SHARED:
+        raise ValueError(
+            f"admm_stage_tc keeps both bf16 operator pairs and two {_TC_LANES}-lane"
+            f" operand buffers in shared memory: (m, n) = ({m}, {n}) needs {need}"
+            f" bytes in mode {matmul!r}, the card offers {_MAX_SHARED}")
+
+
+def build_admm_stage_tc(m: int, n: int, matmul: str) -> ctypes.CDLL:
+    """Build (at first use) and load the tensor-core kernel for ``(m, n)`` in
+    mode ``"split"`` or ``"delta"``."""
+    if matmul not in ("split", "delta"):
+        raise ValueError(f"the tensor-core kernel runs modes 'split' and 'delta', not {matmul!r}")
+    lib = _tc_libs.get((m, n, matmul))
+    if lib is not None:
+        return lib
+    _check_tc_shape(m, n, matmul)
+    lib = _build.load_library(TC_SOURCE, tc_defines(m, n, matmul))
+    P = ctypes.c_void_p
+    lib.blf_admm_stage_tc.argtypes = [P] * 10 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, P]
+    lib.blf_admm_stage_tc.restype = ctypes.c_int
+    lib.blf_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.blf_cuda_error_string.restype = ctypes.c_char_p
+    lib.blf_admm_stage_tc_smem_bytes.argtypes = []
+    lib.blf_admm_stage_tc_smem_bytes.restype = ctypes.c_int
+    if lib.blf_admm_stage_tc_smem_bytes() != stage_tc_shared_bytes(m, n, matmul):
+        raise RuntimeError("admm_stage_tc library disagrees with its wrapper on"
+                           " the shared-memory layout")
+    _tc_libs[(m, n, matmul)] = lib
+    return lib
+
+
+def tc_defines(m: int, n: int, matmul: str) -> Dict[str, int]:
+    """Compile-time definitions of the tensor-core kernel's library."""
+    return {"ADMM_M": m, "ADMM_N": n, "ADMM_DELTA": int(matmul == "delta")}
+
+
 def _require(t: torch.Tensor, name: str, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} lies on {t.device}, expected {device}")
@@ -146,20 +302,27 @@ def _require(t: torch.Tensor, name: str, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def admm_stage(v, tau, s, gq, l, u, G2, d, base_rho, *, iters: int, alpha: float):
+def admm_stage(v, tau, s, gq, l, u, G2, d, base_rho, *, iters: int, alpha: float,
+               matmul: str = "f32"):
     """Run ``iters`` fused ADMM iterations; returns new ``(v, tau)``.
 
     CPU tensors go through :func:`admm_stage_reference`. CUDA tensors must be
-    contiguous float32 of the documented shapes; the kernel is launched on the
-    current stream, its launch error is checked, and the call does not
-    synchronise. Any ``B >= 1`` is taken (the kernel masks its last tile).
+    contiguous float32 of the documented shapes; the mode's kernel is launched
+    on the current stream, its launch error is checked, and the call does not
+    synchronise. Any ``B >= 1`` is taken (the kernels mask their last tile).
+    ``"split"`` and ``"delta"`` take float32 only, on either device.
     """
+    if matmul not in MATMUL_MODES:
+        raise ValueError(f"unknown matmul mode {matmul!r}; expected one of {MATMUL_MODES}")
     if iters < 1:
         raise ValueError("iters must be >= 1")
+    reduced = matmul != "f32"
+    if reduced and v.dtype != torch.float32:
+        raise TypeError(f"admm_stage matmul={matmul!r} is float32 only; v is {v.dtype}")
     if v.device.type == "cpu":
-        _counts["reference"] += 1
+        _counts["tc_reference" if reduced else "reference"] += 1
         return admm_stage_reference(v, tau, s, gq, l, u, G2, d, base_rho,
-                                    iters=iters, alpha=alpha)
+                                    iters=iters, alpha=alpha, matmul=matmul)
     if v.device.type != "cuda":
         raise ValueError(f"admm_stage runs on cpu or cuda tensors, not {v.device}")
     if v.dim() != 2 or G2.dim() != 2:
@@ -178,11 +341,23 @@ def admm_stage(v, tau, s, gq, l, u, G2, d, base_rho, *, iters: int, alpha: float
     _require(G2, "G2", (m, n), dev)
     _require(d, "d", (n,), dev)
     _require(base_rho, "base_rho", (m,), dev)
+    v_out = torch.empty_like(v)
+    tau_out = torch.empty_like(tau)
+    if reduced:
+        lib = build_admm_stage_tc(m, n, matmul)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.blf_admm_stage_tc(
+                v.data_ptr(), s.data_ptr(), gq.data_ptr(), l.data_ptr(),
+                u.data_ptr(), G2.data_ptr(), d.data_ptr(), base_rho.data_ptr(),
+                v_out.data_ptr(), tau_out.data_ptr(), B, m, n, int(matmul == "delta"),
+                int(iters), float(alpha), stream)
+        _raise_on(code, lib, "admm_stage_tc")
+        _counts["tc_" + matmul] += 1
+        return v_out, tau_out
     if G2.data_ptr() % 16:
         raise ValueError("G2 must be 16-byte aligned")
     lib = build_admm_stage(m, n)
-    v_out = torch.empty_like(v)
-    tau_out = torch.empty_like(tau)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.blf_admm_stage_f32(
@@ -190,10 +365,14 @@ def admm_stage(v, tau, s, gq, l, u, G2, d, base_rho, *, iters: int, alpha: float
             u.data_ptr(), G2.data_ptr(), d.data_ptr(), base_rho.data_ptr(),
             v_out.data_ptr(), tau_out.data_ptr(), B, m, n, int(iters),
             float(alpha), stream)
-    if code != 0:
-        what = (lib.blf_cuda_error_string(code).decode() if code > 0
-                else {-1: "library compiled for another shape",
-                      -2: "bad batch or iteration count"}.get(code, "?"))
-        raise RuntimeError(f"admm_stage launch failed ({code}): {what}")
+    _raise_on(code, lib, "admm_stage")
     _counts["launch"] += 1
     return v_out, tau_out
+
+
+def _raise_on(code: int, lib: ctypes.CDLL, name: str) -> None:
+    if code != 0:
+        what = (lib.blf_cuda_error_string(code).decode() if code > 0
+                else {-1: "library compiled for another shape or mode",
+                      -2: "bad batch or iteration count"}.get(code, "?"))
+        raise RuntimeError(f"{name} launch failed ({code}): {what}")

@@ -88,7 +88,9 @@ def make_fleet_step(
     Returns ``step(state, disturbance, dcm_ref, zmp_ref, poly_A, poly_b)
     -> (FleetState, TickResult)`` where ``disturbance`` is ``(B, K, 2)`` with
     ``K == 1`` (one push realization per scenario). Extra ``qp_kwargs`` (e.g.
-    ``backend="cuda"``, ``check_every``, ``polish_iters``) pass through to
+    ``backend="cuda"``, ``"cuda_split"`` or ``"cuda_delta"`` (``bench.py``'s
+    mode, the reference's ``"pallas"``), ``check_every``, ``polish_iters``)
+    pass through to
     :func:`blf_tpu_torch.mpc.qp.solve_qp_factored`. ``device`` is where the
     fleet lives; every tensor handed to ``step`` must lie there.
     """

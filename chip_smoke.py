@@ -9,7 +9,10 @@ kernel against its plain PyTorch version on the card, and runs the port's two
 paths through the entry points a user calls:
 
 * the warm-started push-recovery fleet tick at batch 98304, horizon 32, 50
-  ADMM iterations, float32, ``backend="cuda"`` (kernel ``admm_stage``);
+  ADMM iterations, float32, ``backend="cuda"`` (kernel ``admm_stage``), and
+  the same tick in bench.py's own mode, ``backend="cuda_delta"`` (kernel
+  ``admm_stage_tc``, the tensor-core form of the stage's bf16 modes), held to
+  its plain version and to ``"cuda"`` one tick from the same state;
 * the 100 Hz whole-body-control loop of the 23-DoF humanoid over a fleet of
   4096 lanes, 30 ticks, 150 iterations in stages of 25, float32,
   ``solve_qp(backend="cuda")`` (kernels ``admm_lane_stage`` and
@@ -35,7 +38,8 @@ failed check ends the run with a non-zero exit code. The last JSON line but
 one lists every kernel at the shape of each path, with its launches there.
 
 Bounds are derived from NVIDIA's H100 SXM data sheet (67 TFLOP/s float32
-outside the tensor cores, 3.35 TB/s device memory) and are labelled so.
+outside the tensor cores, 989 TFLOP/s bf16 dense on them, 3.35 TB/s device
+memory) and are labelled so.
 
 The sizes are fixed (the constants below): a run at another width would prove
 nothing about the port. ``--phases`` runs a subset while developing (and then
@@ -180,9 +184,37 @@ IDENT_CROSS_TOL = 1e-4    # relative, per lane: backend "cuda" against "torch"
 IDENT_SHARE_K, IDENT_SHARE_B = 0.995, 0.96      # lanes within 1 % of the truth
 IDENT_MEDIAN_K, IDENT_MEDIAN_B = 2.5e-3, 5e-3   # median relative error
 IDENT_MAX = 5e-2                                # max relative error, k and b
+# the tensor-core kernel of K1's modes "split" and "delta" (csrc/admm_stage_tc.cu).
+# Tolerances relative to the largest |entry|, from the CPU study of
+# tests/test_torch_admm_stage_tc.py run as a script: the plain version in two float32
+# summation orders, 4096 lanes (PERF.md section 6)
+PEAK_BF16_FLOPS = 989e12      # H100 SXM data sheet, dense
+TC_MODES = ("split", "delta")
+TC_BATCHES = (1, 1000, 4096, BATCH)
+TC_SPLIT_TOL = 2e-4       # split, 25 iterations, and delta's 3-pass first: study 3.0e-5 at most
+TC_STEP_TOL = 2e-2        # delta's first increment from the cold random iterate: study 3.9e-3
+TC_WARM_TOL = 2e-4        # delta, 25 iterations on the fleet tick's own stages once it has
+#                           settled (tick 10): study 1.0e-5
+TC_WARM_TICK = 10
+# the fleet tick in bench.py's own mode: on the cold first tick the delta mode leaves
+# lanes above eps, in both packages alike (the study of tests/test_torch_admm_stage_tc.py,
+# 4096 lanes on the CPU: blf_tpu 3937, the port 3934), so that tick is held to
+# TICK_DELTA_FIRST_SHARE and to within TICK_DELTA_FIRST_SLACK of the lanes the same cold
+# tick converges with the stage's plain version; every later tick to 99 %
+TICK_DELTA_FIRST_SHARE = 0.95
+TICK_DELTA_FIRST_SLACK = 0.005
+# phase cross_delta: the kernel against the plain version from the same state; study:
+# 1.6e-6 (plan), 6.1e-7 (dcm), 4.5e-5 (warm_y) at most, and on the cold first tick
+# 238 of 4096 lanes of differing status (a flag at eps), none after
+CROSS_DELTA_TOL = 2e-4                # absolute, every lane, every tick
+CROSS_DELTA_FIRST_MISMATCH = 0.10     # share of lanes of differing status on tick 1
+# ... and "cuda_delta" against "cuda": the reference's contract for the reduced modes
+# (tests/test_pallas_admm.py:57-74: converged counts within 25 of 256, the plan within
+# 5e-4 where both converged)
+CROSS_F32_SHARE, CROSS_F32_TOL = 25 / 256, 5e-4
 DEVICE = torch.device("cuda")
-PHASES = ("device", "build", "kernels", "tick", "cross", "wbc", "wbc_cross", "stack",
-          "stack_cross", "foot", "identify")
+PHASES = ("device", "build", "kernels", "tick", "cross", "tick_delta", "cross_delta", "wbc",
+          "wbc_cross", "stack", "stack_cross", "foot", "identify")
 
 
 START = time.perf_counter()
@@ -251,6 +283,9 @@ def phase_build() -> dict:
     jobs = [("admm_stage", admm_kernel.SOURCE, {"ADMM_M": M, "ADMM_N": N}),
             ("admm_stage_stack", admm_kernel.SOURCE, {"ADMM_M": STACK_M, "ADMM_N": STACK_N}),
             ("admm_lane", lane_kernel.SOURCE, {"ADMM_M": WBC_M, "ADMM_N": WBC_N})]
+    jobs += [(f"admm_stage_tc_{mode}{tag}", admm_kernel.TC_SOURCE,
+              admm_kernel.tc_defines(m, n, mode))
+             for m, n, tag in ((M, N, ""), (STACK_M, STACK_N, "_stack")) for mode in TC_MODES]
     jobs += [(f"chol_lane_n{n}", chol_kernel.SOURCE, {"CHOL_N": n}) for n in CHOL_SIZES]
     jobs += [(f"chol_solve_n{n}", chol_kernel.SOLVE_SOURCE, {"CHOL_N": n})
              for n in SOLVE_SIZES]
@@ -266,6 +301,9 @@ def phase_build() -> dict:
         seconds = list(pool.map(build, jobs))
     admm_kernel.build_admm_stage(M, N)
     admm_kernel.build_admm_stage(STACK_M, STACK_N)
+    for m, n in ((M, N), (STACK_M, STACK_N)):
+        for mode in TC_MODES:
+            admm_kernel.build_admm_stage_tc(m, n, mode)
     lane_kernel.build_admm_lane(WBC_M, WBC_N)
     for n in CHOL_SIZES:
         chol_kernel.build_chol_lane(n)
@@ -276,6 +314,9 @@ def phase_build() -> dict:
     shared = {"admm_stage": admm_kernel.stage_shared_bytes(M, N),
               "admm_stage_stack": admm_kernel.stage_shared_bytes(STACK_M, STACK_N),
               "admm_lane": lane_kernel.lane_shared_bytes(WBC_M, WBC_N)}
+    shared.update({f"admm_stage_tc_{mode}{tag}": admm_kernel.stage_tc_shared_bytes(m, n, mode)
+                   for m, n, tag in ((M, N, ""), (STACK_M, STACK_N, "_stack"))
+                   for mode in TC_MODES})
     shared.update({f"chol_lane_n{n}": chol_kernel.inverse_shared_bytes(n)
                    for n in CHOL_SIZES})
     shared.update({f"chol_solve_n{n}": chol_kernel.solve_shared_bytes(n)
@@ -733,6 +774,186 @@ def kernels_admm_stage_stack(seen) -> dict:
     }
 
 
+def tc_compare(args, kw, matmul: str, tol: float, what: str, hold: bool = True) -> dict:
+    """The tensor-core kernel against its plain version on the same inputs."""
+    v_k, tau_k = admm_kernel.admm_stage(*args, **kw, matmul=matmul)
+    torch.cuda.synchronize()
+    v_p, tau_p = admm_kernel.admm_stage_reference(*args, **kw, matmul=matmul)
+    check(bool(torch.isfinite(v_k).all() and torch.isfinite(tau_k).all()),
+          f"admm_stage_tc {matmul}: kernel output finite on {what}")
+    ev, et = rel_err(v_k, v_p), rel_err(tau_k, tau_p)
+    ea = max(float((v_k - v_p).abs().max()), float((tau_k - tau_p).abs().max()))
+    if hold:
+        check(ev <= tol and et <= tol,
+              f"admm_stage_tc {matmul} agrees with its plain version to {tol} on {what}:"
+              f" v {ev}, tau {et}")
+    return {"matmul": matmul, "inputs": what, "B": args[0].shape[0], "iters": kw["iters"],
+            "rel_err_v": ev, "rel_err_tau": et, "max_abs_err": ea,
+            "tolerance_rel": tol if hold else None}
+
+
+def tc_bound(m: int, n: int, B: int, iters: int, matmul: str) -> dict:
+    """The least time of a stage at (m, n, B, iters): the tensor cores' passes
+    (2 m n B flop each: 3 a product in every iteration of "split", in the first
+    of "delta" and 2 after) at the bf16 peak, against the f32 elementwise
+    operations counted from csrc/admm_stage_tc.cu (an element of v: clip 9, w
+    2, its split 4 or its increment 2, the update 12; of tau: 2, and its split
+    4 or increment 2; 5 an element of tau for the stage's gains; at the f32
+    peak, an FMA two) and the bytes (each input read once, each output
+    written once)."""
+    passes = 2 * (3 * iters if matmul == "split" else 3 + 2 * (iters - 1))
+    first, later = 27 * m + 6 * n, (27 * m + 6 * n if matmul == "split" else 25 * m + 4 * n)
+    ops = B * (first + (iters - 1) * later + 5 * n)
+    nbytes = 4 * (B * ((3 * m + 2 * n + 1) + (m + n)) + m * n + m + n)
+    times = {"tensor": 1e3 * passes * 2 * m * n * B / PEAK_BF16_FLOPS,
+             "elementwise": 1e3 * ops / PEAK_F32_FLOPS,
+             "bytes": 1e3 * nbytes / PEAK_BYTES_PER_S}
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by], "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_basis": by, "bound_tensor_ms": times["tensor"],
+            "bound_elementwise_ms": times["elementwise"], "bound_bytes_ms": times["bytes"],
+            "passes": passes,
+            "bound_source": "H100 SXM data sheet: 989 TFLOP/s bf16 dense, 67 TFLOP/s f32,"
+                            " 3.35 TB/s"}
+
+
+def capture_tick_stages(problem, ticks: int) -> list:
+    """The stage arguments the fleet tick in mode "cuda_delta" hands the
+    kernel on its ``ticks``-th tick (both stages), at the full batch."""
+    seen = []
+
+    def record(*args, **kw):
+        seen[:] = seen[-1:] + [(args, kw)]
+        return admm_kernel.admm_stage(*args, **kw)
+
+    state = init_fleet(BATCH, HORIZON, problem.num_constraints, problem.dcm0, problem.com0,
+                       device=DEVICE, dtype=torch.float32)
+    step = make_fleet_step(problem.params, problem.dt, iterations=2 * STAGE_ITERS,
+                           backend="cuda_delta", device=DEVICE)
+    refs = (problem.dcm_ref, problem.zmp_ref, problem.poly_A, problem.poly_b)
+    with mock.patch.object(qp_module, "admm_stage", record):
+        for _ in range(ticks):
+            state, _ = step(state, problem.disturbance, *refs)
+    torch.cuda.synchronize()
+    check(all(kw.get("matmul") == "delta" for _, kw in seen), "the tick runs the delta mode")
+    return seen
+
+
+def tc_nan_confined(args, kw, matmul: str) -> None:
+    """A poisoned lane stays non-finite and poisons no other lane, whether the
+    NaN enters through the iterate or through a bound."""
+    B, lane = args[0].shape[0], 137
+    clean_v, clean_tau = admm_kernel.admm_stage(*args, **kw, matmul=matmul)
+    others = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    others[lane] = False
+    for where in ("v", "bounds"):
+        bad = [a.clone() for a in args]
+        if where == "v":
+            bad[0][lane, 5] = float("nan")
+        else:
+            bad[4][lane, 0] = float("nan")
+            bad[5][lane, 0] = float("nan")
+        nan_v, nan_tau = admm_kernel.admm_stage(*bad, **kw, matmul=matmul)
+        torch.cuda.synchronize()
+        what = f"admm_stage_tc {matmul}, NaN in {where}"
+        check(not bool(torch.isfinite(nan_v[lane]).all())
+              and not bool(torch.isfinite(nan_tau[lane]).all()),
+              f"{what}: the lane's v and tau are non-finite")
+        check(bool(torch.equal(nan_v[others], clean_v[others])
+                   and torch.equal(nan_tau[others], clean_tau[others])),
+              f"{what}: every other lane equals the clean run bit for bit")
+        ref_v, _ = admm_kernel.admm_stage_reference(*bad, **kw, matmul=matmul)
+        check(not bool(torch.isfinite(ref_v[lane]).all()),
+              f"{what}: the plain version poisons the lane too")
+
+
+def tc_entry(cases: list, timed_args, kw, shape, path=None) -> dict:
+    """Times both modes on ``timed_args``; the entry's top-level numbers are
+    those of "delta", the mode of the path (bench.py's), and of all cases."""
+    m, n = shape
+    B = timed_args[0].shape[0]
+    modes = {}
+    for matmul in TC_MODES:
+        kernel_ms = median_ms(lambda: admm_kernel.admm_stage(*timed_args, **kw, matmul=matmul),
+                              2, 7)
+        plain_ms = median_ms(
+            lambda: admm_kernel.admm_stage_reference(*timed_args, **kw, matmul=matmul), 1, 3)
+        bound = tc_bound(m, n, B, kw["iters"], matmul)
+        modes[matmul] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms, **bound,
+                         "fraction_of_bound": bound["bound_ms"] / kernel_ms,
+                         "tflops_tensor": bound["passes"] * 2 * m * n * B / (kernel_ms * 1e-3)
+                         / 1e12}
+    held = [c for c in cases if c["tolerance_rel"] is not None]
+    delta = modes["delta"]
+    entry = {"name": "admm_stage_tc", "shape": [m, n], "iters": kw["iters"], "batch_timed": B,
+             "cases": cases, "nan_lane": "confined", "modes": modes,
+             "max_rel_err": max(max(c["rel_err_v"], c["rel_err_tau"]) for c in held),
+             "max_abs_err": max(c["max_abs_err"] for c in held),
+             "kernel_ms": delta["kernel_ms"], "plain_ms": delta["plain_ms"],
+             "bound_ms": delta["bound_ms"], "bound_by": delta["bound_by"],
+             "library_ms": None}
+    if path:
+        entry["path"] = path
+    return entry
+
+
+def kernels_admm_stage_tc(problem) -> dict:
+    """The tensor-core kernel at the fleet tick's (192, 128) against its plain
+    version, both modes, B in TC_BATCHES: "split" over 25 iterations of
+    stage_inputs; "delta" over its 3-pass first iteration and its first
+    increment there, and over 25 iterations of the tick's own stages once it
+    has settled (its increments from a cold random iterate are as large as the
+    iterate, and two float32 orders part there by up to 0.21: reported, not
+    held); a NaN lane confined in both modes; both modes timed at B 98304."""
+    _, _, _, factors = stage_operators(problem)
+    kw = dict(iters=STAGE_ITERS, alpha=ALPHA)
+    cases = []
+    for B in TC_BATCHES:
+        args = stage_inputs(problem, factors, B, seed=B)
+        check(bool(torch.isinf(args[4]).any()), "bounds include -inf rows")
+        cases.append(tc_compare(args, kw, "split", TC_SPLIT_TOL, "stage_inputs"))
+        cases.append(tc_compare(args, dict(kw, iters=1), "delta", TC_SPLIT_TOL, "stage_inputs"))
+        cases.append(tc_compare(args, dict(kw, iters=2), "delta", TC_STEP_TOL, "stage_inputs"))
+        if B == 4096:
+            cases.append(tc_compare(args, kw, "delta", None, "stage_inputs", hold=False))
+        del args
+    for stage, (full, skw) in enumerate(capture_tick_stages(problem, TC_WARM_TICK), start=1):
+        check(bool(torch.isinf(full[4]).any()), "the tick's bounds include -inf rows")
+        for B in TC_BATCHES:
+            args = lanes_of(full[:6], B) + tuple(full[6:])
+            cases.append(tc_compare(args, dict(iters=skw["iters"], alpha=skw["alpha"]), "delta",
+                                    TC_WARM_TOL, f"tick{TC_WARM_TICK}_stage{stage}"))
+    del full
+    nan_args = list(stage_inputs(problem, factors, 1000, seed=7))
+    for matmul in TC_MODES:
+        tc_nan_confined(nan_args, kw, matmul)
+    timed = stage_inputs(problem, factors, BATCH, seed=1)
+    return tc_entry(cases, timed, kw, (M, N))
+
+
+def kernels_admm_stage_tc_stack(seen) -> dict:
+    """The tensor-core kernel at the stack MPC's (48, 32) against its plain
+    version on the stack's own stage inputs (the cold tick's first stage, the
+    warm tick's last): "split" over 25 iterations of both, "delta" over its
+    first two iterations of the cold one and 25 of the warm one; timed on the
+    warm one at the stack's width."""
+    cases = []
+    cold, warm = seen["mpc"][0], seen["mpc"][-1]
+    for B in (STACK_LANES, 1000, 1):
+        for name, (full, kw) in (("stack_tick1_stage1", cold), ("stack_tick2_stage4", warm)):
+            args = lanes_of(full[:6], B) + tuple(full[6:])
+            kw = dict(iters=kw["iters"], alpha=kw["alpha"])
+            cases.append(tc_compare(args, kw, "split", TC_SPLIT_TOL, name))
+            if name == "stack_tick1_stage1":
+                cases.append(tc_compare(args, dict(kw, iters=1), "delta", TC_SPLIT_TOL, name))
+                cases.append(tc_compare(args, dict(kw, iters=2), "delta", TC_STEP_TOL, name))
+            else:
+                cases.append(tc_compare(args, kw, "delta", TC_WARM_TOL, name))
+    full, kw = warm
+    return tc_entry(cases, full, dict(iters=kw["iters"], alpha=kw["alpha"]),
+                    (STACK_M, STACK_N), path="stack")
+
+
 def kernels_admm_lane_stack(seen) -> dict:
     """K2 on the stack WBC's own operators: one stage of 150 iterations."""
     cases, max_rel, max_abs = [], 0.0, 0.0
@@ -1038,13 +1259,14 @@ def phase_kernels(problem, device: dict) -> dict:
     each path's shapes; keyed ``name`` (the fleet tick's and the whole-body
     loop's shapes) or ``name@stack``."""
     seen = capture_wbc_stage_inputs(WBC_LANES)
-    entries = [kernels_admm_stage(problem),
+    entries = [kernels_admm_stage(problem), kernels_admm_stage_tc(problem),
                kernels_admm_lane(seen, device["max_sm_clock_mhz"] * 1e6, device["sm_count"]),
                kernels_chol_lane(seen)]
     del seen
     stack_seen = capture_stack_inputs(STACK_LANES)
-    entries += [kernels_admm_stage_stack(stack_seen), kernels_admm_lane_stack(stack_seen),
-                kernels_chol_inverse_stack(stack_seen), kernels_chol_solve(stack_seen)]
+    entries += [kernels_admm_stage_stack(stack_seen), kernels_admm_stage_tc_stack(stack_seen),
+                kernels_admm_lane_stack(stack_seen), kernels_chol_inverse_stack(stack_seen),
+                kernels_chol_solve(stack_seen)]
     del stack_seen
     entries.append(kernels_foot_rollout())
     emit("kernels", kernels=entries)
@@ -1055,13 +1277,26 @@ def all_finite(state) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in state)
 
 
-def phase_tick(problem, kernel_ms: float, profile: bool) -> dict:
+def stage_counts() -> dict:
+    """Launches of K1's two kernels (the tensor-core one by mode) and plain runs."""
+    return {"f32": admm_kernel.launch_count(), "tc_delta": admm_kernel.tc_launch_count("delta"),
+            "tc_split": admm_kernel.tc_launch_count("split"),
+            "plain": admm_kernel.reference_count() + admm_kernel.tc_reference_count()}
+
+
+def phase_tick(problem, kernel_ms: float, profile: bool, backend: str = "cuda") -> dict:
+    """bench.py's workload, BATCH lanes, 20 warm-up ticks and SCANS timed scans
+    of TICKS: phase ``tick`` on the f32 kernel (``backend="cuda"``, the
+    reference's "pallas_f32"), phase ``tick_delta`` in bench.py's own mode
+    (``"cuda_delta"``, the reference's "pallas", on the tensor-core kernel)."""
+    phase = "tick" if backend == "cuda" else "tick_delta"
+    counted = "f32" if backend == "cuda" else "tc_delta"
     batch, ticks, scans = BATCH, TICKS, SCANS
     torch.cuda.reset_peak_memory_stats()      # the tick's own peak, not the kernels phase's
     state = init_fleet(batch, HORIZON, problem.num_constraints, problem.dcm0,
                        problem.com0, device=DEVICE, dtype=torch.float32)
     step = make_fleet_step(problem.params, problem.dt, iterations=2 * STAGE_ITERS,
-                           backend="cuda", device=DEVICE)
+                           backend=backend, device=DEVICE)
     refs = (problem.dcm_ref, problem.zmp_ref, problem.poly_A, problem.poly_b)
 
     converged_by_tick = []
@@ -1085,7 +1320,8 @@ def phase_tick(problem, kernel_ms: float, profile: bool) -> dict:
         end.record()
         torch.cuda.synchronize()
         scan_ms.append(start.elapsed_time(end) / ticks)
-    launches = admm_kernel.launch_count()  # read just after the main path
+    counts = stage_counts()                # read just after the main path
+    launches = counts[counted]
     n_ticks = ticks * (1 + scans)
 
     telemetry = TelemetryStream(sink=sys.stderr, name="chip_smoke_fleet")
@@ -1098,7 +1334,7 @@ def phase_tick(problem, kernel_ms: float, profile: bool) -> dict:
         "worst_margin": result.worst_margin,
         "quarantined": result.num_quarantined,
     }, step=n_ticks)
-    counts = status_counts(result.status)
+    statuses = status_counts(result.status)
 
     check(all_finite(state), "every state field is finite")
     check(record["quarantined"] == 0, f"no lane quarantined, got {record['quarantined']}")
@@ -1109,13 +1345,32 @@ def phase_tick(problem, kernel_ms: float, profile: bool) -> dict:
     first_ticks = by_tick[:ticks]
     min_timed = min(by_tick[ticks:])
     worst_tick = min(range(n_ticks), key=by_tick.__getitem__)
-    check(by_tick[worst_tick] >= 0.99 * batch,
-          f"at least 99% of lanes converged on every one of the {n_ticks} ticks, the"
-          f" first included: worst is tick {worst_tick + 1} with"
-          f" {by_tick[worst_tick]}/{batch}; first ticks {first_ticks}")
+    if backend == "cuda":
+        check(by_tick[worst_tick] >= 0.99 * batch,
+              f"at least 99% of lanes converged on every one of the {n_ticks} ticks, the"
+              f" first included: worst is tick {worst_tick + 1} with"
+              f" {by_tick[worst_tick]}/{batch}; first ticks {first_ticks}")
+    else:
+        # the cold first tick again, with the stage's plain version swapped in
+        # (after the main path's counts were read)
+        with mock.patch.object(qp_module, "admm_stage", admm_kernel.admm_stage_reference):
+            cold = init_fleet(batch, HORIZON, problem.num_constraints, problem.dcm0,
+                              problem.com0, device=DEVICE, dtype=torch.float32)
+            plain_first = int(step(cold, problem.disturbance, *refs)[1].stats.num_converged)
+        later = min(range(1, n_ticks), key=by_tick.__getitem__)
+        check(by_tick[0] >= TICK_DELTA_FIRST_SHARE * batch,
+              f"at least {TICK_DELTA_FIRST_SHARE:.0%} of lanes converged on the cold first"
+              f" tick, got {by_tick[0]}/{batch}")
+        check(by_tick[0] >= plain_first - TICK_DELTA_FIRST_SLACK * batch,
+              f"the cold first tick converges as many lanes as with the stage's plain"
+              f" version, less {TICK_DELTA_FIRST_SLACK:.1%}: {by_tick[0]} against {plain_first}")
+        check(by_tick[later] >= 0.99 * batch,
+              f"at least 99% of lanes converged on every one of ticks 2-{n_ticks}: worst is"
+              f" tick {later + 1} with {by_tick[later]}/{batch}; first ticks {first_ticks}")
     check(launches == 2 * n_ticks,
           f"exactly 2 kernel launches per tick: {launches} in {n_ticks} ticks")
-    check(admm_kernel.reference_count() == 0, "the plain version never ran on the main path")
+    check(sum(counts.values()) == launches,
+          f"no other kernel of K1 launched and no plain version ran: {counts}")
     check(tuple(result.consensus_zmp0.shape) == (batch, 2), "consensus plan shape")
 
     # where the tick's time goes: the factorization alone (host clock, it ends
@@ -1132,7 +1387,7 @@ def phase_tick(problem, kernel_ms: float, profile: bool) -> dict:
     factor = statistics.median(factor_ms[2:])
     out = {
         "batch": batch, "horizon": HORIZON, "admm_iterations": 2 * STAGE_ITERS,
-        "dtype": "float32", "backend": "cuda", "ticks_per_scan": ticks, "scans": scans,
+        "dtype": "float32", "backend": backend, "ticks_per_scan": ticks, "scans": scans,
         "tick_ms": tick_ms, "tick_ms_scan_median": statistics.median(scan_ms),
         "tick_ms_min": min(scan_ms), "tick_ms_max": max(scan_ms),
         "solves_per_s": batch / (tick_ms * 1e-3),
@@ -1142,16 +1397,19 @@ def phase_tick(problem, kernel_ms: float, profile: bool) -> dict:
         "num_converged": record["converged"], "num_quarantined": record["quarantined"],
         "max_primal_residual": record["max_primal_residual"],
         "max_dual_residual": record["max_dual_residual"],
-        "worst_margin": record["worst_margin"], "status_counts": counts,
+        "worst_margin": record["worst_margin"], "status_counts": statuses,
         "converged_first_ticks": first_ticks, "converged_min_timed_ticks": min_timed,
         "converged_min_all_ticks": by_tick[worst_tick], "worst_tick": worst_tick + 1,
         "kernel_launches": launches, "launches_per_tick": launches / n_ticks,
+        "stage_counts": counts,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    if backend != "cuda":
+        out["converged_first_tick_plain_version"] = plain_first
     if profile:
         out["profile"] = profile_ticks(run, state)
         out["device_idle_share"] = 1.0 - out["profile"]["device_ms_per_tick"] / tick_ms
-    emit("tick", **out)
+    emit(phase, **out)
     return out
 
 
@@ -1266,6 +1524,82 @@ def phase_cross(problem) -> dict:
                 check(cmp["status_mismatches"] == 0, f"{what}: identical per-lane status")
             if name == "independent" and not parted:
                 check(cmp["converged"] == [lanes, lanes], f"{what}: every lane converged")
+    return out
+
+
+def phase_cross_delta(problem) -> dict:
+    """bench.py's mode against its plain version and against the f32 kernel,
+    one tick from the same state: CROSS_TICKS ticks of CROSS_LANES lanes, the
+    fleet advanced by ``"cuda_delta"`` on the tensor-core kernel. At every tick
+    the same mode with the stage's plain version swapped in, and
+    ``backend="cuda"``, each take one step from that very state.
+
+    * Kernel against plain version: one computation in two float32 summation
+      orders, held on every lane of every tick to CROSS_DELTA_TOL on the plan,
+      the advanced DCM and the duals, with identical per-lane status from tick
+      2 on; on the cold first tick the delta mode leaves lanes at eps, where
+      the flag flips between two orders (at most CROSS_DELTA_FIRST_MISMATCH).
+    * "cuda_delta" against "cuda": the reference's contract for its reduced
+      modes, converged counts within CROSS_F32_SHARE of the lanes and the plan
+      within CROSS_F32_TOL on every lane where both converged.
+    """
+    lanes, ticks = CROSS_LANES, CROSS_TICKS
+    refs = (problem.dcm_ref, problem.zmp_ref, problem.poly_A, problem.poly_b)
+    dist = problem.disturbance[:lanes].contiguous()
+    state = init_fleet(lanes, HORIZON, problem.num_constraints, problem.dcm0, problem.com0,
+                       device=DEVICE, dtype=torch.float32)
+    step_of = lambda backend: make_fleet_step(problem.params, problem.dt,
+                                              iterations=2 * STAGE_ITERS, backend=backend,
+                                              device=DEVICE)
+    delta, exact = step_of("cuda_delta"), step_of("cuda")
+    per_tick = []
+    for k in range(1, ticks + 1):
+        admm_kernel.reset_counts()
+        nxt, res = delta(state, dist, *refs)
+        kernel_counts = stage_counts()
+        with mock.patch.object(qp_module, "admm_stage", admm_kernel.admm_stage_reference):
+            plain_state, plain_res = delta(state, dist, *refs)
+        f32_state, f32_res = exact(state, dist, *refs)
+        diffs = lane_diffs(nxt, res, plain_state, plain_res)
+        both = (res.status == 0) & (f32_res.status == 0)
+        f32_plan = (res.consensus_zmp0 - f32_res.consensus_zmp0).abs().amax(dim=-1)
+        per_tick.append({
+            "tick": k, "kernel_counts": kernel_counts,
+            "plain": {"max_abs_diff": {n: float(d.max()) for n, d in diffs.items()},
+                      "status_mismatches": int((res.status != plain_res.status).sum()),
+                      "converged": [int((r.status == 0).sum()) for r in (res, plain_res)]},
+            "f32": {"converged": [int((r.status == 0).sum()) for r in (res, f32_res)],
+                    "both_converged": int(both.sum()),
+                    "max_abs_diff_plan_both_converged":
+                        float(f32_plan[both].max()) if bool(both.any()) else 0.0},
+            "finite": all_finite(nxt) and all_finite(plain_state) and all_finite(f32_state),
+        })
+        state = nxt
+    out = emit("cross_delta", lanes=lanes, ticks=per_tick, tolerance_abs_plain=CROSS_DELTA_TOL,
+               first_tick_status_mismatch_share=CROSS_DELTA_FIRST_MISMATCH,
+               f32_converged_share=CROSS_F32_SHARE, tolerance_abs_f32=CROSS_F32_TOL,
+               status_counts=status_counts(res.status))
+    for rec in per_tick:
+        k, cmp = rec["tick"], rec["plain"]
+        check(rec["finite"], f"cross_delta tick {k}: every state finite")
+        check(rec["kernel_counts"] == {"f32": 0, "tc_delta": 2, "tc_split": 0, "plain": 0},
+              f"cross_delta tick {k}: the fleet's step is 2 tensor-core launches")
+        for field, dv in cmp["max_abs_diff"].items():
+            check(dv <= CROSS_DELTA_TOL,
+                  f"cross_delta tick {k}: the kernel agrees with the plain version on {field}"
+                  f" to {CROSS_DELTA_TOL} on every lane, got {dv}")
+        allowed = CROSS_DELTA_FIRST_MISMATCH * lanes if k == 1 else 0
+        check(cmp["status_mismatches"] <= allowed,
+              f"cross_delta tick {k}: at most {allowed:.0f} lanes of differing status against"
+              f" the plain version, got {cmp['status_mismatches']}")
+        conv = rec["f32"]["converged"]
+        check(conv[0] >= conv[1] - CROSS_F32_SHARE * lanes,
+              f"cross_delta tick {k}: 'cuda_delta' converges within {CROSS_F32_SHARE:.1%} of"
+              f" the lanes of 'cuda': {conv}")
+        dv = rec["f32"]["max_abs_diff_plan_both_converged"]
+        check(dv <= CROSS_F32_TOL,
+              f"cross_delta tick {k}: the plan within {CROSS_F32_TOL} of 'cuda' where both"
+              f" converged, got {dv}")
     return out
 
 
@@ -1798,12 +2132,18 @@ def main() -> None:
     if "build" in phases:
         phase_build()
     kernels = phase_kernels(problem, device) if "kernels" in phases else None
-    tick = wbc = stack = None
+    tick = tick_delta = wbc = stack = None
     if "tick" in phases:
         check(kernels is not None, "the tick phase needs the kernels phase's timing")
         tick = phase_tick(problem, kernels["admm_stage"]["kernel_ms"], opts.profile)
     if "cross" in phases:
         phase_cross(problem)
+    if "tick_delta" in phases:
+        check(kernels is not None, "the tick_delta phase needs the kernels phase's timing")
+        tick_delta = phase_tick(problem, kernels["admm_stage_tc"]["kernel_ms"], opts.profile,
+                                backend="cuda_delta")
+    if "cross_delta" in phases:
+        phase_cross_delta(problem)
     if "wbc" in phases:
         check(kernels is not None, "the wbc phase needs the kernels phase's timing")
         wbc = phase_wbc(kernels, opts.profile)
@@ -1826,6 +2166,7 @@ def main() -> None:
         stack_l = stack["launches"] if stack else none
         by_path = {
             "admm_stage": {"tick": tick["kernel_launches"] if tick else 0},
+            "admm_stage_tc": {"tick_delta": tick_delta["kernel_launches"] if tick_delta else 0},
             "admm_stage@stack": {"stack": stack_l.get("admm_stage", 0)},
             "admm_lane_stage": {"wbc": wbc_l.get("admm_lane_stage", 0)},
             "admm_lane_stage@stack": {"stack": stack_l.get("admm_lane_stage", 0)},
@@ -1838,6 +2179,7 @@ def main() -> None:
                                    "identify": ident["launches"] if ident else 0},
         }
         origin = {"admm_stage": (admm_kernel.SOURCE, admm_kernel.REPLACES),
+                  "admm_stage_tc": (admm_kernel.TC_SOURCE, admm_kernel.TC_REPLACES),
                   "admm_lane_stage": (lane_kernel.SOURCE, lane_kernel.REPLACES),
                   "cholesky_inverse_lane": (chol_kernel.SOURCE, chol_kernel.REPLACES),
                   "cholesky_solve_lane": (chol_kernel.SOLVE_SOURCE, chol_kernel.SOLVE_REPLACES),
@@ -1851,7 +2193,9 @@ def main() -> None:
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
-        } for key, k in kernels.items()],
+            **({"ms_by_mode": {mode: v["kernel_ms"] for mode, v in k["modes"].items()}}
+               if "modes" in k else {}),
+        } for key, k in kernels.items() if key in by_path],
             "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
     ran_all = set(phases) == set(PHASES)
     print(json.dumps({"ok": ran_all, "device": {

@@ -12,6 +12,8 @@ The CUDA kernel itself cannot run without a GPU; ``chip_smoke.py`` holds it
 against the same plain version on the card.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,7 +36,14 @@ ALPHA = 1.6
 def stage_problem(horizon, B, np_dtype, seed=0):
     """Stage inputs of the horizon-``horizon`` DCM transcription, as numpy:
     the JAX package's own factorization, scaled bounds (polygon rows have
-    l = -inf), a random iterate and s spread over [1e-2, 1e2]."""
+    l = -inf), a random iterate and s spread over [1e-2, 1e2]. Made once per
+    process (the two references compile anew for every call); a caller that
+    changes an array copies it first."""
+    return dict(_stage_problem(horizon, B, np.dtype(np_dtype), seed))
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_problem(horizon, B, np_dtype, seed):
     jd = jnp.dtype(np_dtype)
     N = horizon
     params = LIPMParams(jnp.asarray(0.9, jd), jnp.asarray(9.81, jd))

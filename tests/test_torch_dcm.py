@@ -124,10 +124,12 @@ def test_what_is_not_ported_raises():
     _, pt = params_pair()
     args = [to_t(a[k]) for k in ("dcm0", "com0") + KEYS]
     # the per-lane path is ported (tests/test_torch_qp_lanes.py holds it to
-    # the reference); what still raises is the reduced-precision kernel form
+    # the reference), and so are the reduced-precision kernel forms
+    # (tests/test_torch_admm_stage_tc.py), which take float32 only
     assert tdcm.solve_dcm_mpc(pt, DT, *args, shared=False, iterations=25).zmp.shape == (4, 8, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdcm.solve_dcm_mpc(pt, DT, *args, shared=True, backend="cuda_split")
+    with pytest.raises(TypeError, match="float32 only"):
+        tdcm.solve_dcm_mpc(pt, DT, *(a.double() for a in args), shared=True,
+                           backend="cuda_split")
     args[4] = args[4][None].expand(4, -1, -1, -1)      # per-lane polygons
     with pytest.raises(ValueError, match="unbatched"):
         tdcm.solve_dcm_mpc(pt, DT, *args, shared=True)

@@ -226,10 +226,14 @@ class TestSolveFactored:
 
     @pytest.mark.parametrize("backend", ["cuda_split", "cuda_delta"])
     def test_reduced_precision_backends_raise(self, backend):
+        """The bf16 modes are float32 modes: a float64 solve is refused, not
+        rounded (their float32 parity: tests/test_torch_admm_stage_tc.py)."""
         c = Shared.get()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tqp.solve_qp_factored(c["ft"], to_t(c["q"]), to_t(c["l"]),
-                                  to_t(c["u"]), backend=backend)
+        f64 = factors_from_numpy(c["fj"], device="cpu", dtype=torch.float64)
+        as64 = lambda a: to_t(a, torch.float64)
+        with pytest.raises(TypeError, match="float32 only"):
+            tqp.solve_qp_factored(f64, as64(c["q"]), as64(c["l"]), as64(c["u"]),
+                                  backend=backend)
 
     def test_unknown_backend_raises(self):
         c = Shared.get()

@@ -36,9 +36,13 @@ converged, the median and max primal and dual residuals and the range of
 ``rho_scale`` on each side as one JSON line.
 """
 
+import contextlib
+import functools
+import importlib
 import json
 import sys
 import time
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -76,9 +80,44 @@ FAST_COMPILE = {"xla_backend_optimization_level": 0,
                 "xla_llvm_disable_expensive_passes": True}
 
 
+#: the modules of ``blf_tpu`` that call its forward kinematics by name
+_FK_CALLERS = ("blf_tpu.models.kinematics", "blf_tpu.models.rigid_body",
+               "blf_tpu.mpc.wholebody", "blf_tpu.mpc.stack",
+               "blf_tpu.estimators.wrench_observer")
+
+
+@contextlib.contextmanager
+def forward_kinematics_traced_once():
+    """While a reference program is traced, the reference's forward
+    kinematics is a ``jax.jit`` of itself for each tree: the mass matrix, the
+    bias forces, every frame and the plant each rerun it on the same shapes,
+    and its trace is most of the program's. XLA inlines the inner program, so
+    the operations and their order do not change."""
+    fk = jkin.forward_kinematics
+    jitted = {}
+
+    def once(tree, base_position, base_rotation, q):
+        if id(tree) not in jitted:
+            jitted[id(tree)] = (tree, jax.jit(lambda bp, bR, qq: fk(tree, bp, bR, qq)))
+        return jitted[id(tree)][1](base_position, base_rotation, q)
+
+    with contextlib.ExitStack() as stack:
+        for name in _FK_CALLERS:
+            stack.enter_context(mock.patch.object(importlib.import_module(name),
+                                                  "forward_kinematics", once))
+        yield
+
+
 def reference_jit(fn):
-    """``jax.jit`` of a JAX reference with :data:`FAST_COMPILE`."""
-    return jax.jit(fn, compiler_options=FAST_COMPILE)
+    """``jax.jit`` of a JAX reference with :data:`FAST_COMPILE`, traced with
+    :func:`forward_kinematics_traced_once`."""
+
+    @functools.wraps(fn)
+    def traced(*args, **kwargs):
+        with forward_kinematics_traced_once():
+            return fn(*args, **kwargs)
+
+    return jax.jit(traced, compiler_options=FAST_COMPILE)
 
 
 def run_reference(fn, *args, **kwargs):
