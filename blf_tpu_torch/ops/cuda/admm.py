@@ -51,7 +51,7 @@ from blf_tpu_torch.ops.precision import f32_matmuls
 
 __all__ = ["admm_stage", "admm_stage_reference", "launch_count",
            "reference_count", "tc_launch_count", "tc_reference_count",
-           "reset_counts", "stage_shared_bytes", "stage_tc_shared_bytes",
+           "reset_counts", "stage_shared_bytes", "stage_tc_shared_bytes", "tc_lanes",
            "build_admm_stage", "build_admm_stage_tc", "MATMUL_MODES", "SOURCE",
            "REPLACES", "TC_SOURCE", "TC_REPLACES"]
 
@@ -64,7 +64,6 @@ TC_SOURCE = "admm_stage_tc.cu"
 TC_REPLACES = "blf_tpu/ops/pallas/admm.py:138"
 
 _LANES = 32                 # lanes per block (csrc/admm_stage.cu)
-_TC_LANES = 16              # lanes per warpgroup tile (csrc/admm_stage_tc.cu)
 _MAX_SHARED = 232448        # bytes of shared memory a block may use on sm_90
 
 # Plain integers: how often each kernel was launched (the tensor-core one by
@@ -236,28 +235,36 @@ def build_admm_stage(m: int, n: int) -> ctypes.CDLL:
     return lib
 
 
+def tc_lanes(m: int, n: int) -> int:
+    """Lanes of a tile of the tensor-core kernel at ``(m, n)`` (wgmma's N):
+    32 where the operator has more than one 64-row tile, so that each of the
+    block's warpgroups owns one; 16 for an operator of one row tile each way,
+    whose latency-bound stage wants more blocks in flight."""
+    return 32 if m > 64 else 16
+
+
 def stage_tc_shared_bytes(m: int, n: int, matmul: str) -> int:
     """Shared memory one block of the tensor-core kernel needs at ``(m, n)``
-    in mode ``matmul`` (csrc/admm_stage_tc.cu): both bf16 operator pairs,
-    rows padded to 64 and the contraction to 16, and two warpgroups' 16-lane
-    operand buffers (hi and lo side by side for ``"split"``; one buffer and
-    the f32 gq / s of a warpgroup's fragments for ``"delta"``)."""
+    (csrc/admm_stage_tc.cu), the same in both modes: both bf16 operator
+    pairs, rows padded to 64 and the contraction to 16, and the operand
+    buffers of one tile of :func:`tc_lanes` lanes (w's hi and lo, tau's hi)."""
     up = lambda x, k: -(-x // k) * k
-    k1, k2 = up(m, 16), up(n, 16)
+    k1, k2, lanes = up(m, 16), up(n, 16), tc_lanes(m, n)
     operators = 2 * (2 * up(n, 64) * k1 + 2 * up(m, 64) * k2)
-    buffer = 2 * _TC_LANES * max(k1, k2)
-    if matmul == "split":
-        return operators + 2 * 2 * buffer
-    return operators + 2 * (buffer + 4 * up(n, 64) // 64 * 8 * 128)
+    return operators + 2 * lanes * (2 * k1 + k2)
 
 
 def _check_tc_shape(m: int, n: int, matmul: str) -> None:
     need = stage_tc_shared_bytes(m, n, matmul)
     if m < 1 or n < 1 or need > _MAX_SHARED:
         raise ValueError(
-            f"admm_stage_tc keeps both bf16 operator pairs and two {_TC_LANES}-lane"
-            f" operand buffers in shared memory: (m, n) = ({m}, {n}) needs {need}"
+            f"admm_stage_tc keeps both bf16 operator pairs and a {tc_lanes(m, n)}-lane"
+            f" tile's operand buffers in shared memory: (m, n) = ({m}, {n}) needs {need}"
             f" bytes in mode {matmul!r}, the card offers {_MAX_SHARED}")
+    if n > m or m > 192:
+        raise ValueError(
+            f"admm_stage_tc gives each 64-row tile of G2 (m, n) a warpgroup, at most"
+            f" three, and needs n <= m: (m, n) = ({m}, {n})")
 
 
 def build_admm_stage_tc(m: int, n: int, matmul: str) -> ctypes.CDLL:
@@ -288,7 +295,8 @@ def build_admm_stage_tc(m: int, n: int, matmul: str) -> ctypes.CDLL:
 
 def tc_defines(m: int, n: int, matmul: str) -> Dict[str, int]:
     """Compile-time definitions of the tensor-core kernel's library."""
-    return {"ADMM_M": m, "ADMM_N": n, "ADMM_DELTA": int(matmul == "delta")}
+    return {"ADMM_M": m, "ADMM_N": n, "ADMM_DELTA": int(matmul == "delta"),
+            "ADMM_LANES": tc_lanes(m, n)}
 
 
 def _require(t: torch.Tensor, name: str, shape, device) -> None:

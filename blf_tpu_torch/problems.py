@@ -274,12 +274,14 @@ def wbc_balance_step(
 #: ``STACK_r05.json`` ``detail.config``): horizon 8, 10 inner ticks an outer
 #: tick, 2 ROS2-W substeps with the lagged plant M^-1 and the stiff-path stage
 #: operator, MPC 100 iterations, WBC 150 iterations in one stage without
-#: polish and 4 Ruiz rounds, both solves on the kernels
+#: polish and 4 Ruiz rounds, both solves on the kernels: the MPC in the
+#: reference's ``"pallas"`` mode, the bf16 delta form on the tensor cores
+#: (``"cuda_delta"``), the WBC on the per-lane kernels (``"cuda"``)
 STACK_R05 = StackConfig(
     mpc_dt=0.1, horizon=8, wbc_per_mpc=10, physics_per_wbc=2,
     plant_method="rosenbrock", mpc_iterations=100, wbc_iterations=150,
     wbc_check_every=150, wbc_polish_iters=0, wbc_scaling_iters=4,
-    mpc_backend="cuda", wbc_backend="cuda", plant_lagged_minv=True,
+    mpc_backend="cuda_delta", wbc_backend="cuda", plant_lagged_minv=True,
     ros_op_stiff=True)
 
 #: the stance box around the CoM's ground projection: +-0.09 m in x, +-0.11 in y

@@ -19,11 +19,14 @@ paths through the entry points a user calls:
   ``cholesky_inverse_lane``, six launches of each a tick);
 * the whole control stack (DCM-MPC, whole-body QP, stiff ROS2-W plant,
   momentum observer and RLS) over a push-recovery fleet of 4096 humanoids,
-  10 outer ticks of 10 inner ticks in the ``STACK_R05`` configuration, both
-  solves ``"cuda"`` (kernels ``admm_stage`` at (48, 32), ``admm_lane_stage``,
+  10 outer ticks of 10 inner ticks in the ``STACK_R05`` configuration (the
+  MPC ``"cuda_delta"``, as ``STACK_r05.json`` recorded it: kernel
+  ``admm_stage_tc`` at (48, 32); the WBC ``"cuda"``: ``admm_lane_stage``,
   ``cholesky_inverse_lane`` at n = 64 and 29, ``cholesky_solve_lane``), and on
-  256 lanes the stiff plant against 40-substep RK4 and the kernel MPC against
-  the plain-tensor one;
+  256 lanes the stiff plant against 40-substep RK4 and the MPC's backends
+  against each other from the same warm state (``"cuda"`` on ``admm_stage``
+  at (48, 32) against the plain-tensor one; ``"cuda_delta"`` against its
+  plain version and against ``"cuda"``);
 * BASELINE config 2 (kernel ``foot_rollout_fused``): the Monte-Carlo
   spring-damper foot rollout of 65536 lanes over 1000 Euler steps,
   ``foot_rollout(backend="cuda")``, one launch a rollout; and the contact
@@ -155,9 +158,23 @@ STACK_EST_REL, STACK_EST_ABS = 0.3, 3.0
 # the cold first one
 STACK_CONVERGED_SHARE = 0.99
 STACK_SETTLED_TICKS = 4
+# the MPC runs the delta mode (STACK_r05.json: "pallas"): the float32 study at 256 lanes
+# (tests/test_torch_stack.py as a script; PERF.md section 6) converged 256, 250, 256, 256,
+# 255, 256, 256, 256, 256, 256 lanes by tick in the port, and blf_tpu's delta MPC run on
+# the same inputs 256, 251, 256, 256, 256, 255, 256, 256, 256, 256: held to
+# STACK_MPC_SHARE on every tick. On the last tick, the quality
+# STACK_r05.json recorded (every WBC lane converged, max primal residual 1.4e-2, max dual
+# 4.0e-4; the study 1.4e-2 and 3.9e-4 at 256 lanes), with room for 4096 lanes' maxima
+STACK_MPC_SHARE = 0.95
+STACK_LAST_RP, STACK_LAST_RD = 2e-2, 6e-4
 STACK_CROSS_LANES, STACK_CROSS_TICKS = 256, 4
 STACK_CROSS_DCM, STACK_CROSS_EST = 3e-3, 1.5     # tests/test_control_stack.py:292-346
 STACK_PLAN_TOL = 1e-5
+# stack_cross: the delta MPC's kernel against its plain version from the same warm state:
+# the study's two float32 orders part by 2.0e-7 (plan) and 2.2e-5 (duals), on 9 of 256
+# lanes' converged flag; against "cuda", the reference's contract of cross_delta
+STACK_DELTA_TOL = 2e-4
+STACK_DELTA_MISMATCH = 0.10
 # BASELINE config 2: the foot rollout fleet (benchmarks/rollout_bench.py's workload)
 FOOT_LANES, FOOT_STEPS = 65536, 1000
 FOOT_RUNS = 7                         # timed rollouts, after one warm-up
@@ -739,6 +756,7 @@ def kernels_admm_stage_stack(seen) -> dict:
     cases, max_rel, max_abs = [], 0.0, 0.0
     sources = {"stack_tick1_stage1": seen["mpc"][0], "stack_tick2_stage4": seen["mpc"][-1]}
     for name, (full, kw) in sources.items():
+        kw = dict(iters=kw["iters"], alpha=kw["alpha"])      # the f32 mode, not the stack's
         check(bool(torch.isinf(full[4]).any()), f"{name}: bounds include -inf rows")
         for B in (STACK_LANES, 1000, 1):
             args = lanes_of(full[:6], B) + tuple(full[6:])
@@ -757,6 +775,7 @@ def kernels_admm_stage_stack(seen) -> dict:
                   f"admm_stage at ({STACK_M}, {STACK_N}) agrees with the plain version to"
                   f" {REL_TOL} on {name} at B={B}: v {ev}, tau {et}")
     args, kw = seen["mpc"][-1]
+    kw = dict(iters=kw["iters"], alpha=kw["alpha"])
     kernel_ms = median_ms(lambda: admm_kernel.admm_stage(*args, **kw), 3, 11)
     plain_ms = median_ms(lambda: admm_kernel.admm_stage_reference(*args, **kw), 1, 3)
     B, m, n, iters = args[0].shape[0], STACK_M, STACK_N, kw["iters"]
@@ -1798,14 +1817,18 @@ def phase_stack(profile: bool) -> dict:
             records.append(stack_tick_record(trace))
             torch.cuda.synchronize()
             tick_ms.append(start.elapsed_time(end))
-    launches = {"admm_stage": admm_kernel.launch_count(),       # read just after the path
+    launches = {"admm_stage_tc": admm_kernel.tc_launch_count("delta"),   # just after the path
+                "admm_stage_tc_split": admm_kernel.tc_launch_count("split"),
+                "admm_stage": admm_kernel.launch_count(),
                 "admm_lane_stage": lane_kernel.launch_count(),
                 "cholesky_inverse_lane_n64": chol_kernel.launch_count(WBC_N),
                 "cholesky_inverse_lane_n29": chol_kernel.launch_count(NV),
                 "cholesky_solve_lane": chol_kernel.solve_launch_count()}
-    plain_runs = sum(m.reference_count() for m in counted) + chol_kernel.solve_reference_count()
+    plain_runs = (sum(m.reference_count() for m in counted) + admm_kernel.tc_reference_count()
+                  + chol_kernel.solve_reference_count())
     n_ticks = STACK_WARM_TICKS + STACK_TIMED_TICKS
-    expected = {"admm_stage": STACK_MPC_STAGES * n_ticks,
+    expected = {"admm_stage_tc": STACK_MPC_STAGES * n_ticks, "admm_stage_tc_split": 0,
+                "admm_stage": 0,
                 "admm_lane_stage": STACK_INNER * n_ticks,
                 "cholesky_inverse_lane_n64": STACK_INNER * n_ticks,
                 "cholesky_inverse_lane_n29": n_ticks,
@@ -1869,8 +1892,15 @@ def phase_stack(profile: bool) -> dict:
           f" worst margin {out['push_estimate_worst_margin_n']}")
     check(dcm_err < STACK_DCM, f"every lane's DCM within {STACK_DCM} m of the stance: {dcm_err}")
     mpc = out["mpc_converged_by_tick"]
-    check(min(mpc) >= STACK_CONVERGED_SHARE * lanes,
-          f"the MPC converged on {STACK_CONVERGED_SHARE:.0%} of lanes on every tick: {mpc}")
+    check(min(mpc) >= STACK_MPC_SHARE * lanes,
+          f"the MPC converged on {STACK_MPC_SHARE:.0%} of lanes on every tick: {mpc}")
+    last = records[-1]
+    rp_max, rd_max = float(last["rp"][0]), float(last["rd"][0])
+    check(out["wbc_converged_by_tick"][-1] == lanes and rp_max <= STACK_LAST_RP
+          and rd_max <= STACK_LAST_RD,
+          f"the last tick as STACK_r05.json recorded it: every WBC lane converged, max primal"
+          f" residual <= {STACK_LAST_RP}, max dual <= {STACK_LAST_RD}:"
+          f" {out['wbc_converged_by_tick'][-1]}, {rp_max}, {rd_max}")
     settled = [c >= STACK_CONVERGED_SHARE * lanes for c in converged]
     check(settled[-1] and sum(settled[1:]) >= STACK_SETTLED_TICKS,
           f"{STACK_CONVERGED_SHARE:.0%} of lanes CONVERGED on the last tick and on at least"
@@ -1883,8 +1913,13 @@ def phase_stack_cross() -> dict:
     (a) the production plant (ROS2-W, 2 substeps, lagged M^-1, stiff-path
     operator) against RK4 in 40 substeps with the exact M, over
     STACK_CROSS_TICKS outer ticks from the same state and pushes; (b) one
-    outer tick from the same warm state with the MPC on the kernel and on the
-    plain-tensor backend (with and without its refinement pass)."""
+    outer tick from the same warm state with the MPC on other backends: the
+    f32 kernel (``"cuda"``) against the plain-tensor backend (with and without
+    its refinement pass), to STACK_PLAN_TOL with identical status; the
+    configuration's ``"cuda_delta"`` against its plain version (two float32
+    orders), to STACK_DELTA_TOL with at most STACK_DELTA_MISMATCH of the lanes'
+    converged flags apart; and ``"cuda_delta"`` against ``"cuda"`` under the
+    reference's contract for its reduced modes."""
     problem = push_recovery_stack(STACK_CROSS_LANES, seed=SEED, device=DEVICE,
                                   dtype=torch.float32)
     rk4 = problem.config._replace(plant_method="rk4", physics_per_wbc=40,
@@ -1906,19 +1941,37 @@ def phase_stack_cross() -> dict:
 
     # (b) from the production run's warm state after one tick
     warm, _ = stack_fleet_step(problem)(problem.state, problem.pushes, *problem.refs)
-    plans = {}
-    for name, backend, refine in (("cuda", "cuda", None), ("torch", "torch", None),
-                                  ("torch_no_refine", "torch", False)):
+
+    def mpc_tick(backend, refine=None, plain=False):
         solve = dcm_module.solve_dcm_mpc if refine is None else functools.partial(
             dcm_module.solve_dcm_mpc, refine=refine)
-        with mock.patch.object(stack_module, "solve_dcm_mpc", solve):
+        with contextlib.ExitStack() as patches:
+            patches.enter_context(mock.patch.object(stack_module, "solve_dcm_mpc", solve))
+            if plain:
+                patches.enter_context(mock.patch.object(qp_module, "admm_stage",
+                                                        admm_kernel.admm_stage_reference))
             st, tr = stack_fleet_step(problem, problem.config._replace(mpc_backend=backend))(
                 warm, problem.pushes, *problem.refs)
-        plans[name] = (st.warm_zmp, st.warm_y, tr.mpc_converged)
-    diff = {name: {"plan": float((plans[name][0] - plans["cuda"][0]).abs().max()),
-                   "duals": float((plans[name][1] - plans["cuda"][1]).abs().max()),
-                   "mpc_status_mismatches": int((plans[name][2] != plans["cuda"][2]).sum())}
-            for name in ("torch", "torch_no_refine")}
+        return st.warm_zmp, st.warm_y, tr.mpc_converged
+
+    admm_kernel.reset_counts()            # the f32 kernel's launches on this path
+    plans = {"cuda": mpc_tick("cuda")}
+    f32_launches = admm_kernel.launch_count()
+    plans.update(torch=mpc_tick("torch"), torch_no_refine=mpc_tick("torch", refine=False),
+                 cuda_delta=mpc_tick("cuda_delta"),
+                 cuda_delta_plain=mpc_tick("cuda_delta", plain=True))
+
+    def pair(a, b):
+        both = plans[a][2] & plans[b][2]
+        plan = (plans[a][0] - plans[b][0]).abs().amax(dim=(-2, -1))
+        return {"plan": float(plan.max()),
+                "duals": float((plans[a][1] - plans[b][1]).abs().max()),
+                "mpc_status_mismatches": int((plans[a][2] != plans[b][2]).sum()),
+                "mpc_converged": [int(plans[a][2].sum()), int(plans[b][2].sum())],
+                "plan_both_converged": float(plan[both].max()) if bool(both.any()) else 0.0}
+
+    diff = {name: pair(name, "cuda") for name in ("torch", "torch_no_refine")}
+    delta_plain, delta_f32 = pair("cuda_delta", "cuda_delta_plain"), pair("cuda_delta", "cuda")
     out = emit("stack_cross", lanes=STACK_CROSS_LANES, ticks=STACK_CROSS_TICKS,
                dcm_diff_by_tick_m=dcm_by_tick, com_diff_by_tick_m=com_by_tick,
                push_estimate_diff_n=est, tolerance_dcm_m=STACK_CROSS_DCM,
@@ -1926,7 +1979,11 @@ def phase_stack_cross() -> dict:
                rk4_status_counts=status_counts(tr_rk[-1].status),
                ros2w_status_counts=status_counts(tr_ros[-1].status),
                seconds_by_plant=seconds, mpc_backends=diff, tolerance_plan=STACK_PLAN_TOL,
-               mpc_converged_cuda=int(plans["cuda"][2].sum()))
+               mpc_converged_cuda=int(plans["cuda"][2].sum()),
+               delta_against_plain=delta_plain, tolerance_delta_plain=STACK_DELTA_TOL,
+               delta_status_mismatch_share=STACK_DELTA_MISMATCH,
+               delta_against_cuda=delta_f32, f32_converged_share=CROSS_F32_SHARE,
+               tolerance_delta_cuda=CROSS_F32_TOL, admm_stage_launches=f32_launches)
     check(all(all_finite(s.plant) for s in (s_ros, s_rk)), "both plants finite")
     check(max(dcm_by_tick) <= STACK_CROSS_DCM,
           f"ROS2-W within {STACK_CROSS_DCM} m of RK4 on the DCM at every tick: {dcm_by_tick}")
@@ -1935,6 +1992,17 @@ def phase_stack_cross() -> dict:
         check(d["plan"] <= STACK_PLAN_TOL and d["mpc_status_mismatches"] == 0,
               f"MPC plan on {name} within {STACK_PLAN_TOL} of the kernel's, identical"
               f" status: {d}")
+    check(f32_launches == STACK_MPC_STAGES, f"the 'cuda' MPC ran the f32 kernel: {f32_launches}")
+    d = delta_plain
+    check(d["plan"] <= STACK_DELTA_TOL and d["duals"] <= STACK_DELTA_TOL
+          and d["mpc_status_mismatches"] <= STACK_DELTA_MISMATCH * STACK_CROSS_LANES,
+          f"the delta MPC's kernel within {STACK_DELTA_TOL} of its plain version, at most"
+          f" {STACK_DELTA_MISMATCH:.0%} of lanes of differing status: {d}")
+    d = delta_f32
+    check(d["mpc_converged"][0] >= d["mpc_converged"][1] - CROSS_F32_SHARE * STACK_CROSS_LANES
+          and d["plan_both_converged"] <= CROSS_F32_TOL,
+          f"'cuda_delta' converges within {CROSS_F32_SHARE:.1%} of the lanes of 'cuda' and its"
+          f" plan lies within {CROSS_F32_TOL} where both converged: {d}")
     return out
 
 
@@ -2132,7 +2200,7 @@ def main() -> None:
     if "build" in phases:
         phase_build()
     kernels = phase_kernels(problem, device) if "kernels" in phases else None
-    tick = tick_delta = wbc = stack = None
+    tick = tick_delta = wbc = stack = stack_cross = None
     if "tick" in phases:
         check(kernels is not None, "the tick phase needs the kernels phase's timing")
         tick = phase_tick(problem, kernels["admm_stage"]["kernel_ms"], opts.profile)
@@ -2152,7 +2220,7 @@ def main() -> None:
     if "stack" in phases:
         stack = phase_stack(opts.profile)
     if "stack_cross" in phases:
-        phase_stack_cross()
+        stack_cross = phase_stack_cross()
     foot = phase_foot() if "foot" in phases else None
     ident = phase_identify() if "identify" in phases else None
     if opts.study_factorization:
@@ -2167,7 +2235,10 @@ def main() -> None:
         by_path = {
             "admm_stage": {"tick": tick["kernel_launches"] if tick else 0},
             "admm_stage_tc": {"tick_delta": tick_delta["kernel_launches"] if tick_delta else 0},
-            "admm_stage@stack": {"stack": stack_l.get("admm_stage", 0)},
+            "admm_stage@stack": {"stack": stack_l.get("admm_stage", 0),
+                                 "stack_cross": stack_cross["admm_stage_launches"]
+                                 if stack_cross else 0},
+            "admm_stage_tc@stack": {"stack": stack_l.get("admm_stage_tc", 0)},
             "admm_lane_stage": {"wbc": wbc_l.get("admm_lane_stage", 0)},
             "admm_lane_stage@stack": {"stack": stack_l.get("admm_lane_stage", 0)},
             "cholesky_inverse_lane": {"wbc": wbc_l.get("cholesky_inverse_lane", 0),

@@ -198,14 +198,23 @@ def test_cpu_tensors_take_the_plain_version_and_count_it(backend):
 
 
 def test_shapes_and_shared_memory_of_the_tensor_core_kernel():
-    assert port.stage_tc_shared_bytes(192, 128, "split") == 221184
-    assert port.stage_tc_shared_bytes(192, 128, "delta") == 225280
+    """Both bf16 operator pairs (192 KB at (192, 128)) and one tile's operand
+    buffers, w's hi and lo and tau's hi (32 KB for 32 lanes), the same in both
+    modes; 16-lane tiles for an operator of one 64-row tile each way."""
+    assert port.stage_tc_shared_bytes(192, 128, "split") == 229376
+    assert port.stage_tc_shared_bytes(192, 128, "delta") == 229376
+    assert port.stage_tc_shared_bytes(48, 32, "delta") == 24576
+    assert [port.tc_lanes(m, n) for m, n in ((192, 128), (96, 64), (48, 32))] == [32, 32, 16]
     for m, n in ((192, 128), (48, 32), (96, 64)):
         for matmul in ("split", "delta"):
             port._check_tc_shape(m, n, matmul)
     with pytest.raises(ValueError, match="shared memory"):
         port._check_tc_shape(256, 192, "delta")
-    assert port.tc_defines(48, 32, "delta") == {"ADMM_M": 48, "ADMM_N": 32, "ADMM_DELTA": 1}
+    with pytest.raises(ValueError, match="warpgroup"):    # n > m: tau's lo would not fit
+        port._check_tc_shape(64, 96, "delta")
+    assert port.tc_defines(48, 32, "delta") == {"ADMM_M": 48, "ADMM_N": 32, "ADMM_DELTA": 1,
+                                                "ADMM_LANES": 16}
+    assert port.tc_defines(192, 128, "split")["ADMM_LANES"] == 32
 
 
 def test_kernel_source_is_self_contained_tensor_core_cuda():

@@ -244,36 +244,116 @@ def tick_row(trace, state, pushes, stance):
             f(np.abs(np.asarray(state.push_theta) - pushes).max())]
 
 
+#: the port's backends and the reference's names for them
+REFERENCE_BACKEND = {"cuda_delta": "pallas", "cuda_split": "pallas_split", "cuda": "pallas_f32",
+                     "torch": "xla"}
+
+
+def mpc_pairs(problem, warm):
+    """One outer tick from the same warm state with the MPC on other backends
+    (the plain versions, on the CPU): ``"cuda_delta"`` in its own float32
+    order and in the tensor-core kernel's (pass after pass, 16 contraction
+    terms at a time), and ``"cuda"``; plan, duals and converged flags."""
+    from unittest import mock
+
+    from blf_tpu_torch.problems import stack_fleet_step
+    from test_torch_admm_stage_tc import _kernel_order_dot2, _kernel_order_dot3
+
+    def tick(backend, kernel_order=False):
+        step = stack_fleet_step(problem, problem.config._replace(mpc_backend=backend))
+        with mock.patch.object(admm, "_lsplit_dot3",
+                               _kernel_order_dot3 if kernel_order else admm._lsplit_dot3), \
+                mock.patch.object(admm, "_lsplit_dot2",
+                                  _kernel_order_dot2 if kernel_order else admm._lsplit_dot2):
+            st, tr = step(warm, problem.pushes, *problem.refs)
+        return st.warm_zmp, st.warm_y, tr.mpc_converged
+
+    delta, delta_k, exact = tick("cuda_delta"), tick("cuda_delta", True), tick("cuda")
+    f = lambda v: float(f"{float(v):.3g}")
+    both = delta[2] & exact[2]
+    plan = (delta[0] - exact[0]).abs().amax(dim=(-2, -1))
+    return {
+        "delta_kernel_order": {
+            "plan": f((delta_k[0] - delta[0]).abs().max()),
+            "duals": f((delta_k[1] - delta[1]).abs().max()),
+            "mpc_status_mismatches": int((delta_k[2] != delta[2]).sum())},
+        "delta_against_cuda": {
+            "mpc_converged": [int(delta[2].sum()), int(exact[2].sum())],
+            "both_converged": int(both.sum()),
+            "plan_both_converged": f(plan[both].max()) if bool(both.any()) else 0.0,
+            "plan": f(plan.max())}}
+
+
+def reference_mpc_converged(args, kw):
+    """Lanes the reference's MPC converges, run eagerly on the port's own MPC
+    inputs of a tick in the mode of the same name. Eagerly: under ``jax.jit``
+    on the CPU its ``"pallas"`` (delta) MPC leaves the dual residual near 4e-5
+    and converges no lane of the cold tick, where the same solve run eagerly
+    converges every lane, as the port does."""
+    from blf_tpu.models.lipm import LIPMParams as JLIPM
+    from blf_tpu.mpc.dcm import solve_dcm_mpc
+
+    f32 = lambda t: jnp.asarray(np.asarray(t), jnp.float32)
+    lipm, dt, *rest = args
+    jkw = {k: (f32(v) if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+    jkw["backend"] = REFERENCE_BACKEND[kw["backend"]]
+    plan = solve_dcm_mpc(JLIPM(f32(lipm.com_height), f32(lipm.gravity)), dt,
+                         *[f32(x) for x in rest], **jkw)
+    return int(np.asarray(plan.qp.converged).sum())
+
+
 def main():
     """``JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_stack.py [lanes]
-    [ticks]``: ``push_recovery_stack`` (64 lanes, 10 outer ticks unless told
-    otherwise) in float32 in the ``STACK_R05`` configuration, in the port
-    (``"cuda"``: the kernels' plain versions) and in ``blf_tpu`` (``"pallas_f32"``
-    MPC, ``"pallas"`` WBC, its kernels in interpret mode), from the same state
-    and pushes; one JSON line with a row a tick on each side."""
+    [ticks]``: ``push_recovery_stack`` (256 lanes, a multiple of 256 so that
+    the reference's MPC takes its kernel, and 10 outer ticks unless told
+    otherwise) in float32 in the ``STACK_R05`` configuration, in the port (the
+    kernels' plain versions) and in ``blf_tpu`` (the same modes by the
+    reference's names, its kernels in interpret mode), from the same state and
+    pushes; the reference's MPC also eagerly on the port's MPC inputs of each
+    tick (:func:`reference_mpc_converged`); then, from the port's state after
+    the first tick, the MPC's backends one outer tick apart
+    (:func:`mpc_pairs`). One JSON line with a row a tick on each side."""
     import json
     import sys
     import time
 
     from blf_tpu.models.lipm import LIPMParams as JLIPM
     from blf_tpu.models.robots import HUMANOID_SOLE_FRAMES, make_humanoid_23dof
+    from unittest import mock
+
     from blf_tpu_torch.problems import push_recovery_stack, stack_fleet_step
+    import test_torch_admm_stage_tc  # noqa: F401 (its imports turn float64 on: first)
 
     jax.config.update("jax_enable_x64", False)
-    lanes = int(sys.argv[1]) if len(sys.argv) > 1 else 64
+    lanes = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     ticks = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     torch.set_num_threads(4)
     problem = push_recovery_stack(lanes, seed=0, device="cpu", dtype=torch.float32)
     pushes, stance = problem.pushes.numpy(), problem.stance.numpy()
     t0 = time.perf_counter()
-    step, state, port_rows = stack_fleet_step(problem), problem.state, []
-    for _ in range(ticks):
-        state, trace = step(state, problem.pushes, *problem.refs)
+    step, state, port_rows, eager = stack_fleet_step(problem), problem.state, [], []
+    mpc_calls, solve = [], tstack.solve_dcm_mpc
+
+    def recorded(*args, **kw):
+        mpc_calls.append((args, kw))
+        return solve(*args, **kw)
+
+    for k in range(ticks):
+        with mock.patch.object(tstack, "solve_dcm_mpc", recorded):
+            state, trace = step(state, problem.pushes, *problem.refs)
         port_rows.append(tick_row(trace, state, pushes, stance))
+        eager.append(reference_mpc_converged(*mpc_calls.pop()))
+        if k == 0:
+            pairs = mpc_pairs(problem, state)
     t1 = time.perf_counter()
+    print(json.dumps({"blf_tpu_torch_plain_versions": port_rows, "mpc_pairs_after_tick_1": pairs,
+                      "blf_tpu_mpc_converged_eager_on_the_ports_inputs": eager}),
+          file=sys.stderr, flush=True)
 
     c = problem.config._asdict()
-    config = jstack.StackConfig(**{**c, "mpc_backend": "pallas_f32", "wbc_backend": "pallas"})
+    backends = {"mpc_backend": REFERENCE_BACKEND[c["mpc_backend"]],
+                "wbc_backend": "pallas" if c["wbc_backend"] == "cuda" else "xla"}
+    config = jstack.StackConfig(**{**c, **backends})
     f32 = lambda t: jnp.asarray(np.asarray(t), jnp.float32)
     jstep = jax.jit(jstack.make_fleet_stack_step(
         make_humanoid_23dof(), JWholeBodyParams(contact_frames=HUMANOID_SOLE_FRAMES),
@@ -286,11 +366,14 @@ def main():
         ref_rows.append(tick_row(jtrace, jstate, pushes, stance))
     print(json.dumps({
         "lanes": lanes, "ticks": ticks, "dtype": "float32", "device": "cpu",
-        "config": "STACK_R05",
+        "config": "STACK_R05", "backends": {"port": {k: c[k] for k in backends},
+                                            "blf_tpu": backends},
         "columns": ["converged", "mpc_converged", "wbc_converged", "numerical_error",
                     "median_wbc_max_rp", "max_wbc_max_rp", "median_wbc_max_rd",
                     "max_wbc_max_rd", "max_dcm_err_m", "max_estimate_err_n"],
         "blf_tpu_pallas_interpret": ref_rows, "blf_tpu_torch_plain_versions": port_rows,
+        "blf_tpu_mpc_converged_eager_on_the_ports_inputs": eager,
+        "mpc_pairs_after_tick_1": pairs,
         "seconds": [round(t1 - t0, 1), round(time.perf_counter() - t1, 1)]}))
 
 
