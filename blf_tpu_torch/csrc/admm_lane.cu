@@ -1,7 +1,8 @@
 // Fused per-lane v-space ADMM stage for NVIDIA Hopper (sm_90a), f32.
 //
-// Replaces the TPU kernel blf_tpu/ops/pallas/admm_lane.py::_lane_kernel
-// (entry admm_lane_stage). One launch runs `iters` iterations of
+// Replaces the TPU kernel blf_tpu/ops/pallas/admm_lane.py:56 _lane_kernel
+// (entry admm_lane_stage, pallas_call at :133). One launch runs `iters`
+// iterations of
 //
 //     z  = clip(v, l, u)
 //     w  = rho * (2 z - v)
@@ -11,43 +12,68 @@
 // for every lane of a fleet in which each lane has its OWN operators A (m, n)
 // and Kinv (n, n): the whole-body QP, where A carries the lane's mass matrix
 // and contact Jacobians. All three matrix-vector products of an iteration
-// are computed here, in this kernel's body; v, z and x never leave the SM
-// between the first and the last iteration.
+// are computed here; v, z and x never leave the SM between the first and the
+// last iteration.
 //
-// What bounds it on an H100: bytes. A lane's operators are 4 (m n + n^2)
-// bytes (38.4 KB at (86, 64)) and an iteration does 2 (2 m n + n^2) flops on
-// them (30 Kflop): about 0.8 flop a byte of operator an iteration, so a
-// design that streamed the operators from device memory every iteration
-// would be memory-bound 25 times over. With nothing shared between lanes
-// there is no GEMM to tile either. So, as in the TPU kernel, the point is
-// residency: A and Kinv are read from device memory ONCE a stage and stay on
-// the SM for all its iterations. What the resident kernel then waits for is
-// shared memory: every iteration re-reads A twice and Kinv once (60.4 KB a
-// lane), one 4-byte word per FMA, and the SM's shared memory delivers 128
-// bytes a clock.
+// What bounds it on an H100. A lane's operators are 4 (m n + n^2) bytes
+// (38.4 KB at (86, 64)) against 2 (2 m n + n^2) flops an iteration (30
+// Kflop), so they must stay on the SM for the whole stage: read from device
+// memory once, the stage is bound by the f32 FMA rate (0.277 ms at 150
+// iterations and B 4096). The first design of this kernel kept A and Kinv^T
+// in shared memory and read one 4-byte operator word per FMA: (2 m n + n^2)
+// words, 60.4 KB a lane-iteration, which at 128 bytes a clock is 472
+// SM-cycles against 118 cycles of FMAs (15,104 at 128 a clock), a floor of
+// 1.11 ms at 150 iterations; six block barriers an iteration between short
+// FMA chains came on top (2.58 ms measured). No shared-memory layout helps:
+// each operator word is used once a product. Only registers lower the words
+// read per FMA.
 //
-// Design:
-//  * One block of 256 threads per lane; A (row stride n + 1) and Kinv^T (row
-//    stride n + 1) in shared memory with the stage's vectors: 41 KB at
-//    (86, 64), so five blocks share an SM and overlap each other's barriers.
-//  * A^T w and Kinv rhs have n outputs and a long reduction: thread t takes
-//    output column t mod n and one of 256 / n slices of the reduction, reads
-//    down a column (neighbouring threads, neighbouring words: no bank
-//    conflict), and the slices are summed through shared memory. Kinv is
-//    stored transposed so that "row i of Kinv" is read down a column too; the
-//    kernel never assumes that Kinv is symmetric.
-//  * A x has m outputs: thread t takes row t mod m and one of 256 / m slices
-//    of the columns; the odd stride n + 1 puts the rows of a warp on
-//    different banks.
-//  * v, z, l, u, rho stay in the registers of the thread that owns the row.
+// Design: the operators live in registers.
+//  * One block of W warps a lane (W = 8 at (86, 64), 256 threads). Warp w
+//    owns the columns [w CW, (w + 1) CW) of A and of Kinv (CW = 8); lane l
+//    of every warp owns the rows l, l + 32, ... of A (RL = 3 rows, m padded
+//    to 96 with zero rows) and the outputs l, l + 32, ... of x (OL = 2).
+//    A thread keeps its RL x CW tile of A (24 floats) and its OL x CW tile of
+//    Kinv (16 floats) in registers for the whole stage: the products read no
+//    operator word from shared memory at all. 64 registers a thread, four
+//    lanes an SM.
+//  * A^T w: each thread sums its tile's rows into CW column partials; the 32
+//    lanes of a warp (which share the columns) reduce them by recursive
+//    halving with shuffles (7 + 2 at CW = 8), after which each group of four
+//    lanes holds one column of r = A^T w - q. r goes to the warp's words of
+//    shared memory (a warp barrier: the warp alone needs it).
+//  * Kinv r: each thread forms the partial of its OL outputs over its warp's
+//    columns; the W partials of an output are summed after block barrier 1,
+//    in warp order, into the warp's own x columns (a warp barrier).
+//  * A x: each thread forms its RL rows over its warp's columns; after block
+//    barrier 2 the thread that owns a row (thread t owns rows t, t + 32 W,
+//    ...) sums its W partials in warp order, updates v, forms z and w, and
+//    publishes w for block barrier 3. v, l, u, rho and z of a row live in
+//    its owner's registers only. Three block barriers an iteration, one
+//    after each cross-warp exchange.
+//  * Shared memory holds only the exchanged vectors (6 KB a lane at
+//    (86, 64)) and the staging buffer through which the operators are read
+//    from device memory, 32 rows at a time, coalesced, once a stage. The words
+//    read an iteration (a broadcast counted once) are w (32 RL a warp), r and
+//    x (CW a warp each), the W partials of the warp's x (W CW) and of every
+//    row of A x (32 W RL): 8.7 KB a lane-iteration at (86, 64), 68 cycles at
+//    128 bytes a clock, not 60.4 KB.
+//  * The plan is chosen at compile time from (m, n) and mirrored by
+//    ops/cuda/admm_lane.py::lane_plan: W = clamp(ceil(n / 8), 1, 8), so
+//    CW <= 32 for every n <= 256; up to 96 operator floats a thread in
+//    registers, A's rows first, then Kinv's. Rows and outputs beyond that
+//    budget (large shapes) live in shared memory in per-lane slots, read
+//    without bank conflicts; nothing is decided at run time. Four warps a
+//    lane (a 3 x 16 and a 2 x 16 tile, 125 registers) and two warps were
+//    slower; so was leaving the v update to every warp (the rows' state in
+//    every warp, W partials read by each).
 //  * clip is written with comparisons and passes on a NaN of v, l or u, as
 //    jnp.clip and torch.minimum(torch.maximum()) do; +-inf bounds clip as
-//    they should. Lanes never mix: a poisoned lane poisons nothing else.
-//  * A block per lane means no padding of the batch: any B >= 1 is taken.
+//    they should. Kinv is not assumed symmetric. A block is one lane, so
+//    lanes never mix and any B >= 1 is taken.
 //
 // The shape (m, n) is a compile-time constant (-DADMM_M=.. -DADMM_N=..):
-// ops/cuda/_build.py compiles one library per shape at first use. The lane's
-// operators must fit in 227 KB of shared memory.
+// ops/cuda/_build.py compiles one library per shape at first use.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (no -use_fast_math).
@@ -63,28 +89,102 @@
 
 namespace {
 
+constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+constexpr int pow2_at_least(int x) { return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2); }
+constexpr int log2_of(int x) { return x <= 1 ? 0 : 1 + log2_of(x / 2); }
+constexpr int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
+
 constexpr int M = ADMM_M;
 constexpr int N = ADMM_N;
-constexpr int T = 256;                     // threads per block
-constexpr int NS = N + 1;                  // padded row stride of A and Kinv^T
-constexpr int GN = (N >= T) ? 1 : T / N;   // reduction slices, n outputs
-constexpr int GM = (M >= T) ? 1 : T / M;   // reduction slices, m outputs
-constexpr int CH_M = (M + GN - 1) / GN;    // rows of A per slice in A^T w
-constexpr int CH_K = (N + GN - 1) / GN;    // rows of Kinv^T per slice in Kinv rhs
-constexpr int CH_X = (N + GM - 1) / GM;    // columns of A per slice in A x
-constexpr int RPT = (M + T - 1) / T;       // rows of v a thread owns
-constexpr int PART = (GN * N > GM * M) ? GN * N : GM * M;
-constexpr int SMEM_FLOATS = M * NS + N * NS + M + 3 * N + PART;
+constexpr int W = clampi(cdiv(N, 8), 1, 8);        // warps a lane
+constexpr int T = 32 * W;                          // threads a block (one lane)
+constexpr int CW = cdiv(N, W);                     // columns a warp owns
+constexpr int CWP = pow2_at_least(CW);             // ... padded to a power of two
+constexpr int SH = 5 - log2_of(CWP);               // lanes a column after the halving: 1 << SH
+constexpr int RL = cdiv(M, 32);                    // rows of A a lane handles
+constexpr int OL = cdiv(N, 32);                    // outputs of Kinv a lane handles
+constexpr int SRL = cdiv(32 * RL, T);              // rows whose v a thread updates
+constexpr int REG_FLOATS = 96;                     // operator floats a thread keeps in registers
+constexpr int RLR = (RL < REG_FLOATS / CW) ? RL : REG_FLOATS / CW;       // A rows in registers
+constexpr int OLR = (OL < (REG_FLOATS - RLR * CW) / CW) ? OL : (REG_FLOATS - RLR * CW) / CW;
+constexpr int RLT = RL - RLR;                      // A rows in shared memory
+constexpr int OLT = OL - OLR;                      // Kinv outputs in shared memory
+constexpr int XS = (32 * OL > W * CW) ? 32 * OL : W * CW;   // words of a warp's x partials
+constexpr int SSTR = N | 1;                        // odd stride of the staging buffer
+
+// shared memory, in floats
+constexpr int OFF_R = 0;                           // [W][CWP]   r of the warp's columns
+constexpr int OFF_XR = OFF_R + W * CWP;            // [W][CWP]   x of the warp's columns
+constexpr int OFF_X = OFF_XR + W * CWP;            // [W][XS]    partial x by warp
+constexpr int OFF_AX = OFF_X + W * XS;             // [W][32 RL] partial A x by warp
+constexpr int OFF_AT = OFF_AX + W * 32 * RL;       // [W][RLT][CW][32] A rows beyond registers
+constexpr int OFF_KT = OFF_AT + W * RLT * CW * 32; // [W][OLT][CW][32] Kinv outputs beyond registers
+// [SROWS][SSTR] staging of operator rows, then [32 RL] w: the stage's
+// prologue uses the one, its iterations the other
+constexpr int OFF_S = OFF_KT + W * OLT * CW * 32;
+constexpr int OFF_W = OFF_S;
+constexpr int MAX_SMEM_FLOATS = 232448 / 4;
+constexpr int maxi(int a, int b) { return a > b ? a : b; }
+// operator rows staged at a time: 32, or 8 where 32 would not fit
+constexpr int SROWS = (OFF_S + maxi(32 * SSTR, 32 * RL) <= MAX_SMEM_FLOATS) ? 32 : 8;
+constexpr int SMEM_FLOATS = OFF_S + maxi(SROWS * SSTR, 32 * RL);
 constexpr size_t SMEM_BYTES = sizeof(float) * (size_t)SMEM_FLOATS;
 
 static_assert(M >= 1 && N >= 1, "empty operator");
-static_assert(SMEM_BYTES <= 232448, "a lane's operators do not fit in shared memory");
+static_assert(CW <= 32, "a warp owns at most 32 columns (n <= 256 with the default plan)");
+static_assert(SMEM_BYTES <= 232448, "the lane's exchange buffers and operator tails do not fit");
+
+constexpr unsigned FULL = 0xffffffffu;
 
 // min(max(v, l), u) in which a NaN in any operand gives NaN.
 __device__ __forceinline__ float clip_nan(float v, float l, float u) {
     float z = (v < l) ? l : v;
     z = (z > u) ? u : z;
     return (l != l || u != u) ? (l + u) : z;
+}
+
+// Copy rows [row0, row0 + SROWS) of a row-major (rows, N) operator into the
+// staging buffer, zero beyond `rows`; the caller brackets it with barriers.
+// Every load of a thread is issued before the first store, so their device
+// memory latencies overlap.
+constexpr int SLOADS = cdiv(SROWS * N, T);         // loads a thread a piece
+__device__ __forceinline__ void stage_rows(float* sS, const float* __restrict__ src, int rows,
+                                           int row0, int tid) {
+    const float* base = src + (size_t)row0 * N;
+    const int avail = (rows - row0 < SROWS ? rows - row0 : SROWS) * N;
+    float t[SLOADS];
+#pragma unroll
+    for (int u = 0; u < SLOADS; ++u) {
+        const int e = tid + u * T;
+        t[u] = (e < avail) ? base[e] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < SLOADS; ++u) {
+        const int e = tid + u * T;
+        if (e < SROWS * N) {
+            const int r = e / N, c = e - r * N;
+            sS[r * SSTR + c] = t[u];
+        }
+    }
+}
+
+// Read the warp's CW words of a vector (broadcast), 16 bytes at a time where
+// the layout allows.
+__device__ __forceinline__ void read_cols(const float* s, float (&out)[CW]) {
+    if constexpr (CWP % 4 == 0) {
+        const float4* s4 = reinterpret_cast<const float4*>(s);
+#pragma unroll
+        for (int g = 0; g < CWP / 4; ++g) {
+            const float4 t = s4[g];
+            if (4 * g + 0 < CW) out[4 * g + 0] = t.x;
+            if (4 * g + 1 < CW) out[4 * g + 1] = t.y;
+            if (4 * g + 2 < CW) out[4 * g + 2] = t.z;
+            if (4 * g + 3 < CW) out[4 * g + 3] = t.w;
+        }
+    } else {
+#pragma unroll
+        for (int c = 0; c < CW; ++c) out[c] = s[c];
+    }
 }
 
 __global__ void __launch_bounds__(T)
@@ -94,143 +194,223 @@ admm_lane_kernel(const float* __restrict__ v_in, const float* __restrict__ rho_i
                  const float* __restrict__ u_in, float* __restrict__ v_out,
                  float* __restrict__ x_out, int iters, float alpha) {
     extern __shared__ __align__(16) float smem[];
-    float* sA = smem;                 // [M][NS]  A
-    float* sK = sA + M * NS;          // [N][NS]  Kinv^T: sK[j][i] = Kinv[i][j]
-    float* sW = sK + N * NS;          // [M]      w
-    float* sR = sW + M;               // [N]      rhs = A^T w - q
-    float* sX = sR + N;               // [N]      x
-    float* sQ = sX + N;               // [N]      q
-    float* sP = sQ + N;               // [PART]   partial sums of the slices
-
     const int tid = threadIdx.x;
+    const int wp = tid >> 5;
+    const int ln = tid & 31;
     const size_t lane = blockIdx.x;
-    const float* Ab = A_in + lane * (size_t)(M * N);
-    const float* Kb = Kinv_in + lane * (size_t)(N * N);
+    const float* Ab = A_in + lane * (size_t)M * N;
+    const float* Kb = Kinv_in + lane * (size_t)N * N;
+    float* sR = smem + OFF_R + wp * CWP;
+    float* sXr = smem + OFF_XR + wp * CWP;
+    float* sX = smem + OFF_X;
+    float* sAx = smem + OFF_AX;
+    float* sW = smem + OFF_W;
+    float* sAt = smem + OFF_AT + wp * RLT * CW * 32;
+    float* sKt = smem + OFF_KT + wp * OLT * CW * 32;
+    float* sS = smem + OFF_S;
+    const int col0 = wp * CW;                      // the warp's first column
 
-    for (int e = tid; e < M * N; e += T) {
-        const int r = e / N, c = e - r * N;
-        sA[r * NS + c] = Ab[e];
-    }
-    for (int e = tid; e < N * N; e += T) {
-        const int i = e / N, j = e - i * N;
-        sK[j * NS + i] = Kb[e];
-    }
-    for (int j = tid; j < N; j += T) sQ[j] = q_in[lane * N + j];
-
-    // rows of v this thread owns: tid, tid + T, ...
-    float v[RPT], z[RPT], lo[RPT], hi[RPT], rho[RPT];
+    // -- operators into registers (and shared-memory tails), SROWS rows at a
+    // time: lane ln takes row 32 ch + ln from the piece that holds it
+    float a[RLR > 0 ? RLR : 1][CW];
+    float kt[OLR > 0 ? OLR : 1][CW];
+    const int piece = ln / SROWS, prow = ln - piece * SROWS;
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-        const int i = tid + r * T;
-        const bool ok = i < M;
-        v[r] = ok ? v_in[lane * M + i] : 0.0f;
-        lo[r] = ok ? l_in[lane * M + i] : 0.0f;
-        hi[r] = ok ? u_in[lane * M + i] : 0.0f;
-        rho[r] = ok ? rho_in[lane * M + i] : 0.0f;
-        z[r] = 0.0f;
+    for (int ch = 0; ch < RL; ++ch) {
+#pragma unroll
+        for (int pc = 0; pc < 32 / SROWS; ++pc) {
+            __syncthreads();
+            stage_rows(sS, Ab, M, 32 * ch + pc * SROWS, tid);
+            __syncthreads();
+            if (piece == pc) {
+#pragma unroll
+                for (int c = 0; c < CW; ++c) {
+                    const float val = (col0 + c < N) ? sS[prow * SSTR + col0 + c] : 0.0f;
+                    if (ch < RLR) a[ch < RLR ? ch : 0][c] = val;
+                    else sAt[((ch - RLR) * CW + c) * 32 + ln] = val;
+                }
+            }
+        }
     }
-    // output column and reduction slice of this thread
-    const int gn = (N >= T) ? 0 : tid / N;
-    const int jn = tid - gn * N;
-    const int gm = (M >= T) ? 0 : tid / M;
-    const int im = tid - gm * M;
+#pragma unroll
+    for (int ch = 0; ch < OL; ++ch) {
+#pragma unroll
+        for (int pc = 0; pc < 32 / SROWS; ++pc) {
+            __syncthreads();
+            stage_rows(sS, Kb, N, 32 * ch + pc * SROWS, tid);
+            __syncthreads();
+            if (piece == pc) {
+#pragma unroll
+                for (int c = 0; c < CW; ++c) {
+                    const float val = (col0 + c < N) ? sS[prow * SSTR + col0 + c] : 0.0f;
+                    if (ch < OLR) kt[ch < OLR ? ch : 0][c] = val;
+                    else sKt[((ch - OLR) * CW + c) * 32 + ln] = val;
+                }
+            }
+        }
+    }
+
+    // -- per-row state: thread tid updates the rows tid, tid + T, ... (padding
+    // rows have v = l = u = rho = 0, hence w = 0), and publishes their w where
+    // the staging buffer was, once every thread has read its last piece
+    __syncthreads();
+    float v[SRL], lo[SRL], hi[SRL], rho[SRL], z[SRL];
+#pragma unroll
+    for (int k = 0; k < SRL; ++k) {
+        const int i = tid + T * k;
+        const bool ok = i < M;
+        v[k] = ok ? v_in[lane * M + i] : 0.0f;
+        lo[k] = ok ? l_in[lane * M + i] : 0.0f;
+        hi[k] = ok ? u_in[lane * M + i] : 0.0f;
+        rho[k] = ok ? rho_in[lane * M + i] : 0.0f;
+        z[k] = clip_nan(v[k], lo[k], hi[k]);
+        if (i < 32 * RL) sW[i] = rho[k] * (2.0f * z[k] - v[k]);
+    }
+    // the column of r this lane holds after the halving, and its q
+    const int c_own = ln >> SH;
+    const float q_own = (c_own < CW && col0 + c_own < N) ? q_in[lane * N + col0 + c_own] : 0.0f;
+
     __syncthreads();
 
     for (int it = 0; it < iters; ++it) {
-        // z = clip(v, l, u); w = rho (2 z - v)
+        // column partials of A^T w over the thread's rows
+        float p[CWP];
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-            const int i = tid + r * T;
-            if (i < M) {
-                z[r] = clip_nan(v[r], lo[r], hi[r]);
-                sW[i] = rho[r] * (2.0f * z[r] - v[r]);
+        for (int c = 0; c < CWP; ++c) p[c] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < RL; ++k) {
+            const float w = sW[ln + 32 * k];
+#pragma unroll
+            for (int c = 0; c < CW; ++c) {
+                const float op = (k < RLR) ? a[k < RLR ? k : 0][c]
+                                           : sAt[((k - RLR) * CW + c) * 32 + ln];
+                p[c] = fmaf(op, w, p[c]);
             }
         }
-        __syncthreads();
+        // reduce over the 32 lanes: recursive halving, then a butterfly
+#pragma unroll
+        for (int s = CWP / 2, msk = 16; s >= 1; s >>= 1, msk >>= 1) {
+            const bool up = (ln & msk) != 0;
+#pragma unroll
+            for (int k = 0; k < s; ++k) {
+                const float send = up ? p[k] : p[k + s];
+                const float keep = up ? p[k + s] : p[k];
+                p[k] = keep + __shfl_xor_sync(FULL, send, msk);
+            }
+        }
+#pragma unroll
+        for (int msk = (1 << SH) >> 1; msk >= 1; msk >>= 1)
+            p[0] += __shfl_xor_sync(FULL, p[0], msk);
+        if ((ln & ((1 << SH) - 1)) == 0) sR[c_own] = p[0] - q_own;
+        __syncwarp();
 
-        // rhs = A^T w - q : column j, rows of slice gn
-        if (gn < GN) {
-            const int i0 = gn * CH_M;
-            const int i1 = (i0 + CH_M < M) ? i0 + CH_M : M;
-            for (int j = jn; j < N; j += T) {
+        // partial x over the warp's columns: x_i += Kinv[i][col0 + c] r[c]
+        {
+            float r[CW];
+            read_cols(sR, r);
+#pragma unroll
+            for (int k = 0; k < OL; ++k) {
                 float acc = 0.0f;
-                for (int i = i0; i < i1; ++i) acc = fmaf(sA[i * NS + j], sW[i], acc);
-                sP[gn * N + j] = acc;
+#pragma unroll
+                for (int c = 0; c < CW; ++c) {
+                    const float op = (k < OLR) ? kt[k < OLR ? k : 0][c]
+                                               : sKt[((k - OLR) * CW + c) * 32 + ln];
+                    acc = fmaf(op, r[c], acc);
+                }
+                sX[wp * XS + ln + 32 * k] = acc;
             }
         }
-        __syncthreads();
-        for (int j = tid; j < N; j += T) {
-            float acc = sP[j];
-#pragma unroll
-            for (int g = 1; g < GN; ++g) acc += sP[g * N + j];
-            sR[j] = acc - sQ[j];
-        }
-        __syncthreads();
+        __syncthreads();                                           // (1)
 
-        // x = Kinv rhs : output i = jn, columns of slice gn (rows of Kinv^T)
-        if (gn < GN) {
-            const int k0 = gn * CH_K;
-            const int k1 = (k0 + CH_K < N) ? k0 + CH_K : N;
-            for (int i = jn; i < N; i += T) {
+        // the warp's own columns of x, summed over the warps in order
+        if (ln < CW) {
+            float xs = sX[col0 + ln];
+#pragma unroll
+            for (int g = 1; g < W; ++g) xs += sX[g * XS + col0 + ln];
+            sXr[ln] = xs;
+        }
+        __syncwarp();
+
+        // partial A x over the warp's columns
+        {
+            float x[CW];
+            read_cols(sXr, x);
+#pragma unroll
+            for (int k = 0; k < RL; ++k) {
                 float acc = 0.0f;
-                for (int k = k0; k < k1; ++k) acc = fmaf(sK[k * NS + i], sR[k], acc);
-                sP[gn * N + i] = acc;
+#pragma unroll
+                for (int c = 0; c < CW; ++c) {
+                    const float op = (k < RLR) ? a[k < RLR ? k : 0][c]
+                                               : sAt[((k - RLR) * CW + c) * 32 + ln];
+                    acc = fmaf(op, x[c], acc);
+                }
+                sAx[wp * 32 * RL + ln + 32 * k] = acc;
             }
         }
-        __syncthreads();
-        for (int i = tid; i < N; i += T) {
-            float acc = sP[i];
-#pragma unroll
-            for (int g = 1; g < GN; ++g) acc += sP[g * N + i];
-            sX[i] = acc;
-        }
-        __syncthreads();
+        __syncthreads();                                           // (2)
 
-        // A x : row i, columns of slice gm
-        if (gm < GM) {
-            const int k0 = gm * CH_X;
-            const int k1 = (k0 + CH_X < N) ? k0 + CH_X : N;
-            for (int i = im; i < M; i += T) {
-                float acc = 0.0f;
-                for (int k = k0; k < k1; ++k) acc = fmaf(sA[i * NS + k], sX[k], acc);
-                sP[gm * M + i] = acc;
+        // v += alpha (A x - z) on the thread's own rows, the warps' partials
+        // summed in order; then z = clip(v, l, u) and w = rho (2 z - v)
+#pragma unroll
+        for (int k = 0; k < SRL; ++k) {
+            const int i = tid + T * k;
+            if (i < 32 * RL) {
+                float ax = sAx[i];
+#pragma unroll
+                for (int g = 1; g < W; ++g) ax += sAx[g * 32 * RL + i];
+                v[k] += alpha * (ax - z[k]);
+                z[k] = clip_nan(v[k], lo[k], hi[k]);
+                sW[i] = rho[k] * (2.0f * z[k] - v[k]);
             }
         }
-        __syncthreads();
-
-        // v += alpha (A x - z)
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-            const int i = tid + r * T;
-            if (i < M) {
-                float ax = sP[i];
-#pragma unroll
-                for (int g = 1; g < GM; ++g) ax += sP[g * M + i];
-                v[r] += alpha * (ax - z[r]);
-            }
-        }
-        // No barrier here: the next writes are to sW (last read before the
-        // second barrier of this iteration) and, after the next barrier, to
-        // sP, which every thread has then finished reading.
+        __syncthreads();                                           // (3)
+        // sR and sXr are the warp's own; sX is next written after barrier (2)
+        // and sAx after the next barrier (1), sW after the next barrier (2):
+        // every reader of each has passed that barrier by then.
     }
 
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-        const int i = tid + r * T;
-        if (i < M) v_out[lane * M + i] = v[r];
+    for (int k = 0; k < SRL; ++k) {
+        const int i = tid + T * k;
+        if (i < M) v_out[lane * M + i] = v[k];
     }
-    // sX was written before the last two barriers of the last iteration
-    for (int i = tid; i < N; i += T) x_out[lane * N + i] = sX[i];
+    // sXr holds the last iteration's x of the warp's columns
+    if (ln < CW && col0 + ln < N) x_out[lane * N + col0 + ln] = sXr[ln];
 }
 
 }  // namespace
 
 extern "C" {
 
-int blf_admm_lane_smem_bytes() { return (int)SMEM_BYTES; }
+// The compile-time plan, in the order of ops/cuda/admm_lane.py::LanePlan:
+// warps, columns a warp, rows of A a lane (all, in registers), outputs of
+// Kinv a lane (all, in registers), operator rows staged at a time, shared
+// bytes.
+void blf_admm_lane_plan(int* out) {
+    out[0] = W; out[1] = CW; out[2] = RL; out[3] = RLR; out[4] = OL; out[5] = OLR;
+    out[6] = SROWS; out[7] = (int)SMEM_BYTES;
+}
 
 const char* blf_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
+}
+
+// Registers a thread, local (spill) bytes a thread and blocks (lanes) an SM
+// of the compiled kernel. Returns the CUDA error code (0 on success).
+int blf_admm_lane_attributes(int* out) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, admm_lane_kernel);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(admm_lane_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, admm_lane_kernel, T, SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = attr.numRegs;
+    out[1] = (int)attr.localSizeBytes;
+    out[2] = blocks;
+    return 0;
 }
 
 // Launch one stage on `stream`. All pointers are device pointers to contiguous

@@ -19,7 +19,9 @@ Layout is lane-major: ``v, rho, l, u`` (B, m); ``q`` (B, n); ``A`` (B, m, n);
 reference's batch-minor ``(m, n, B)`` layout, its padding of the batch with
 identity lanes, ``block_lanes`` and ``interpret`` are TPU matters and have no
 counterpart here: the kernel runs one block a lane, so any ``B >= 1`` is
-taken.
+taken. Each thread keeps a tile of its lane's A and Kinv in registers for
+the whole stage; :func:`lane_plan` says how the kernel compiled for a shape
+lays them out (it mirrors the kernel's compile-time plan).
 
 - :func:`admm_lane_stage_reference` is the plain PyTorch loop, any float dtype.
 - :func:`admm_lane_stage` runs the plain loop for tensors that lie on the CPU
@@ -30,22 +32,24 @@ taken.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from blf_tpu_torch.ops.cuda import _build
 
 __all__ = ["admm_lane_stage", "admm_lane_stage_reference", "launch_count",
-           "reference_count", "reset_counts", "lane_shared_bytes",
-           "build_admm_lane", "SOURCE", "REPLACES"]
+           "reference_count", "reset_counts", "LanePlan", "lane_plan",
+           "lane_shared_bytes", "build_admm_lane", "kernel_attributes", "SOURCE",
+           "REPLACES"]
 
 SOURCE = "admm_lane.cu"
 #: the TPU kernel this one replaces (file:line of ``_lane_kernel``)
 REPLACES = "blf_tpu/ops/pallas/admm_lane.py:56"
 
-_THREADS = 256              # threads per block (csrc/admm_lane.cu)
 _MAX_SHARED = 232448        # bytes of shared memory a block may use on sm_90
+_REGISTER_FLOATS = 96       # operator floats a thread keeps in registers
+_MAX_COLUMNS = 32           # columns a warp may own: n <= 256
 
 # Plain integers: how often the kernel was launched, and how often the plain
 # version ran because the tensors lie on the CPU.
@@ -92,22 +96,67 @@ def admm_lane_stage_reference(v, rho, A, Kinv, q, l, u, *, iters: int,
     return v, x
 
 
-def lane_shared_bytes(m: int, n: int) -> int:
-    """Shared memory one block of the kernel needs at shape ``(m, n)``."""
-    gn = 1 if n >= _THREADS else _THREADS // n
-    gm = 1 if m >= _THREADS else _THREADS // m
-    return 4 * (m * (n + 1) + n * (n + 1) + m + 3 * n + max(gn * n, gm * m))
+class LanePlan(NamedTuple):
+    """How the kernel compiled for ``(m, n)`` lays out one lane (one block).
+
+    Warp ``w`` of ``warps`` owns the columns ``[w cols, (w + 1) cols)`` of A
+    and Kinv; lane ``l`` of every warp owns the rows ``l, l + 32, ...`` of A
+    (``rows`` of them) and the outputs ``l, l + 32, ...`` of x (``outs``).
+    The first ``rows_in_registers`` rows and ``outs_in_registers`` outputs of
+    a thread's tile are registers, the rest shared memory; operators are
+    staged from device memory ``staged_rows`` rows at a time."""
+    warps: int
+    cols: int
+    rows: int
+    rows_in_registers: int
+    outs: int
+    outs_in_registers: int
+    staged_rows: int
+    shared_bytes: int
 
 
-def _check_shape(m: int, n: int) -> None:
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def lane_plan(m: int, n: int) -> LanePlan:
+    """The kernel's compile-time plan for shape ``(m, n)`` (``csrc/admm_lane.cu``).
+
+    ``clamp(ceil(n / 8), 1, 8)`` warps a lane. Raises ValueError for
+    a shape the kernel does not take: an empty one, one whose warp would own
+    more than 32 columns (n > 256), or one whose exchange buffers and
+    operator tails exceed the card's shared memory.
+    """
     if m < 1 or n < 1:
         raise ValueError(f"admm_lane_stage needs m, n >= 1, got ({m}, {n})")
-    need = lane_shared_bytes(m, n)
+    w = min(8, max(1, _cdiv(n, 8)))
+    cols = _cdiv(n, w)
+    if cols > _MAX_COLUMNS:
+        raise ValueError(
+            f"admm_lane_stage kernel: (m, n) = ({m}, {n}) puts {cols} columns on a"
+            f" warp, at most {_MAX_COLUMNS} are taken (n <= 256)")
+    cols_pow2 = 1 << (cols - 1).bit_length()
+    rows, outs = _cdiv(m, 32), _cdiv(n, 32)
+    rows_reg = min(rows, _REGISTER_FLOATS // cols)
+    outs_reg = min(outs, (_REGISTER_FLOATS - rows_reg * cols) // cols)
+    x_words = max(32 * outs, w * cols)
+    stride = n | 1
+    floats = (2 * w * cols_pow2 + w * x_words + w * 32 * rows
+              + w * (rows - rows_reg) * cols * 32 + w * (outs - outs_reg) * cols * 32)
+    # the staging buffer of the prologue, then w
+    staged = 32 if floats + max(32 * stride, 32 * rows) <= _MAX_SHARED // 4 else 8
+    need = 4 * (floats + max(staged * stride, 32 * rows))
     if need > _MAX_SHARED:
         raise ValueError(
-            f"admm_lane_stage kernel keeps a lane's A and Kinv in shared"
-            f" memory: (m, n) = ({m}, {n}) needs {need} bytes, the card offers"
-            f" {_MAX_SHARED}")
+            f"admm_lane_stage kernel: (m, n) = ({m}, {n}) needs {need} bytes of"
+            f" shared memory for its exchange buffers and the operator rows that"
+            f" do not fit in registers, the card offers {_MAX_SHARED}")
+    return LanePlan(w, cols, rows, rows_reg, outs, outs_reg, staged, need)
+
+
+def lane_shared_bytes(m: int, n: int) -> int:
+    """Shared memory one block of the kernel needs at shape ``(m, n)``."""
+    return lane_plan(m, n).shared_bytes
 
 
 def build_admm_lane(m: int, n: int) -> ctypes.CDLL:
@@ -115,7 +164,7 @@ def build_admm_lane(m: int, n: int) -> ctypes.CDLL:
     lib = _libs.get((m, n))
     if lib is not None:
         return lib
-    _check_shape(m, n)
+    plan = lane_plan(m, n)
     lib = _build.load_library(SOURCE, {"ADMM_M": m, "ADMM_N": n})
     P = ctypes.c_void_p
     lib.blf_admm_lane_stage_f32.argtypes = [P] * 9 + [
@@ -124,13 +173,28 @@ def build_admm_lane(m: int, n: int) -> ctypes.CDLL:
     lib.blf_admm_lane_stage_f32.restype = ctypes.c_int
     lib.blf_cuda_error_string.argtypes = [ctypes.c_int]
     lib.blf_cuda_error_string.restype = ctypes.c_char_p
-    lib.blf_admm_lane_smem_bytes.argtypes = []
-    lib.blf_admm_lane_smem_bytes.restype = ctypes.c_int
-    if lib.blf_admm_lane_smem_bytes() != lane_shared_bytes(m, n):
-        raise RuntimeError("admm_lane library disagrees with its wrapper on"
-                           " the shared-memory layout")
+    lib.blf_admm_lane_plan.argtypes = [P]
+    lib.blf_admm_lane_plan.restype = None
+    lib.blf_admm_lane_attributes.argtypes = [P]
+    lib.blf_admm_lane_attributes.restype = ctypes.c_int
+    got = (ctypes.c_int * 8)()
+    lib.blf_admm_lane_plan(ctypes.addressof(got))
+    if tuple(got) != tuple(plan):
+        raise RuntimeError(f"admm_lane library disagrees with its wrapper on the"
+                           f" layout: {tuple(got)} against {plan}")
     _libs[(m, n)] = lib
     return lib
+
+
+def kernel_attributes(m: int, n: int) -> Dict[str, int]:
+    """Registers a thread, local (spill) bytes a thread and lanes an SM of the
+    kernel built for ``(m, n)``, as the CUDA runtime reports them."""
+    lib = build_admm_lane(m, n)
+    out = (ctypes.c_int * 3)()
+    code = lib.blf_admm_lane_attributes(ctypes.addressof(out))
+    if code != 0:
+        raise RuntimeError(f"admm_lane attributes: {lib.blf_cuda_error_string(code).decode()}")
+    return {"registers": out[0], "local_bytes": out[1], "lanes_per_sm": out[2]}
 
 
 def _require(t: torch.Tensor, name: str, shape, device) -> None:

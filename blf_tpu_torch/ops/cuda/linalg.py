@@ -2,15 +2,16 @@
 plain versions.
 
 Counterpart of ``blf_tpu/ops/pallas/linalg.py``; everything of it is ported.
-Two kernels share one left-looking Cholesky factorization (the reference's
-``_chol_into``; here ``csrc/chol_common.cuh``):
+Both kernels run the reference's left-looking Cholesky factorization
+(``_chol_into``):
 
 - K3, ``cholesky_inverse_lane`` (``_inverse_kernel``): ``K`` (B, n, n) ->
   ``K^-1`` (B, n, n) by the factor, ``L^-1`` by forward substitution, then
-  ``K^-1 = L^-T L^-1`` (``csrc/chol_lane.cu``);
+  ``K^-1 = L^-T L^-1`` (``csrc/chol_lane.cu``: one warp a matrix);
 - K4, ``cholesky_solve_lane`` (``_solve_kernel``): ``K`` (B, n, n), ``b``
   (B, n) -> ``K^-1 b`` (B, n) by the factor and a forward and a backward
-  substitution (``csrc/chol_solve.cu``); ``spd_solve_lane`` dispatches to it.
+  substitution (``csrc/chol_solve.cu`` over ``csrc/chol_common.cuh``);
+  ``spd_solve_lane`` dispatches to it.
 
 A matrix that is not positive definite, or holds a NaN, yields NaN in its own
 output only (no exception on the device; the callers' per-lane status absorbs
@@ -45,8 +46,9 @@ from blf_tpu_torch.ops.linalg import cholesky_nan
 __all__ = ["cholesky_inverse_lane", "cholesky_inverse_lane_reference",
            "cholesky_solve_lane", "cholesky_solve_lane_reference", "spd_solve_lane",
            "launch_count", "reference_count", "solve_launch_count",
-           "solve_reference_count", "reset_counts", "inverse_shared_bytes",
-           "solve_shared_bytes", "build_chol_lane", "build_chol_solve",
+           "solve_reference_count", "reset_counts", "inverse_stride",
+           "inverse_shared_bytes", "inverse_kernel_attributes", "solve_shared_bytes",
+           "build_chol_lane", "build_chol_solve",
            "SOURCE", "REPLACES", "SOLVE_SOURCE", "SOLVE_REPLACES"]
 
 SOURCE = "chol_lane.cu"
@@ -95,8 +97,8 @@ def reset_counts() -> None:
 
 
 def _cholesky_columns(K: torch.Tensor):
-    """The kernels' factorization (``chol_common.cuh``), column by column: the
-    lower factor ``L`` (B, n, n) with ``L[j, j] = s d``."""
+    """The kernels' factorization (``chol_common.cuh``, ``chol_lane.cu``),
+    column by column: the lower factor ``L`` (B, n, n) with ``L[j, j] = s d``."""
     n = K.shape[-1]
     L = torch.zeros_like(K)
     for j in range(n):
@@ -133,9 +135,17 @@ def cholesky_inverse_lane_reference(K: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bki,bkj->bij", Linv, Linv)
 
 
+def inverse_stride(n: int) -> int:
+    """Row stride of the K3 kernel's matrix in shared memory: the least
+    ``s >= n`` with ``s = 4 (mod 8)``, so that the eight rows one 16-byte load
+    phase reads lie on distinct banks."""
+    return n + (12 - n % 8) % 8
+
+
 def inverse_shared_bytes(n: int) -> int:
-    """Shared memory one block of the kernel needs at size ``n``."""
-    return 4 * (2 * n * (n + 1) + n)
+    """Shared memory one block (one warp, one matrix) of the K3 kernel needs
+    at size ``n``: the matrix, once."""
+    return 4 * n * inverse_stride(n)
 
 
 def build_chol_lane(n: int) -> ctypes.CDLL:
@@ -145,9 +155,9 @@ def build_chol_lane(n: int) -> ctypes.CDLL:
         return lib
     if n < 1 or inverse_shared_bytes(n) > _MAX_SHARED:
         raise ValueError(
-            f"cholesky_inverse_lane kernel keeps the factor and its inverse in"
-            f" shared memory: n = {n} needs {inverse_shared_bytes(n)} bytes,"
-            f" the card offers {_MAX_SHARED}")
+            f"cholesky_inverse_lane kernel keeps the matrix (then its factor and"
+            f" the factor's inverse) in shared memory: n = {n} needs"
+            f" {inverse_shared_bytes(n)} bytes, the card offers {_MAX_SHARED}")
     lib = _build.load_library(SOURCE, {"CHOL_N": n})
     P = ctypes.c_void_p
     lib.blf_chol_inverse_f32.argtypes = [P, P, ctypes.c_longlong, ctypes.c_int, P]
@@ -156,10 +166,28 @@ def build_chol_lane(n: int) -> ctypes.CDLL:
     lib.blf_cuda_error_string.restype = ctypes.c_char_p
     lib.blf_chol_lane_n.argtypes = []
     lib.blf_chol_lane_n.restype = ctypes.c_int
+    lib.blf_chol_lane_smem_bytes.argtypes = []
+    lib.blf_chol_lane_smem_bytes.restype = ctypes.c_int
+    lib.blf_chol_lane_attributes.argtypes = [P]
+    lib.blf_chol_lane_attributes.restype = ctypes.c_int
     if lib.blf_chol_lane_n() != n:
         raise RuntimeError("chol_lane library was compiled for another size")
+    if lib.blf_chol_lane_smem_bytes() != inverse_shared_bytes(n):
+        raise RuntimeError("chol_lane library disagrees with its wrapper on the"
+                           " shared-memory layout")
     _libs[n] = lib
     return lib
+
+
+def inverse_kernel_attributes(n: int) -> Dict[str, int]:
+    """Registers a thread, local (spill) bytes a thread and matrices an SM of
+    the K3 kernel built for size ``n``, as the CUDA runtime reports them."""
+    lib = build_chol_lane(n)
+    out = (ctypes.c_int * 3)()
+    code = lib.blf_chol_lane_attributes(ctypes.addressof(out))
+    if code != 0:
+        raise RuntimeError(f"chol_lane attributes: {lib.blf_cuda_error_string(code).decode()}")
+    return {"registers": out[0], "local_bytes": out[1], "matrices_per_sm": out[2]}
 
 
 def cholesky_inverse_lane(K: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,7 @@ import argparse
 import contextlib
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -472,6 +473,13 @@ def median_ms(fn, warmup: int, reps: int) -> float:
     return statistics.median(time_cuda(fn, warmup=warmup, reps=reps))
 
 
+def ptxas_spill_bytes(source: str, defines: dict) -> int:
+    """Bytes of spill stores ``nvcc -Xptxas -v`` reported for the library."""
+    spills = re.findall(r"(\d+) bytes spill stores", _build.last_build_log(source, defines))
+    check(bool(spills), f"the build log of {source} {defines} reports its spills")
+    return max(int(b) for b in spills)
+
+
 def wbc_step(fleet, state, warm):
     return wbc_balance_step(fleet, state, warm, backend="cuda", eps=WBC_EPS)
 
@@ -521,6 +529,18 @@ def random_lane_inputs(B: int, seed: int):
 
 def lanes_of(args, B: int):
     return tuple(a[:B].contiguous() for a in args)
+
+
+def lane_kernel_residency(m: int, n: int) -> dict:
+    """K2's registers a thread, local and spilled bytes and lanes an SM."""
+    return {**lane_kernel.kernel_attributes(m, n),
+            "spill_bytes": ptxas_spill_bytes(lane_kernel.SOURCE, {"ADMM_M": m, "ADMM_N": n})}
+
+
+def chol_kernel_residency(n: int) -> dict:
+    """K3's registers a thread, local and spilled bytes and matrices an SM."""
+    return {**chol_kernel.inverse_kernel_attributes(n),
+            "spill_bytes": ptxas_spill_bytes(chol_kernel.SOURCE, {"CHOL_N": n})}
 
 
 def kernels_admm_lane(seen, sm_clock_hz: float, sm_count: int) -> dict:
@@ -594,18 +614,28 @@ def kernels_admm_lane(seen, sm_clock_hz: float, sm_count: int) -> dict:
     flops = WBC_STAGE * 2 * (2 * m * n + n * n) * B
     nbytes = 4 * B * (m * n + n * n + 5 * m + 2 * n)   # operators and vectors in, v and x out
     ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
-    # what a resident design waits for: A twice and Kinv once from shared
-    # memory an iteration, at 128 bytes a clock an SM
-    reread = 4 * B * WBC_STAGE * (2 * m * n + n * n)
+    # what the register-resident design still reads from shared memory an
+    # iteration, at 128 bytes a clock an SM: the words each warp reads (a
+    # broadcast counted once) of w, of r, of the warps' x partials and of x,
+    # the row owners' reads of the warps' A x partials, and any operator rows
+    # kept in shared memory
+    plan = lane_kernel.lane_plan(m, n)
+    w, cw, rl = plan.warps, plan.cols, plan.rows
+    words = (64 * w * rl + 2 * w * cw + w * w * cw
+             + w * 32 * cw * (2 * (rl - plan.rows_in_registers)
+                              + (plan.outs - plan.outs_in_registers)))
+    reread = 4 * B * WBC_STAGE * words
     shared_rate = sm_count * 128 * sm_clock_hz
     return {
         "name": "admm_lane_stage", "shape": [m, n], "iters": WBC_STAGE, "batch_timed": B,
+        "plan": plan._asdict(), **lane_kernel_residency(m, n),
         "cases": cases, "nan_lane": "confined", "max_rel_err": max_rel,
         "max_abs_err": max_abs, "tolerance_rel": REL_TOL,
         "tolerance_rel_real_operators": REAL_OPERATOR_TOL, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+        "fraction_of_bound": max(ops_ms, bytes_ms) / kernel_ms,
         "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
         "shared_memory_reread_bytes": reread,
         "shared_memory_bytes_per_s": shared_rate,
@@ -696,6 +726,7 @@ def kernels_chol_lane(seen) -> dict:
     ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
     return {
         "name": "cholesky_inverse_lane", "shape": [n, n], "batch_timed": B,
+        **chol_kernel_residency(n), "fraction_of_bound": max(ops_ms, bytes_ms) / kernel_ms,
         "cases": cases + real, "nan_lane": "confined", "not_spd_lane": "confined",
         "max_rel_err": max_rel, "max_abs_err": max_abs, "tolerance_rel": REL_TOL,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1012,6 +1043,7 @@ def kernels_admm_lane_stack(seen) -> dict:
     ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
     return {
         "name": "admm_lane_stage", "path": "stack", "shape": [m, n], "iters": iters,
+        **lane_kernel_residency(m, n), "fraction_of_bound": max(ops_ms, bytes_ms) / kernel_ms,
         "batch_timed": B, "cases": cases, "max_rel_err": max_rel, "max_abs_err": max_abs,
         "tolerance_rel": REAL_OPERATOR_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms),
@@ -1052,6 +1084,7 @@ def kernels_chol_inverse_stack(seen) -> dict:
     bytes_ms = 1e3 * 4 * B * 2 * n * n / PEAK_BYTES_PER_S
     return {
         "name": "cholesky_inverse_lane", "path": "stack", "shape": [n, n], "batch_timed": B,
+        **chol_kernel_residency(n), "fraction_of_bound": max(ops_ms, bytes_ms) / kernel_ms,
         "cases": cases, "max_rel_err": max_rel, "max_abs_err": max_abs,
         "tolerance_rel": REL_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "library_ms": library_ms,

@@ -131,7 +131,61 @@ def test_wrapper_checks_what_the_kernel_does_not_take():
         tlane.admm_lane_stage(*args, iters=0)
     with pytest.raises(ValueError, match="cpu or cuda"):
         tlane.admm_lane_stage(*(t.to("meta") for t in args), iters=1)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="at most 32 are taken"):
         tlane.build_admm_lane(400, 300)
-    assert tlane.lane_shared_bytes(86, 64) == 41136
+    with pytest.raises(ValueError, match="shared memory"):
+        tlane.build_admm_lane(2000, 200)
+    # the whole-body QP's lane: the exchange buffers and the staging of 32
+    # operator rows; A and Kinv are registers
+    assert tlane.lane_shared_bytes(86, 64) == 13952
     assert tlane.REPLACES == "blf_tpu/ops/pallas/admm_lane.py:56"
+
+
+# (m, n) -> (warps, cols, rows, rows_in_registers, outs, outs_in_registers,
+# staged_rows, shared_bytes), the kernel's compile-time plan
+PLANS = {
+    (86, 64): (8, 8, 3, 3, 2, 2, 32, 13952),     # the whole-body QP: all in registers
+    (33, 5): (1, 5, 2, 2, 1, 1, 32, 1088),       # m not a multiple of 32: a padded row
+    (1, 1): (1, 1, 1, 1, 1, 1, 32, 392),         # n = 1
+    (52, 30): (4, 8, 2, 2, 1, 1, 32, 5760),      # 30 columns over four warps, padded to 32
+    (400, 40): (5, 8, 13, 12, 2, 0, 32, 30528),  # A's last row and Kinv in shared memory
+    (1, 256): (8, 32, 1, 1, 8, 2, 8, 216096),    # the largest n: staged 8 rows at a time
+    (2049, 25): (4, 7, 65, 13, 1, 0, 32, 232320),  # 52 rows of A in shared memory, 128 bytes spare
+}
+
+
+@pytest.mark.parametrize("shape", sorted(PLANS))
+def test_lane_plan(shape):
+    plan = tlane.lane_plan(*shape)
+    assert tuple(plan) == PLANS[shape]
+    m, n = shape
+    assert plan.warps * plan.cols >= n and plan.cols <= 32 and 32 * plan.rows >= m
+    assert plan.rows_in_registers * plan.cols + plan.outs_in_registers * plan.cols <= 96
+    assert tlane.lane_shared_bytes(m, n) == plan.shared_bytes <= 232448
+
+
+@pytest.mark.parametrize("shape,what", [((1, 257), "at most 32 are taken"),
+                                        ((40000, 1), "shared memory"),
+                                        ((0, 4), "m, n >= 1")])
+def test_lane_plan_refuses_what_the_residency_cannot_hold(shape, what):
+    with pytest.raises(ValueError, match=what):
+        tlane.lane_plan(*shape)
+
+
+def test_every_shape_of_the_shared_memory_design_is_taken():
+    """The first design held A and Kinv in shared memory; every (m, n) it took
+    is taken by the register-resident one (its plan is monotone in m, so the
+    largest m at each n is checked)."""
+    def first_design_bytes(m, n):
+        gn, gm = max(1, 256 // n), max(1, 256 // m)
+        return 4 * (m * (n + 1) + n * (n + 1) + m + 3 * n + max(gn * n, gm * m))
+
+    n = 1
+    while first_design_bytes(1, n) <= 232448:
+        lo, hi = 1, 1 << 17
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if first_design_bytes(mid, n) <= 232448 else (lo, mid - 1)
+        assert tlane.lane_plan(lo, n).shared_bytes <= 232448
+        n += 1
+    assert n == 239

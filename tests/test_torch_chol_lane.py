@@ -96,8 +96,27 @@ def test_wrapper_checks_what_the_kernel_does_not_take():
         tlinalg.cholesky_inverse_lane_reference(K[0])
     with pytest.raises(ValueError, match="shared memory"):
         tlinalg.build_chol_lane(400)
-    assert tlinalg.inverse_shared_bytes(64) == 4 * (2 * 64 * 65 + 64)
+    # one warp a matrix, the matrix once, rows padded to a stride of 68
+    assert tlinalg.inverse_shared_bytes(64) == 4 * 64 * 68
     assert tlinalg.REPLACES == "blf_tpu/ops/pallas/linalg.py:61"
+
+
+@pytest.mark.parametrize("n,stride", [(1, 4), (4, 4), (5, 12), (29, 36), (35, 36), (64, 68),
+                                      (169, 172), (238, 244)])
+def test_inverse_layout(n, stride):
+    """The least stride >= n that is 4 mod 8 (the eight rows of a 16-byte load
+    phase on distinct banks, and room for the product's 4-wide tiles); every n
+    up to 238 fits, 169 being the largest the first design took."""
+    assert tlinalg.inverse_stride(n) == stride
+    assert stride >= n and stride % 8 == 4 and stride >= 4 * -(-n // 4)
+    assert tlinalg.inverse_shared_bytes(n) == 4 * n * stride <= 232448
+
+
+def test_inverse_refuses_a_matrix_shared_memory_cannot_hold():
+    assert tlinalg.inverse_shared_bytes(239) > 232448
+    for n in (239, 0):
+        with pytest.raises(ValueError, match="shared memory"):
+            tlinalg.build_chol_lane(n)
 
 
 # ---------------------------------------------------------------------------

@@ -149,7 +149,7 @@ def test_kernel_sources_name_what_they_replace():
     """Each CUDA source carries its note: the TPU kernel it replaces, what
     bounds it on the card, what the design does about it; and each wrapper's
     ``REPLACES`` points at a line of the JAX package that opens that kernel."""
-    from blf_tpu_torch.ops.cuda import admm, admm_lane, linalg, rollout
+    from blf_tpu_torch.ops.cuda import _build, admm, admm_lane, linalg, rollout
 
     for source_name, replaces, function in (
             (admm.SOURCE, admm.REPLACES, "_stage_kernel_t"),
@@ -163,9 +163,9 @@ def test_kernel_sources_name_what_they_replace():
         assert "use_fast_math" in source and "cublas" not in source.lower()
         path, line = replaces.split(":")
         assert f"def {function}(" in (ROOT / path).read_text().splitlines()[int(line) - 1]
-    # K3 and K4 share one factorization, in one header
-    for source_name in (linalg.SOURCE, linalg.SOLVE_SOURCE):
-        assert '#include "chol_common.cuh"' in (PACKAGE / "csrc" / source_name).read_text()
+    # K4 runs the factorization of its header; K3 (one warp a matrix) its own
+    assert '#include "chol_common.cuh"' in (PACKAGE / "csrc" / linalg.SOLVE_SOURCE).read_text()
+    assert [p.name for p in _build.source_files(linalg.SOURCE)] == ["chol_lane.cu"]
 
 
 def test_library_path_follows_the_headers_a_source_includes(monkeypatch, tmp_path):
