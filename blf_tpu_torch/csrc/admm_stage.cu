@@ -1,60 +1,85 @@
-// Fused shared-operator v-space ADMM stage for NVIDIA Hopper (sm_90a), f32.
+// Fused shared-operator v-space ADMM stage on Hopper's tensor cores (sm_90a),
+// exact float32: every product a six-pass sum of bf16 products.
 //
 // Replaces the TPU kernel blf_tpu/ops/pallas/admm.py::_stage_kernel_t (entry
 // admm_stage_t / admm_stage, matmul="f32"). One launch runs `iters`
 // iterations, at a fixed per-lane penalty multiplier s, of
 //
-//     z  = clip(v, l, u)
-//     w  = rho * (2 z - v)
-//     t  = G2^T w                       (n outputs, contraction over m)
+//     z   = clip(v, l, u)
+//     w   = rho * (2 z - v)
+//     t   = G2^T w                      (n outputs, contraction over m)
 //     tau = (t - gq / s) * s / (1 + s d)
-//     v += alpha (G2 tau - z)           (m outputs, contraction over n)
+//     v  += alpha (G2 tau - z)          (m outputs, contraction over n)
 //
-// for every lane of a fleet that shares one operator G2 (m, n). Both products
-// of an iteration are computed here, in this kernel's body; v and tau never
-// leave the SM between the first and the last iteration.
+// for every lane of a fleet that shares one operator G2 (m, n). The
+// reference's "f32" mode is itself a tensor-core algorithm: Precision.HIGHEST
+// products, six bf16 passes (admm.py:62-63). This kernel takes the same road
+// on wgmma: every f32 operand x is split into three bf16 pieces, hi = bf16(x),
+// mid = bf16(x - hi), lo = bf16(x - hi - mid), which hold its 24 bits exactly,
+// and a product A b is the six passes hh + hm + mh + hl + mm + lh of piece
+// products (the three left out are below 2^-24 of it), each exact in f32,
+// accumulated in f32.
 //
-// What bounds it on an H100: operations. A stage does 4*m*n flops a lane an
-// iteration and moves (4m + 3n + 1) floats a lane once; at (m, n, iters) =
-// (192, 128, 25) that is 2.5 Mflop against 4.6 KB a lane, some 530 flop a
-// byte, far above the card's f32 balance of about 20. So the design spends
-// its effort on the FMA pipe and none on the device-memory traffic.
+// What bounds it on an H100. At (m, n, B, iters) = (192, 128, 98304, 25) a
+// stage is 2 products x 6 passes x 25 iterations = 300 passes of 2 m n B
+// flop, 1.47 ms at the H100 SXM data sheet's 989 TFLOP/s bf16 dense peak;
+// the FMA form of the same stage needs 3.61 ms at its 67 TFLOP/s f32. The
+// elementwise work (some 45 f32 operations an element of v an iteration) and
+// the device-memory traffic (4.6 KB a lane, once) lie below that.
 //
-// Design (which of the two layouts of the operator was taken, and why):
-//  * The operator is resident in shared memory, ONE copy for both products
-//    (rho is applied as an m-vector, so no second, rho-scaled transposed copy
-//    is needed). Streaming it from L2 instead would cost 96 KB of L2 reads
-//    per iteration per block, about as many bytes as the FMAs consume
-//    operands, so the resident copy was taken. Rows are padded by 4 floats:
-//    the second product walks G2 down its rows with 16-byte loads, and the
-//    pad puts the rows a warp touches together on different banks.
-//  * A block owns a tile of 32 lanes and has 256 threads = 32 row groups x 8
-//    lane groups of 4 lanes. Every thread keeps a register micro-tile: 4 n-rows
-//    x 4 lanes in the first product, ceil(m/32) m-rows x 4 lanes in the second;
-//    each shared-memory operand is a 16-byte load that feeds 4 or 16 FMAs.
-//  * v lives in registers for the whole stage (the thread that produces a
-//    patch of G2 tau owns the same patch of v); l and u sit in shared memory;
-//    w and tau pass through shared memory between the products, two
-//    __syncthreads() an iteration.
-//  * s/(1+s d) and gq/s are formed once per stage, in IEEE division.
-//  * clip is written with comparisons and passes on a NaN of v, l or u, as
-//    jnp.clip and torch.minimum(torch.maximum()) do; fminf/fmaxf would swallow
-//    it. Lanes never mix, so a poisoned lane poisons nothing else.
-//  * The last tile is masked: lanes past B are loaded as zeros (s = 1) and
-//    never stored, so any B >= 1 is taken.
-//  * At (192, 128) the tile needs 187 KB of shared memory, so one block runs
-//    on an SM at a time (8 warps); 98304 lanes are 3072 blocks, 23.3 waves
-//    over 132 SMs. Enough for a first kernel; a tensor-core form (wgmma on
-//    3xTF32 or bf16 splits), TMA loads and persistent blocks are later work.
+// What held the FMA kernel this one replaces (this file until then; on an
+// NVIDIA H100 80GB HBM3 at 700.00 W, 8.0 ms at that shape, PERF.md section
+// 6): its two products were 90 % of its time (a copy without them ran 0.85
+// ms), at 29 TFLOP/s with one block of 8 warps an SM, its 187 KB of shared
+// memory allowing no second.
 //
-// The shape (m, n) is a compile-time constant (-DADMM_M=.. -DADMM_N=..):
-// ops/cuda/_build.py compiles one library per shape at first use. n must be a multiple
-// of 4 and the tile must fit in 227 KB of shared memory.
+// Design (each choice with its reason):
+//  * The operator is kept ONCE, as its three bf16 pieces, 3 x 48 KB at
+//    (192, 128): both orientations in hi/mid/lo would need 288 KB. G2 tau
+//    reads it K-major; G2^T w reads the same bytes MN-major, through wgmma's
+//    transpose of A. rho is applied to w as an m-vector, as the plain
+//    version does, so no second, rho-scaled copy is needed. (3xTF32 would
+//    need both orientations in hi/lo words: tf32 wgmma takes K-major
+//    operands only.)
+//  * Operands are staged as the three pieces of w (36 KB for 32 lanes) and of
+//    tau (24 KB); s / (1 + s d) of the tile (16 KB) lies in shared memory,
+//    not in registers: 220 KB in all. cvt.rn.bf16x2.f32 packs two lanes, and
+//    stmatrix.trans writes a warp's accumulator fragment as the K-major rows
+//    of the next product's B. Two barriers an iteration: after the w pieces
+//    and after the tau pieces are written.
+//  * Accumulation. Tensor-core f32 accumulation drops the low bits of what
+//    it adds to a large running sum, toward zero (PERF.md section 6, PR 5).
+//    So the five small passes (lh, mm, hl, mh, hm, in that order) are summed
+//    in one accumulator of their own, 2^-8 of the product's size, and the
+//    large hh pass is taken one k-step (16 terms) and 16 lanes at a time from
+//    zero, each added to that sum in f32 round-to-nearest: two m64n16 scratch
+//    accumulators alternate, so one is in flight while the last is added. The
+//    CPU study of this order (tests/test_torch_admm_stage.py run as a
+//    script, with tensor-core accumulation modelled as truncation) stays
+//    within the plain version's own float32 noise.
+//  * Everything else is admm_stage_tc.cu's machinery: 32-lane tiles (wgmma's
+//    N) on one warpgroup a 64-row tile of m (three at (192, 128), the two
+//    that own a row tile of n carry gq/s and take 176 registers by
+//    setmaxnreg, the third 152), persistent blocks that load and
+//    split the operator once, an L2 prefetch of the next tile; one warpgroup
+//    and 16-lane tiles for an operator of one row tile each way (the
+//    stack's (48, 32)), whose stage is latency-bound.
+//  * The elementwise steps use __fmul_rn / __fadd_rn / __fsub_rn and
+//    IEEE division (s/(1 + s d) and gq/s, once a stage), as the plain
+//    version rounds them; no -use_fast_math.
+//  * clip passes on a NaN of v, l or u (max.NaN / min.NaN). A product never
+//    mixes lanes (a lane is a column of B), so a poisoned lane poisons
+//    nothing else.
+//  * Any B >= 1: lanes past B are loaded as zeros (s = 1) and never stored.
+//
+// The shape (m, n) and the tile width are compile-time constants
+// (-DADMM_M=.. -DADMM_N=.. -DADMM_LANES=16|32): ops/cuda/_build.py compiles
+// one library per shape at first use. m <= 192 and n <= 64 ceil(m / 64).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//             -shared -Xcompiler -fPIC (no -use_fast_math).
+//             -shared -Xcompiler -fPIC -Xptxas -v (no -use_fast_math).
 
-#include <cuda_runtime.h>
+#include "wgmma_common.cuh"
 
 #ifndef ADMM_M
 #error "compile with -DADMM_M=<rows of G2>"
@@ -62,56 +87,353 @@
 #ifndef ADMM_N
 #error "compile with -DADMM_N=<columns of G2>"
 #endif
+#ifndef ADMM_LANES
+#error "compile with -DADMM_LANES=16 or 32 (lanes of a tile)"
+#endif
 
 namespace {
 
 constexpr int M = ADMM_M;
 constexpr int N = ADMM_N;
-constexpr int L = 32;             // lanes per block
-constexpr int THREADS = 256;      // 32 row groups x 8 lane groups
-constexpr int NP = N + 4;         // padded row stride of the operator
-constexpr int MJ = (M + 31) / 32;     // m-rows per thread: rg + 32 j
-constexpr int NJ = (N + 127) / 128;   // n-row quads per thread: 4 rg + 128 j
-constexpr bool M_FULL = (M % 32 == 0);
-constexpr bool N_FULL = (N % 128 == 0);
-constexpr int SMEM_FLOATS = M * NP + 3 * M * L + N * L;
-constexpr size_t SMEM_BYTES = sizeof(float) * (size_t)SMEM_FLOATS;
+constexpr int LT = ADMM_LANES;           // lanes of a tile: wgmma's N
+constexpr int NV = LT / 2;               // accumulator values a thread holds of a row tile
+constexpr int MT1 = (N + 63) / 64;       // 64-row tiles of t = G2^T w (n rows)
+constexpr int MT2 = (M + 63) / 64;       // 64-row tiles of G2 tau (m rows)
+constexpr int WGS = MT2;                 // warpgroups: one a row tile of m
+constexpr int THREADS = 128 * WGS;
+constexpr int K1 = (M + 15) / 16 * 16;   // contraction of t, padded to wgmma's k
+constexpr int K2 = (N + 15) / 16 * 16;   // contraction of G2 tau
+constexpr int KC = 64 * MT1;             // columns of the stored operator: n padded to
+                                         // whole row tiles of t, which reads it MN-major
+constexpr int R2 = 64 * MT2;             // rows of the stored operator
+constexpr int G_ELEMS = R2 * KC;         // bf16 elements of one piece of G2
+constexpr int W_ELEMS = LT * K1;         // one piece of w
+constexpr int T_ELEMS = LT * K2;         // one piece of tau
+constexpr int SD_FLOATS = MT1 * NV * 128;   // s / (1 + s d) of t's row tiles, a slot a thread
+constexpr size_t SMEM_BYTES = 2 * 3 * ((size_t)G_ELEMS + W_ELEMS + T_ELEMS) + 4 * (size_t)SD_FLOATS;
+// Registers a thread of a warpgroup with a row tile of t, and of one
+// without, where both kinds exist among three: setmaxnreg moves registers
+// between them inside the 3 x 168 a thread the block was launched with
+// (asking for more than was released waits for ever).
+constexpr int REG_T = 176;
+constexpr int REG_U = 152;
+static_assert(WGS < 3 || MT1 * REG_T + (WGS - MT1) * REG_U <= 3 * 168, "register split");
+constexpr int BAR_ALL = 1;               // barrier id of every warpgroup (0 is __syncthreads)
 
-static_assert(N % 4 == 0, "n must be a multiple of 4");
-static_assert(M >= 1 && N >= 4, "empty operator");
-static_assert(SMEM_BYTES <= 232448, "tile does not fit in shared memory");
+static_assert(LT == 16 || LT == 32, "tiles of 16 or 32 lanes");
+static_assert(M >= 1 && N >= 1, "empty operator");
+static_assert(WGS <= 3, "one warpgroup a 64-row tile: at most three of 168 registers");
+static_assert(MT1 <= MT2, "t's row tiles are owned by the warpgroups of m's");
+static_assert(SMEM_BYTES <= 232448, "operator pieces and operand buffers do not fit in shared memory");
+static_assert(KC * 16 <= 0x3FFF0 && K1 * 16 <= 0x3FFF0, "stride does not fit a matrix descriptor");
 
-// min(max(v, l), u) in which a NaN in any operand gives NaN.
-__device__ __forceinline__ float clip_nan(float v, float l, float u) {
-    float z = (v < l) ? l : v;
-    z = (z > u) ? u : z;
-    return (l != l || u != u) ? (l + u) : z;
+// Byte offsets: a piece of G2 to the next; the w pieces and the tau pieces
+// from the start of the w pieces; s / (1 + s d) from the start of G2.
+constexpr uint32_t G_STEP = 2 * G_ELEMS;
+constexpr uint32_t W_STEP = 2 * W_ELEMS;
+constexpr uint32_t T_BASE = 3 * W_STEP;
+constexpr uint32_t T_STEP = 2 * T_ELEMS;
+constexpr uint32_t SD_BASE = 3 * G_STEP + T_BASE + 3 * T_STEP;
+
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) of a pair of
+// lanes; both differences are exact in f32, so x = hi + mid + lo.
+__device__ __forceinline__ void split3_pair(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+    hi = pack_bf16x2(x0, x1);
+    const float r0 = __fsub_rn(x0, low_of(hi)), r1 = __fsub_rn(x1, high_of(hi));
+    mid = pack_bf16x2(r0, r1);
+    lo = pack_bf16x2(__fsub_rn(r0, low_of(mid)), __fsub_rn(r1, high_of(mid)));
 }
 
-// Copy a tile of a lane-major (B, R) array into shared memory as [R][L].
-// The tile is one contiguous run of nl*R floats in device memory.
-template <int R>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          long long lane0, int nl, float fill) {
-    const float* base = src + lane0 * R;
-    for (int e = threadIdx.x; e < L * R; e += THREADS) {
-        int ll = e / R, r = e - ll * R;
-        dst[r * L + ll] = (ll < nl) ? base[e] : fill;
+// acc's 16-lane half h += part, in round-to-nearest
+__device__ __forceinline__ void add_half_rn(float (&acc)[NV], float (&part)[8], int h) {
+    fence_registers(part);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[8 * h + i] = __fadd_rn(acc[8 * h + i], part[i]);
+}
+
+// acc = A b over contraction K, six passes, for one 64-row tile of A: a[p]
+// and b[p] are the shared addresses of piece p (hi, mid, lo) of A's row tile
+// and of the LT-lane operand b (K-major). A is K-major (TRANS_A false, the
+// next 8 rows SBO_A bytes on) or MN-major (TRANS_A, the next 8 k LBO_A bytes
+// on); A_STEP is its advance a k step, in 16-byte units. The five small
+// passes go into acc as one commit group; the hh pass one k step and 16
+// lanes at a time (m64n16) from zero into t0 / t1, each added to its half of
+// acc in round-to-nearest while the next is in flight: 16 scratch registers,
+// not 32. Every thread of the warpgroup calls it.
+template <int K, bool TRANS_A, uint32_t LBO_A, uint32_t SBO_A, uint32_t A_STEP>
+__device__ __forceinline__ void product6(float (&acc)[NV], const uint32_t (&a)[3],
+                                         const uint32_t (&b)[3]) {
+    constexpr int KS = K / 16;
+    constexpr int HALVES = NV / 8;           // 16-lane halves of the tile
+    constexpr int J = KS * HALVES;           // hh wgmmas: k step j / HALVES, half j % HALVES
+    constexpr uint32_t HALF = 2 * K;         // b's lane 0 to its lane 16, in 16-byte units
+    float t0[8], t1[8];
+    fence_registers(acc);
+    fence_registers(t0);
+    fence_registers(t1);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 5; ++p) {
+        // lh, mm, hl, mh, hm: A's piece and b's
+        const int pa = p == 0 ? 2 : (p & 1), pb = p == 2 ? 2 : (p == 0 || p == 3) ? 0 : 1;
+        uint64_t da = opaque(descriptor(a[pa], LBO_A, SBO_A));
+        uint64_t db = opaque(descriptor<K>(b[pb]));
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+            wgmma<NV, TRANS_A>(acc, da, db, p + ks > 0 ? 1 : 0);
+            da = opaque(da + A_STEP);
+            db = opaque(db + 16);
+        }
     }
-}
-
-template <int R>
-__device__ __forceinline__ void store_tile(float* __restrict__ dst, const float* src,
-                                           long long lane0, int nl) {
-    float* base = dst + lane0 * R;
-    for (int e = threadIdx.x; e < nl * R; e += THREADS) {
-        int ll = e / R, r = e - ll * R;
-        base[e] = src[r * L + ll];
+    wgmma_commit();
+    // each step's descriptors made from the last's (opaque), so that none is
+    // hoisted into registers of its own
+    uint64_t da = opaque(descriptor(a[0], LBO_A, SBO_A));
+    uint64_t db = opaque(descriptor<K>(b[0]));
+    wgmma<8, TRANS_A>(t0, da, db, 0);
+    wgmma_commit();
+#pragma unroll
+    for (int j = 1; j < J; ++j) {
+        if (j % HALVES == 0) {
+            da = opaque(da + A_STEP);
+            db = opaque(db - (uint64_t)(HALVES - 1) * HALF + 16);
+        } else {
+            db = opaque(db + HALF);
+        }
+        if (j & 1) {
+            wgmma<8, TRANS_A>(t1, da, db, 0);
+            wgmma_commit();
+            wgmma_wait<1>();
+            fence_registers(acc);
+            add_half_rn(acc, t0, (j - 1) % HALVES);
+        } else {
+            wgmma<8, TRANS_A>(t0, da, db, 0);
+            wgmma_commit();
+            wgmma_wait<1>();
+            fence_registers(acc);
+            add_half_rn(acc, t1, (j - 1) % HALVES);
+        }
+        wgmma_fence();      // the scratch just read is the next step's
     }
+    wgmma_wait<0>();
+    fence_registers(acc);
+    if constexpr ((J - 1) & 1)
+        add_half_rn(acc, t1, (J - 1) % HALVES);
+    else
+        add_half_rn(acc, t0, (J - 1) % HALVES);
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
+// What a warpgroup holds in registers for the tile, in wgmma's m64nLT f32
+// fragment of its row tile: value i is row 16 warp + g + 8 ((i >> 1) & 1) of
+// the tile, lane 8 (i >> 2) + 2 q + (i & 1), for g = lane / 4, q = lane % 4
+// of the thread in its warp.
+struct Tile {
+    float v[NV], lo[NV], up[NV];     // iterate and bounds, its rows of m
+    float rho[2];                    // rho of its two rows
+    float gqs[NV];                   // its rows of n: gq / s (s / (1 + s d) lies in
+                                     // shared memory, see sdinv_slot)
+};
+
+// This thread's slot of s / (1 + s d), value i: a float a thread, 128 apart.
+__device__ __forceinline__ float* sdinv_slot(int i) {
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    return reinterpret_cast<float*>(smem_raw + SD_BASE) + i * MT1 * 128 + threadIdx.x;
+}
+
+// Where this thread works: its warpgroup, warp and place in the accumulator
+// fragment, and its stmatrix rows in the w and tau buffers (byte offsets
+// from their first piece). Made from the thread index where it is used,
+// never kept across the loops: registers are what the per-lane state needs.
+struct Block {
+    int wg, warp, g, q;
+    uint32_t g2;                     // shared address of G2's hi piece
+    uint32_t w;                      // ... of w's hi piece (tau's follow w's)
+    uint32_t st_w, st_t;             // this thread's stmatrix row in a w / tau piece
+};
+
+__device__ __forceinline__ Block place() {
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    uint32_t t;
+    asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+    Block o;
+    o.wg = __shfl_sync(0xffffffffu, (int)(t >> 7), 0);   // warp-uniform, and seen so
+    t &= 127;
+    o.warp = t >> 5;
+    o.g = (t & 31) >> 2;
+    o.q = t & 3;
+    o.g2 = (uint32_t)__cvta_generic_to_shared(smem_raw);
+    o.w = o.g2 + 3 * G_STEP;
+    // stmatrix: thread 8 b + r of a warp gives row r of block b, block b being
+    // lanes 8 (b >> 1) .. +7 (of the first four; the next x4 adds 16 lanes)
+    // and rows 8 (b & 1) .. +7 of the warp's 16
+    const int lane = t & 31, b = lane >> 3, r = lane & 7;
+    const int k0 = 64 * o.wg + 16 * o.warp + 8 * (b & 1);
+    o.st_w = 2 * kmajor<K1>(8 * (b >> 1) + r, k0 < K1 ? k0 : 0);
+    o.st_t = 2 * kmajor<K2>(8 * (b >> 1) + r, k0 < K2 ? k0 : 0);
+    return o;
+}
+
+__device__ __forceinline__ int row_of(const Block& o, int i) {
+    return 64 * o.wg + 16 * o.warp + o.g + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int lane_of(const Block& o, int i) {
+    return 8 * (i >> 2) + 2 * o.q + (i & 1);
+}
+
+// Store a warp's LT x 16 block of the operand (its 16 rows of the row tile,
+// as rows of the contraction K), packed as pairs r[2 j + h] = values
+// (4 j + 2 h, 4 j + 2 h + 1) of the fragment, into the K-major buffer at
+// `row` (this thread's stmatrix row, see Block) plus `buf`: unless its rows
+// lie past the contraction.
+template <int K>
+__device__ __forceinline__ void store_pairs(const Block& o, uint32_t buf, uint32_t row,
+                                            const uint32_t (&r)[NV / 2]) {
+    if constexpr (K % 64 != 0)                   // a row tile may reach past K
+        if (64 * o.wg + 16 * o.warp >= K) return;    // warp-uniform
+    stmatrix_x4_trans(buf + row, r[0], r[1], r[2], r[3]);
+    if constexpr (LT == 32)
+        stmatrix_x4_trans(buf + row + 2 * 2 * 8 * K, r[4], r[5], r[6], r[7]);
+}
+
+// Split a fragment's values (pairs of lanes) into their three bf16 pieces
+// and store each into its K-major buffer.
+template <int K>
+__device__ __forceinline__ void store_pieces(const Block& o, uint32_t buf, uint32_t step,
+                                             uint32_t row, const float (&x)[NV]) {
+    uint32_t hi[NV / 2], mid[NV / 2], lo[NV / 2];
+#pragma unroll
+    for (int p = 0; p < NV / 2; ++p) split3_pair(x[2 * p], x[2 * p + 1], hi[p], mid[p], lo[p]);
+    store_pairs<K>(o, buf, row, hi);
+    store_pairs<K>(o, buf + step, row, mid);
+    store_pairs<K>(o, buf + 2 * step, row, lo);
+}
+
+// One iteration of a warpgroup that owns a row tile of t (HAS_T) or not;
+// tau goes to tau_out (lanes lane0 .. lane0 + nl - 1) unless it is null: in
+// the last iteration only, so that no register holds it across the next
+// product.
+template <bool HAS_T>
+__device__ __forceinline__ void iteration(Tile& x, float alpha, float* __restrict__ tau_out,
+                                          long long lane0, int nl) {
+    const Block o = place();
+
+    // w = rho (2 clip(v, l, u) - v): its three pieces
+    {
+        float w[NV];
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+            const float z = clip_nan(x.v[i], x.lo[i], x.up[i]);
+            w[i] = __fmul_rn(x.rho[(i >> 1) & 1], __fsub_rn(__fmul_rn(2.0f, z), x.v[i]));
+        }
+        store_pieces<K1>(o, o.w, W_STEP, o.st_w, w);
+        fence_shared_to_async();
+    }
+    barrier(BAR_ALL, THREADS);
+
+    // t = G2^T w, its row tile, reading G2 MN-major; tau = (t - gq/s) s/(1 + s d)
+    if constexpr (HAS_T) {
+        float tau[NV];
+        const uint32_t a0 = o.g2 + 2 * kmajor<KC>(0, 64 * o.wg);
+        product6<K1, true, KC * 16, 128, KC * 2>(
+            tau, {a0, a0 + G_STEP, a0 + 2 * G_STEP}, {o.w, o.w + W_STEP, o.w + 2 * W_STEP});
+#pragma unroll
+        for (int i = 0; i < NV; ++i)
+            tau[i] = __fmul_rn(__fsub_rn(tau[i], x.gqs[i]), *sdinv_slot(i));
+        store_pieces<K2>(o, o.w + T_BASE, T_STEP, o.st_t, tau);
+        fence_shared_to_async();
+        if (tau_out != nullptr) {
+#pragma unroll
+            for (int i = 0; i < NV; ++i) {
+                const int row = row_of(o, i), col = lane_of(o, i);
+                if (row < N && col < nl) tau_out[(size_t)(lane0 + col) * N + row] = tau[i];
+            }
+        }
+    }
+    barrier(BAR_ALL, THREADS);
+
+    // u = G2 tau, its row tile (G2 K-major); v += alpha (u - z)
+    {
+        float u[NV];
+        const uint32_t a0 = o.g2 + 2 * kmajor<KC>(64 * o.wg, 0);
+        const uint32_t b0 = o.w + T_BASE;
+        product6<K2, false, 128, KC * 16, 16>(u, {a0, a0 + G_STEP, a0 + 2 * G_STEP},
+                                              {b0, b0 + T_STEP, b0 + 2 * T_STEP});
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+            const float z = clip_nan(x.v[i], x.lo[i], x.up[i]);
+            x.v[i] = __fadd_rn(x.v[i], __fmul_rn(alpha, __fsub_rn(u[i], z)));
+        }
+    }
+    // No barrier here: the next w pieces overwrite what this iteration's t
+    // products read, all waited for before the barrier above; the next tau
+    // pieces are written after the next iteration's first barrier, which each
+    // warpgroup reaches only after waiting for its u product.
+}
+
+// The block's tiles, one after another, as one warpgroup sees them.
+template <bool HAS_T>
+__device__ __forceinline__ void tiles(const float* __restrict__ v_in,
+                                      const float* __restrict__ s_in,
+                                      const float* __restrict__ gq_in,
+                                      const float* __restrict__ l_in,
+                                      const float* __restrict__ u_in,
+                                      const float* __restrict__ d_in,
+                                      const float* __restrict__ rho_in, float* __restrict__ v_out,
+                                      float* __restrict__ tau_out, long long B, int iters,
+                                      float alpha) {
+    const int ntiles = (int)((B + LT - 1) / LT);
+
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const long long lane0 = (long long)tile * LT;
+        const int nl = (int)((B - lane0 < LT) ? (B - lane0) : LT);
+
+        // ask L2 for the next tile's inputs while this one iterates
+        const long long next0 = ((long long)tile + gridDim.x) * LT;
+        if (next0 < B) {
+            const long long nn = (B - next0 < LT) ? (B - next0) : LT;
+            prefetch_range(v_in + next0 * M, 4 * nn * M, THREADS);
+            prefetch_range(l_in + next0 * M, 4 * nn * M, THREADS);
+            prefetch_range(u_in + next0 * M, 4 * nn * M, THREADS);
+            prefetch_range(gq_in + next0 * N, 4 * nn * N, THREADS);
+            prefetch_range(s_in + next0, 4 * nn, THREADS);
+        }
+
+        Tile x;
+        const Block o = place();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int row = row_of(o, 2 * h);
+            x.rho[h] = row < M ? rho_in[row] : 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+            const int row = row_of(o, i);
+            const int col = lane_of(o, i);
+            const bool ok = row < M && col < nl;
+            const size_t off = (size_t)(lane0 + col) * M + row;
+            x.v[i] = ok ? v_in[off] : 0.0f;
+            x.lo[i] = ok ? l_in[off] : 0.0f;
+            x.up[i] = ok ? u_in[off] : 0.0f;
+            const float sc = col < nl ? s_in[lane0 + col] : 1.0f;
+            if (!HAS_T) continue;
+            const bool okt = row < N && col < nl;
+            x.gqs[i] = okt ? __fdiv_rn(gq_in[(size_t)(lane0 + col) * N + row], sc) : 0.0f;
+            *sdinv_slot(i) = row < N ? __fdiv_rn(sc, __fadd_rn(1.0f, __fmul_rn(sc, d_in[row])))
+                                     : 0.0f;
+        }
+
+        for (int it = 0; it < iters; ++it)
+            iteration<HAS_T>(x, alpha, it == iters - 1 ? tau_out : nullptr, lane0, nl);
+
+        const Block p = place();
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+            const int row = row_of(p, i);
+            const int col = lane_of(p, i);
+            if (row < M && col < nl) v_out[(size_t)(lane0 + col) * M + row] = x.v[i];
+        }
+    }
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -121,203 +443,43 @@ admm_stage_kernel(const float* __restrict__ v_in, const float* __restrict__ s_in
                   const float* __restrict__ d_in, const float* __restrict__ rho_in,
                   float* __restrict__ v_out, float* __restrict__ tau_out,
                   long long B, int iters, float alpha) {
-    extern __shared__ __align__(16) float smem[];
-    float* sG = smem;                 // [M][NP] operator
-    float* sL = sG + M * NP;          // [M][L]  lower bounds
-    float* sU = sL + M * L;           // [M][L]  upper bounds
-    float* sW = sU + M * L;           // [M][L]  w (and staging of v)
-    float* sT = sW + M * L;           // [N][L]  tau (and staging of gq)
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    uint16_t* sG = reinterpret_cast<uint16_t*>(smem_raw);   // 3 x [R2 x KC]: G2's pieces
 
-    const int tid = threadIdx.x;
-    const int lg = tid & 7;           // lane group: lanes 4 lg .. 4 lg + 3
-    const int rg = tid >> 3;          // row group 0..31
-    const int c0 = 4 * lg;
-    const long long lane0 = (long long)blockIdx.x * L;
-    const int nl = (int)((B - lane0 < L) ? (B - lane0) : L);
-
-    // operator -> shared memory, 16 bytes at a time
-    for (int e = tid; e < M * (N / 4); e += THREADS) {
-        int r = e / (N / 4), c = e - r * (N / 4);
-        *reinterpret_cast<float4*>(sG + r * NP + 4 * c) =
-            ld4(G2 + (size_t)r * N + 4 * c);
-    }
-    load_tile<M>(sL, l_in, lane0, nl, 0.0f);
-    load_tile<M>(sU, u_in, lane0, nl, 0.0f);
-    load_tile<M>(sW, v_in, lane0, nl, 0.0f);
-    load_tile<N>(sT, gq_in, lane0, nl, 0.0f);
-    __syncthreads();
-
-    // per-thread state
-    float v[MJ][4], rho[MJ];
-#pragma unroll
-    for (int j = 0; j < MJ; ++j) {
-        const int mi = rg + 32 * j;
-        if (M_FULL || mi < M) {
-            float4 x = ld4(sW + mi * L + c0);
-            v[j][0] = x.x; v[j][1] = x.y; v[j][2] = x.z; v[j][3] = x.w;
-            rho[j] = rho_in[mi];
-        } else {
-            v[j][0] = v[j][1] = v[j][2] = v[j][3] = 0.0f;
-            rho[j] = 0.0f;
-        }
-    }
-    float s[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-        s[c] = (c0 + c < nl) ? s_in[lane0 + c0 + c] : 1.0f;
-    float gqs[NJ][4][4], sdinv[NJ][4][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int ni = 4 * rg + 128 * j + i;
-            const bool ok = N_FULL || ni < N;
-            const float dn = ok ? d_in[ni] : 0.0f;
-            float4 g = ok ? ld4(sT + ni * L + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
-            const float gv[4] = {g.x, g.y, g.z, g.w};
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                gqs[j][i][c] = gv[c] / s[c];
-                sdinv[j][i][c] = s[c] / (1.0f + s[c] * dn);
-            }
-        }
-    }
-    __syncthreads();   // staging reads done before sW / sT are overwritten
-
-    float z[MJ][4];
-    for (int it = 0; it < iters; ++it) {
-        // z = clip(v, l, u); w = rho (2 z - v)
-#pragma unroll
-        for (int j = 0; j < MJ; ++j) {
-            const int mi = rg + 32 * j;
-            if (M_FULL || mi < M) {
-                float4 lo = ld4(sL + mi * L + c0);
-                float4 hi = ld4(sU + mi * L + c0);
-                z[j][0] = clip_nan(v[j][0], lo.x, hi.x);
-                z[j][1] = clip_nan(v[j][1], lo.y, hi.y);
-                z[j][2] = clip_nan(v[j][2], lo.z, hi.z);
-                z[j][3] = clip_nan(v[j][3], lo.w, hi.w);
-                float4 w;
-                w.x = rho[j] * (2.0f * z[j][0] - v[j][0]);
-                w.y = rho[j] * (2.0f * z[j][1] - v[j][1]);
-                w.z = rho[j] * (2.0f * z[j][2] - v[j][2]);
-                w.w = rho[j] * (2.0f * z[j][3] - v[j][3]);
-                *reinterpret_cast<float4*>(sW + mi * L + c0) = w;
-            }
-        }
-        __syncthreads();
-
-        // t = G2^T w : rows ni = 4 rg + 128 j + i, contraction over m
-        {
-            float acc[NJ][4][4];
-#pragma unroll
-            for (int j = 0; j < NJ; ++j)
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int c = 0; c < 4; ++c) acc[j][i][c] = 0.0f;
+    // The operator, split once a block; reads run along G2's rows. Rows past
+    // m and columns past n are zero in shared memory only.
 #pragma unroll 4
-            for (int k = 0; k < M; ++k) {
-                const float4 w = ld4(sW + k * L + c0);
-#pragma unroll
-                for (int j = 0; j < NJ; ++j) {
-                    const int nb = 4 * rg + 128 * j;
-                    if (N_FULL || nb < N) {
-                        const float4 g = ld4(sG + k * NP + nb);
-                        const float gv[4] = {g.x, g.y, g.z, g.w};
-#pragma unroll
-                        for (int i = 0; i < 4; ++i) {
-                            acc[j][i][0] = fmaf(gv[i], w.x, acc[j][i][0]);
-                            acc[j][i][1] = fmaf(gv[i], w.y, acc[j][i][1]);
-                            acc[j][i][2] = fmaf(gv[i], w.z, acc[j][i][2]);
-                            acc[j][i][3] = fmaf(gv[i], w.w, acc[j][i][3]);
-                        }
-                    }
-                }
-            }
-            // tau = (t - gq/s) * s/(1 + s d)
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                const int nb = 4 * rg + 128 * j;
-                if (N_FULL || nb < N) {
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        float4 t;
-                        t.x = (acc[j][i][0] - gqs[j][i][0]) * sdinv[j][i][0];
-                        t.y = (acc[j][i][1] - gqs[j][i][1]) * sdinv[j][i][1];
-                        t.z = (acc[j][i][2] - gqs[j][i][2]) * sdinv[j][i][2];
-                        t.w = (acc[j][i][3] - gqs[j][i][3]) * sdinv[j][i][3];
-                        *reinterpret_cast<float4*>(sT + (nb + i) * L + c0) = t;
-                    }
-                }
-            }
-        }
-        __syncthreads();
-
-        // v += alpha (G2 tau - z) : rows mi = rg + 32 j, contraction over n
-        {
-            float acc[MJ][4];
-#pragma unroll
-            for (int j = 0; j < MJ; ++j)
-#pragma unroll
-                for (int c = 0; c < 4; ++c) acc[j][c] = 0.0f;
-#pragma unroll 2
-            for (int k0 = 0; k0 < N; k0 += 4) {
-                const float4 t0 = ld4(sT + (k0 + 0) * L + c0);
-                const float4 t1 = ld4(sT + (k0 + 1) * L + c0);
-                const float4 t2 = ld4(sT + (k0 + 2) * L + c0);
-                const float4 t3 = ld4(sT + (k0 + 3) * L + c0);
-#pragma unroll
-                for (int j = 0; j < MJ; ++j) {
-                    const int mi = rg + 32 * j;
-                    if (M_FULL || mi < M) {
-                        const float4 g = ld4(sG + mi * NP + k0);
-                        acc[j][0] = fmaf(g.x, t0.x, acc[j][0]);
-                        acc[j][1] = fmaf(g.x, t0.y, acc[j][1]);
-                        acc[j][2] = fmaf(g.x, t0.z, acc[j][2]);
-                        acc[j][3] = fmaf(g.x, t0.w, acc[j][3]);
-                        acc[j][0] = fmaf(g.y, t1.x, acc[j][0]);
-                        acc[j][1] = fmaf(g.y, t1.y, acc[j][1]);
-                        acc[j][2] = fmaf(g.y, t1.z, acc[j][2]);
-                        acc[j][3] = fmaf(g.y, t1.w, acc[j][3]);
-                        acc[j][0] = fmaf(g.z, t2.x, acc[j][0]);
-                        acc[j][1] = fmaf(g.z, t2.y, acc[j][1]);
-                        acc[j][2] = fmaf(g.z, t2.z, acc[j][2]);
-                        acc[j][3] = fmaf(g.z, t2.w, acc[j][3]);
-                        acc[j][0] = fmaf(g.w, t3.x, acc[j][0]);
-                        acc[j][1] = fmaf(g.w, t3.y, acc[j][1]);
-                        acc[j][2] = fmaf(g.w, t3.z, acc[j][2]);
-                        acc[j][3] = fmaf(g.w, t3.w, acc[j][3]);
-                    }
-                }
-            }
-#pragma unroll
-            for (int j = 0; j < MJ; ++j) {
-                if (M_FULL || rg + 32 * j < M) {
-#pragma unroll
-                    for (int c = 0; c < 4; ++c)
-                        v[j][c] += alpha * (acc[j][c] - z[j][c]);
-                }
-            }
-        }
-        // No barrier here: the next write to sW follows every thread's reads of
-        // it (they precede the barrier above), and the next write to sT follows
-        // the barrier after the next w step, which every thread reaches only
-        // after its reads of sT in this product.
+    for (int e = threadIdx.x; e < G_ELEMS; e += THREADS) {
+        const int r = e / KC, k = e - r * KC;
+        const float x = (r < M && k < N) ? G2[(size_t)r * N + k] : 0.0f;
+        uint32_t hi, mid, lo;
+        split3_pair(x, 0.0f, hi, mid, lo);
+        const int idx = kmajor<KC>(r, k);
+        sG[idx] = (uint16_t)hi;
+        sG[G_ELEMS + idx] = (uint16_t)mid;
+        sG[2 * G_ELEMS + idx] = (uint16_t)lo;
     }
+    fence_shared_to_async();
+    __syncthreads();
 
-    // v -> sW -> device memory; tau is already in sT
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < MJ; ++j) {
-        const int mi = rg + 32 * j;
-        if (M_FULL || mi < M)
-            *reinterpret_cast<float4*>(sW + mi * L + c0) =
-                make_float4(v[j][0], v[j][1], v[j][2], v[j][3]);
+    const int wg = place().wg;
+    // Warpgroups that own a row tile of t carry three more arrays; three
+    // warpgroups share 168 registers a thread, so where some own none, those
+    // give registers to the owners (setmaxnreg).
+    if constexpr (MT1 < WGS) {
+        if (wg < MT1) {
+            if constexpr (WGS == 3) set_max_registers<true, REG_T>();
+            tiles<true>(v_in, s_in, gq_in, l_in, u_in, d_in, rho_in, v_out, tau_out, B, iters,
+                        alpha);
+        } else {
+            if constexpr (WGS == 3) set_max_registers<false, REG_U>();
+            tiles<false>(v_in, s_in, gq_in, l_in, u_in, d_in, rho_in, v_out, tau_out, B, iters,
+                         alpha);
+        }
+    } else {
+        tiles<true>(v_in, s_in, gq_in, l_in, u_in, d_in, rho_in, v_out, tau_out, B, iters,
+                    alpha);
     }
-    __syncthreads();
-    store_tile<M>(v_out, sW, lane0, nl);
-    store_tile<N>(tau_out, sT, lane0, nl);
 }
 
 }  // namespace
@@ -331,25 +493,31 @@ const char* blf_cuda_error_string(int code) {
 }
 
 // Launch one stage on `stream`. All pointers are device pointers to contiguous
-// f32 arrays: v, l, u (B, m); gq (B, n); s (B,); G2 (m, n), 16-byte aligned;
-// d (n,); rho (m,); outputs v_out (B, m), tau_out (B, n). Returns the CUDA error
-// code of the launch (0 on success), or -1 for a shape other than the one
-// compiled, -2 for a bad batch or iteration count. Does not synchronise.
-int blf_admm_stage_f32(const float* v, const float* s, const float* gq,
-                       const float* l, const float* u, const float* G2,
-                       const float* d, const float* rho, float* v_out,
-                       float* tau_out, long long B, int m, int n, int iters,
+// f32 arrays: v, l, u (B, m); gq (B, n); s (B,); G2 (m, n); d (n,); rho (m,);
+// outputs v_out (B, m), tau_out (B, n). Returns the CUDA error code of the
+// launch (0 on success), or -1 for a shape other than the one compiled, -2
+// for a bad batch or iteration count. Does not synchronise.
+int blf_admm_stage_f32(const float* v, const float* s, const float* gq, const float* l,
+                       const float* u, const float* G2, const float* d, const float* rho,
+                       float* v_out, float* tau_out, long long B, int m, int n, int iters,
                        float alpha, void* stream) {
     if (m != M || n != N) return -1;
     if (B < 1 || iters < 1) return -2;
     cudaError_t err = cudaFuncSetAttribute(
-        admm_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM_BYTES);
+        admm_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
-    const long long blocks = (B + L - 1) / L;
-    if (blocks > 2147483647LL) return -2;
-    admm_stage_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES,
-                        (cudaStream_t)stream>>>(
+    int device = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, admm_stage_kernel, THREADS,
+                                                        SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    const long long tiles = (B + LT - 1) / LT;
+    const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    const long long blocks = tiles < fit ? tiles : fit;
+    admm_stage_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
         v, s, gq, l, u, G2, d, rho, v_out, tau_out, B, iters, alpha);
     return (int)cudaGetLastError();
 }

@@ -14,30 +14,45 @@
 // (rollout.py:94-159). A lane holding a NaN keeps it in its own outputs and
 // touches no other lane: lanes share nothing but the scalars.
 //
-// What bounds it on an H100: operations. A lane-step is some 360 floating-
-// point operations (three divisions among them) on 40 values that never
-// leave registers; a lane reads 22 floats (the state, the two null-rotation
+// What bounds it on an H100: operations. A lane-step is 376 floating-point
+// operations (an FMA counted as two) on 40 values that never leave
+// registers; a lane reads 22 floats (the state, the two null-rotation
 // columns and the null position, k, b) and writes 18, once for the whole
 // horizon: 65536 lanes move 10-13 MB, 4 us at 3.35 TB/s, against some
-// 2.4e10 operations at (65536 lanes, 1000 steps), 0.35 ms at 67 TFLOP/s.
-// Within a step the chain of dependent operations is long (wrench, then
-// torque and rates, then the Euler update) with little parallelism, so the
-// rate depends on enough warps being resident to hide the FMA pipe's latency.
+// 2.5e10 operations at (65536 lanes, 1000 steps), 0.37 ms at the H100 SXM
+// data sheet's 67 TFLOP/s f32.
 //
-// Design (a first kernel that is right, not yet a fast one):
+// What held the first version of this kernel (on an NVIDIA H100 80GB HBM3
+// at 700.00 W, PERF.md section 6): not latency. At (65536 lanes, 1000 steps)
+// it ran 0.93 ms, and twice and four times the lanes (31 and 62 warps an SM
+// where 65536 lanes give 15.5) took 1.69 and 3.28 ms: 9 and 12 % less a
+// lane-step, so more warps in flight would buy little. Its time went to the
+// instructions it issues, seven IEEE divisions a step among them (each some
+// ten instructions and a branch). At 10 steps, the identification's
+// segment, the launch took 0.023 ms on the card and its wrapper 0.093 ms on
+// the host, half of it building the scalars' device tensor.
+//
+// Design:
 //  * One thread a lane, 128 threads a block, no shared memory. The lane's 18
 //    state values, its null pose (the two columns of R0 the wrench reads, and
-//    p0) and its k and b stay in registers for all `steps`; the eight scalars
-//    come from one device array, read once.
+//    p0) and its k and b stay in registers for all `steps`.
+//  * The eight scalars (L, W, mass, I1..3, rho, dt) come by value, a
+//    FootScalars argument, as do k and b when they are one value for every
+//    lane: a launch copies nothing to the device and allocates nothing but
+//    its output.
+//  * Divisions by the constants m and I_i are multiplications by their
+//    reciprocals, formed once a lane in IEEE division: 6 of the 7 divisions
+//    of a step go (1 / det stays an IEEE division). The rounding moves by at
+//    most 1.5 ulp a quotient; the damped rollout stays within 2e-5 of the
+//    plain version (PERF.md section 6).
 //  * Lane-major (B, ...) arrays, as the caller holds them: each lane loads
 //    and stores its own 12- and 36-byte records once; a transpose would cost
-//    more than it saves on 10-13 MB.
+//    more than it saves on 10-13 MB. The four outputs lie in one buffer of
+//    18 B floats (p, R, v, w one after another).
 //  * The null pose and the two coefficients are each either per lane or one
-//    value for all lanes (lane stride 0), so a broadcast never materialises.
+//    value for all lanes, so a broadcast never materialises.
 //  * Every lane is checked against B: any batch, no padding.
-//  * True IEEE divisions (by m, by I_i, 1 / det) and no -use_fast_math;
-//    nvcc's default FMA contraction stays (the damped rollout absorbs the
-//    different rounding, to 2e-5 against the plain version over 1000 steps).
+//  * No -use_fast_math; nvcc's default FMA contraction stays.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC -Xptxas -v (no -use_fast_math).
@@ -48,6 +63,16 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr float GRAVITY_Z = -9.81f;
+
+}  // namespace
+
+// The scalars of a rollout, by value, in the order of the plain version's
+// (8,) tensor (ops/cuda/rollout.py: FootScalars).
+struct FootScalars {
+    float length, width, mass, inertia[3], baumgarte_rho, dt;
+};
+
+namespace {
 
 __device__ __forceinline__ void cross(const float a[3], const float b[3], float out[3]) {
     out[0] = a[1] * b[2] - a[2] * b[1];
@@ -73,24 +98,24 @@ foot_rollout_kernel(const float* __restrict__ p_in, const float* __restrict__ r_
                     const float* __restrict__ v_in, const float* __restrict__ w_in,
                     const float* __restrict__ p0_in, const float* __restrict__ r0_in,
                     const float* __restrict__ k_in, const float* __restrict__ b_in,
-                    const float* __restrict__ scal,
-                    float* __restrict__ p_out, float* __restrict__ r_out,
-                    float* __restrict__ v_out, float* __restrict__ w_out,
-                    long long B, int steps, int p0_lanes, int r0_lanes, int k_lanes,
-                    int b_lanes) {
+                    const FootScalars scal, float k_value, float b_value,
+                    float* __restrict__ out, long long B, int steps, int p0_lanes,
+                    int r0_lanes, int k_lanes, int b_lanes) {
     const long long lane = (long long)blockIdx.x * THREADS + threadIdx.x;
     if (lane >= B) return;
 
-    const float L = scal[0], Wd = scal[1], mass = scal[2];
-    const float I1 = scal[3], I2 = scal[4], I3 = scal[5];
-    const float rho = scal[6], dt = scal[7];
+    const float L = scal.length, Wd = scal.width, mass = scal.mass;
+    const float I1 = scal.inertia[0], I2 = scal.inertia[1], I3 = scal.inertia[2];
+    const float rho = scal.baumgarte_rho, dt = scal.dt;
     const float area = L * Wd;
     const float L2 = L * L, W2 = Wd * Wd;
     const float area12 = area / 12.0f;
     const float half_rho = 0.5f * rho;
+    const float inv_mass = 1.0f / mass;
+    const float inv_I1 = 1.0f / I1, inv_I2 = 1.0f / I2, inv_I3 = 1.0f / I3;
 
-    const float k = k_in[k_lanes ? lane : 0];
-    const float b = b_in[b_lanes ? lane : 0];
+    const float k = k_lanes ? k_in[lane] : k_value;
+    const float b = b_lanes ? b_in[lane] : b_value;
     const float* p0p = p0_in + (p0_lanes ? 3 * lane : 0);
     const float* r0p = r0_in + (r0_lanes ? 9 * lane : 0);
     const float p0[3] = {p0p[0], p0p[1], p0p[2]};
@@ -131,7 +156,8 @@ foot_rollout_kernel(const float* __restrict__ p_in, const float* __restrict__ r_
                                + W2 * (b * e2w[i] + k * e2r0[i]));
 
         // -- Newton-Euler with diagonal body inertia ----------------------
-        const float v_dot[3] = {f[0] / mass, f[1] / mass, f[2] / mass + GRAVITY_Z};
+        const float v_dot[3] = {f[0] * inv_mass, f[1] * inv_mass,
+                                f[2] * inv_mass + GRAVITY_Z};
         float u[3], iww[3], gyro[3], te[3], ut[3], w_dot[3];
         mat_t_vec(r, w, u);
         const float iu[3] = {I1 * u[0], I2 * u[1], I3 * u[2]};
@@ -140,7 +166,7 @@ foot_rollout_kernel(const float* __restrict__ p_in, const float* __restrict__ r_
 #pragma unroll
         for (int i = 0; i < 3; ++i) te[i] = tau[i] - gyro[i];
         mat_t_vec(r, te, ut);
-        const float ui[3] = {ut[0] / I1, ut[1] / I2, ut[2] / I3};
+        const float ui[3] = {ut[0] * inv_I1, ut[1] * inv_I2, ut[2] * inv_I3};
         mat_vec(r, ui, w_dot);
 
         // -- Rdot = w^ R + rho/2 (S^-1 - I) R, S = R R' (adjugate) --------
@@ -185,6 +211,10 @@ foot_rollout_kernel(const float* __restrict__ p_in, const float* __restrict__ r_
         for (int i = 0; i < 9; ++i) r[i] = r[i] + dt * r_dot[i];
     }
 
+    float* p_out = out;
+    float* r_out = out + 3 * B;
+    float* v_out = out + 12 * B;
+    float* w_out = out + 15 * B;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
         p_out[3 * lane + i] = p[i];
@@ -203,24 +233,27 @@ const char* blf_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
+int blf_foot_scalars_bytes() { return (int)sizeof(FootScalars); }
+
 // Roll B lanes `steps` Euler steps on `stream`. Every pointer is a device
 // pointer to contiguous f32 data: the state p (B, 3), R (B, 3, 3), v (B, 3),
-// w (B, 3); the null pose p0 and R0, k and b, each per lane (its *_lanes
-// flag 1: (B, 3), (B, 3, 3), (B,), (B,)) or one value for all (flag 0: (3,),
-// (3, 3), one float); scal = (L, W, mass, I1, I2, I3, rho, dt); the outputs
-// like the state. Returns the CUDA error code of the launch (0 on success),
-// -2 for a bad batch or step count. Does not synchronise.
+// w (B, 3); the null pose p0 and R0, each per lane (its *_lanes flag 1:
+// (B, 3), (B, 3, 3)) or one pose for all (flag 0: (3,), (3, 3)); k and b per
+// lane ((B,), flag 1; else k_value / b_value, and the pointer is not read);
+// out (18 B): p, R, v, w of the final state one after another. Returns the
+// CUDA error code of the launch (0 on success), -2 for a bad batch or step
+// count. Does not synchronise.
 int blf_foot_rollout_f32(const float* p, const float* R, const float* v, const float* w,
                          const float* p0, const float* R0, const float* k, const float* b,
-                         const float* scal, float* p_out, float* R_out, float* v_out,
-                         float* w_out, long long B, int steps, int p0_lanes, int r0_lanes,
-                         int k_lanes, int b_lanes, void* stream) {
+                         FootScalars scal, float k_value, float b_value, float* out,
+                         long long B, int steps, int p0_lanes, int r0_lanes, int k_lanes,
+                         int b_lanes, void* stream) {
     if (B < 1 || steps < 0) return -2;
     const long long blocks = (B + THREADS - 1) / THREADS;
     if (blocks > 2147483647LL) return -2;
     foot_rollout_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        p, R, v, w, p0, R0, k, b, scal, p_out, R_out, v_out, w_out, B, steps,
-        p0_lanes, r0_lanes, k_lanes, b_lanes);
+        p, R, v, w, p0, R0, k, b, scal, k_value, b_value, out, B, steps, p0_lanes, r0_lanes,
+        k_lanes, b_lanes);
     return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,12 @@ Layout is lane-major at the boundary and in device memory: position (B, 3),
 rotation (B, 3, 3), velocities (B, 3); the null pose (B, 3) / (B, 3, 3) or
 one pose for every lane ((3,) / (3, 3), or a (B, ...) view whose lane stride
 is 0); ``spring_coeff`` and ``damper_coeff`` scalar, (B,) or (B, 1). The
-eight scalars (L, W, mass, I1..3, rho, dt) go to the kernel as one device
-tensor, made without reading anything back to the host. The reference's
+eight scalars (L, W, mass, I1..3, rho, dt) go to the kernel by value, a
+:class:`FootScalars` argument, as do k and b where they are scalars: a launch
+copies nothing to the device and allocates one buffer, the outputs'. Their
+host values are read once for each set of scalar tensors (a tensor's value
+is cached by identity and in-place version counter, so a device tensor costs
+one synchronising read, not one a launch). The reference's
 struct-of-tiles layout, its padding of odd batches, ``block_lanes``,
 ``chunks``, ``step_unroll`` and ``interpret`` are TPU matters and have no
 counterpart here: the kernel checks each lane against ``B``.
@@ -37,7 +41,7 @@ from blf_tpu_torch.ops.cuda import _build
 
 __all__ = ["foot_rollout_fused", "foot_rollout_fused_reference", "launch_count",
            "reference_count", "reset_counts", "build_foot_rollout", "rollout_operands",
-           "GRAVITY_Z", "SOURCE", "REPLACES"]
+           "launch_operands", "FootScalars", "GRAVITY_Z", "SOURCE", "REPLACES"]
 
 SOURCE = "foot_rollout.cu"
 #: the TPU kernel K5 replaces (file:line of ``_rollout_kernel``)
@@ -48,6 +52,25 @@ GRAVITY_Z = -9.81
 # version ran because the tensors lie on the CPU.
 _counts = {"launch": 0, "reference": 0}
 _libs: dict = {}
+
+
+class FootScalars(ctypes.Structure):
+    """The rollout's scalars as the kernel takes them, by value
+    (``csrc/foot_rollout.cu``), in the order of :func:`rollout_operands`'
+    (8,) tensor."""
+
+    _fields_ = [("length", ctypes.c_float), ("width", ctypes.c_float),
+                ("mass", ctypes.c_float), ("inertia", ctypes.c_float * 3),
+                ("baumgarte_rho", ctypes.c_float), ("dt", ctypes.c_float)]
+
+
+# What the kernel takes of a rollout's parameters and null pose, keyed by the
+# identity of the objects passed: (objects, their tensors, the tensors'
+# in-place versions, operands). The entry holds the objects, so no id is
+# reused while it is cached; an in-place change of any of their tensors
+# changes its version, and the entry is made anew.
+_param_cache: dict = {}
+_PARAM_CACHE_SIZE = 16
 
 
 def launch_count() -> int:
@@ -88,19 +111,31 @@ def _coefficient(c, B: int, like: torch.Tensor, name: str):
     return c.reshape(B), True
 
 
-def rollout_operands(cparams, fparams, state, null_position, null_rotation, dt):
-    """What the kernel reads, checked: ``(p, R, v, w, p0, R0, k, b, scalars,
-    per_lane)`` with ``per_lane`` the flags of ``p0, R0, k, b``, ``scalars``
-    the (8,) tensor ``(L, W, mass, I1, I2, I3, rho, dt)`` on the state's
-    device and in its dtype."""
+def _batch_of(state) -> int:
+    """The batch, checked against every state field."""
     p = state.position
     if p.dim() != 2 or p.shape[-1] != 3 or p.shape[0] < 1:
         raise ValueError(f"position must be (B, 3) with B >= 1, got {tuple(p.shape)}")
     B = p.shape[0]
-    shapes = {"rotation": (B, 3, 3), "linear_velocity": (B, 3), "angular_velocity": (B, 3)}
-    for name, shape in shapes.items():
-        if tuple(getattr(state, name).shape) != shape:
+    for name, shape in (("rotation", (B, 3, 3)), ("linear_velocity", (B, 3)),
+                        ("angular_velocity", (B, 3))):
+        if getattr(state, name).shape != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(getattr(state, name).shape)}")
+    return B
+
+
+def _scalars_error(count: int) -> ValueError:
+    return ValueError("length, width, mass, baumgarte_rho and dt must be scalars and"
+                      f" inertia (3,); got {count} values in all")
+
+
+def rollout_operands(cparams, fparams, state, null_position, null_rotation, dt):
+    """What the plain version reads, checked: ``(p, R, v, w, p0, R0, k, b,
+    scalars, per_lane)`` with ``per_lane`` the flags of ``p0, R0, k, b``,
+    ``scalars`` the (8,) tensor ``(L, W, mass, I1, I2, I3, rho, dt)`` on the
+    state's device and in its dtype."""
+    p = state.position
+    B = _batch_of(state)
     p0, p0_lanes = _lane_operand(null_position, (3,), B, "null_position")
     R0, R0_lanes = _lane_operand(null_rotation, (3, 3), B, "null_rotation")
     k, k_lanes = _coefficient(cparams.spring_coeff, B, p, "spring_coeff")
@@ -109,10 +144,89 @@ def rollout_operands(cparams, fparams, state, null_position, null_rotation, dt):
     scalars = torch.cat([as_t(x) for x in (cparams.length, cparams.width, fparams.mass,
                                            fparams.inertia, fparams.baumgarte_rho, dt)])
     if scalars.shape != (8,):
-        raise ValueError("length, width, mass, baumgarte_rho and dt must be scalars and"
-                         f" inertia (3,); got {scalars.shape[0]} values in all")
+        raise _scalars_error(scalars.shape[0])
     return (p, state.rotation, state.linear_velocity, state.angular_velocity, p0, R0,
             k, b, scalars, (p0_lanes, R0_lanes, k_lanes, b_lanes))
+
+
+def _host_values(x) -> list:
+    """The values of a number, a sequence of numbers or a tensor as Python
+    floats (a device tensor is read back: the caller caches the result)."""
+    if torch.is_tensor(x):
+        return x.detach().reshape(-1).tolist()
+    return [float(v) for v in (x if isinstance(x, (list, tuple)) else [x])]
+
+
+def _kernel_coefficient(c, B: int, name: str):
+    """A contact coefficient as the kernel takes it: ``(tensor, None)`` per
+    lane ((B,) or (B, 1)), or ``(None, value)`` for one value for all lanes
+    (a number, a one-element tensor, or a per-lane view with lane stride 0)."""
+    if not torch.is_tensor(c) or c.numel() == 1:
+        values = _host_values(c)
+        if len(values) != 1:
+            raise ValueError(f"{name} must be a scalar, ({B},) or ({B}, 1)")
+        return None, values[0]
+    if tuple(c.shape) not in ((B,), (B, 1)):
+        raise ValueError(f"{name} must be a scalar, ({B},) or ({B}, 1), got {tuple(c.shape)}")
+    c = c.reshape(B)
+    if c.stride(0) == 0:
+        return None, _host_values(c[:1])[0]
+    return c.contiguous(), None
+
+
+def _tensors_in(objects) -> list:
+    found = []
+    for x in objects:
+        if torch.is_tensor(x):
+            found.append(x)
+        elif isinstance(x, tuple):
+            found.extend(_tensors_in(x))
+    return found
+
+
+def _param_operands(cparams, fparams, null_position, null_rotation, dt, B: int):
+    """``(p0, R0, k, b, scalars, k_value, b_value, per_lane)``: what the kernel
+    takes of the parameters and the null pose, made once for each set of
+    objects and kept while none of their tensors changes in place."""
+    objects = (cparams, fparams, null_position, null_rotation, dt)
+    key = tuple(id(x) for x in objects) + (B,)
+    hit = _param_cache.get(key)
+    if hit is not None and tuple(t._version for t in hit[1]) == hit[2]:
+        return hit[3]
+    p0, p0_lanes = _lane_operand(null_position, (3,), B, "null_position")
+    R0, R0_lanes = _lane_operand(null_rotation, (3, 3), B, "null_rotation")
+    k, k_value = _kernel_coefficient(cparams.spring_coeff, B, "spring_coeff")
+    b, b_value = _kernel_coefficient(cparams.damper_coeff, B, "damper_coeff")
+    values = [_host_values(x) for x in (cparams.length, cparams.width, fparams.mass,
+                                        fparams.inertia, fparams.baumgarte_rho, dt)]
+    if [len(v) for v in values] != [1, 1, 1, 3, 1, 1]:
+        raise _scalars_error(sum(len(v) for v in values))
+    (length,), (width,), (mass,), inertia, (rho,), (step,) = values
+    operands = (p0.contiguous(), R0.contiguous(), k, b,
+                FootScalars(length, width, mass, (ctypes.c_float * 3)(*inertia), rho, step),
+                0.0 if k is not None else k_value, 0.0 if b is not None else b_value,
+                (p0_lanes, R0_lanes, k is not None, b is not None))
+    tensors = _tensors_in(objects)
+    if not any(t.is_inference() for t in tensors):     # those keep no version
+        if len(_param_cache) >= _PARAM_CACHE_SIZE:
+            _param_cache.clear()
+        _param_cache[key] = (objects, tensors, tuple(t._version for t in tensors), operands)
+    return operands
+
+
+def launch_operands(cparams, fparams, state, null_position, null_rotation, dt):
+    """What the kernel takes, checked: ``(tensors, scalars, k_value,
+    b_value, per_lane)`` with ``tensors`` the contiguous ``(p, R, v, w, p0,
+    R0, k, b)`` (``k``/``b`` None where one value serves every lane, then
+    ``k_value``/``b_value``), ``scalars`` a :class:`FootScalars` of the
+    parameters' host values and ``per_lane`` the flags of ``p0, R0, k, b``.
+    Nothing is copied to the device; a device tensor among the parameters
+    is read back once for each set of parameter objects, not at every call."""
+    B = _batch_of(state)
+    p0, R0, k, b, scalars, k_value, b_value, per_lane = _param_operands(
+        cparams, fparams, null_position, null_rotation, dt, B)
+    return ((*(t if t.is_contiguous() else t.contiguous() for t in state), p0, R0, k, b),
+            scalars, k_value, b_value, per_lane)
 
 
 def _cross(a, b):
@@ -215,11 +329,16 @@ def build_foot_rollout() -> ctypes.CDLL:
     if lib is not None:
         return lib
     lib = _build.load_library(SOURCE)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.blf_foot_rollout_f32.argtypes = [P] * 13 + [ctypes.c_longlong, I, I, I, I, I, P]
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.blf_foot_rollout_f32.argtypes = [P] * 8 + [FootScalars, F, F, P, ctypes.c_longlong,
+                                                   I, I, I, I, I, P]
     lib.blf_foot_rollout_f32.restype = I
     lib.blf_cuda_error_string.argtypes = [I]
     lib.blf_cuda_error_string.restype = ctypes.c_char_p
+    lib.blf_foot_scalars_bytes.argtypes = []
+    lib.blf_foot_scalars_bytes.restype = I
+    if lib.blf_foot_scalars_bytes() != ctypes.sizeof(FootScalars):
+        raise RuntimeError("foot_rollout library disagrees with its wrapper on FootScalars")
     _libs[SOURCE] = lib
     return lib
 
@@ -233,6 +352,7 @@ def foot_rollout_fused(cparams, fparams, state, null_position, null_rotation, *,
     CPU tensors go through :func:`foot_rollout_fused_reference`. CUDA tensors
     must be float32, all on one device; the kernel is launched on the current
     stream, its launch error is checked, and the call does not synchronise.
+    The four output fields are views of one buffer.
     """
     if state.position.device.type == "cpu":
         _counts["reference"] += 1
@@ -244,25 +364,30 @@ def foot_rollout_fused(cparams, fparams, state, null_position, null_rotation, *,
     steps = int(steps)
     if steps < 0 or steps > 2**31 - 1:
         raise ValueError(f"steps must be in [0, 2^31), got {steps}")
-    p, R, v, w, p0, R0, k, b, scal, per_lane = rollout_operands(
+    tensors, scalars, k_value, b_value, per_lane = launch_operands(
         cparams, fparams, state, null_position, null_rotation, dt)
-    operands = (p, R, v, w, p0, R0, k, b)
-    for t in operands:
-        if t.device != device or t.dtype != torch.float32:
+    ptrs = []
+    for t in tensors:
+        if t is None:
+            ptrs.append(None)
+            continue
+        if t.device != device or t.dtype is not torch.float32:
             raise TypeError(f"foot_rollout_fused kernel takes float32 tensors on {device};"
                             f" got {t.dtype} on {t.device}")
-    p, R, v, w, p0, R0, k, b = (t.contiguous() for t in operands)
-    B = p.shape[0]
+        ptrs.append(t.data_ptr())
+    B = tensors[0].shape[0]
     lib = build_foot_rollout()
-    out = [torch.empty_like(t) for t in (p, R, v, w)]
+    out = torch.empty(18 * B, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
         code = lib.blf_foot_rollout_f32(
-            *(t.data_ptr() for t in (p, R, v, w, p0, R0, k, b, scal, *out)),
-            B, steps, *(int(flag) for flag in per_lane), stream)
+            *ptrs, scalars, k_value, b_value, out.data_ptr(), B, steps, *per_lane,
+            torch.cuda.current_stream().cuda_stream)
     if code != 0:
         what = (lib.blf_cuda_error_string(code).decode() if code > 0
                 else {-2: "bad batch"}.get(code, "?"))
         raise RuntimeError(f"foot_rollout_fused launch failed ({code}): {what}")
     _counts["launch"] += 1
-    return type(state)(*out)
+    return type(state)(out.as_strided((B, 3), (3, 1)),
+                       out.as_strided((B, 3, 3), (9, 3, 1), 3 * B),
+                       out.as_strided((B, 3), (3, 1), 12 * B),
+                       out.as_strided((B, 3), (3, 1), 15 * B))

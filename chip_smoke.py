@@ -298,8 +298,8 @@ def phase_device() -> dict:
 def phase_build() -> dict:
     """Build every kernel library of both paths, one ``nvcc`` each, all
     started together; then load them through their wrappers."""
-    jobs = [("admm_stage", admm_kernel.SOURCE, {"ADMM_M": M, "ADMM_N": N}),
-            ("admm_stage_stack", admm_kernel.SOURCE, {"ADMM_M": STACK_M, "ADMM_N": STACK_N}),
+    jobs = [("admm_stage", admm_kernel.SOURCE, admm_kernel.stage_defines(M, N)),
+            ("admm_stage_stack", admm_kernel.SOURCE, admm_kernel.stage_defines(STACK_M, STACK_N)),
             ("admm_lane", lane_kernel.SOURCE, {"ADMM_M": WBC_M, "ADMM_N": WBC_N})]
     jobs += [(f"admm_stage_tc_{mode}{tag}", admm_kernel.TC_SOURCE,
               admm_kernel.tc_defines(m, n, mode))
@@ -384,6 +384,41 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
+def f32_stage_bound(m: int, n: int, B: int, iters: int) -> dict:
+    """The least time of an exact-f32 stage at (m, n, B, iters) as
+    csrc/admm_stage.cu computes it: 2 products x 6 bf16 passes an iteration
+    (2 m n B flop each) at the bf16 tensor-core peak, against the f32
+    elementwise operations counted from its source (an element of v: clip 2,
+    w 3, its three pieces 4, the hh pass's k-step sums n/16, the update 5; of
+    tau: its k-step sums m/16, 2, its pieces 4; 5 an element of tau for the
+    stage's gains; at the f32 peak) and the bytes (each input read once, each
+    output written once). Beside it, the bound of the same stage in f32 FMAs
+    (4 m n B flop an iteration at the f32 peak), which no exact kernel on the
+    FMA units can beat."""
+    k1, k2 = -(-m // 16), -(-n // 16)
+    ops = B * (iters * (m * (14 + k2) + n * (6 + k1)) + 5 * n)
+    nbytes = 4 * (B * ((3 * m + 2 * n + 1) + (m + n)) + m * n + m + n)
+    times = {"tensor": 1e3 * iters * 2 * 6 * 2 * m * n * B / PEAK_BF16_FLOPS,
+             "elementwise": 1e3 * ops / PEAK_F32_FLOPS,
+             "bytes": 1e3 * nbytes / PEAK_BYTES_PER_S}
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by], "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_basis": by, "bound_tensor_ms": times["tensor"],
+            "bound_elementwise_ms": times["elementwise"], "bound_bytes_ms": times["bytes"],
+            "bound_fma_ms": 1e3 * iters * 2 * (2 * m * n) * B / PEAK_F32_FLOPS,
+            "passes": 12 * iters,
+            "bound_source": "H100 SXM data sheet: 989 TFLOP/s bf16 dense, 67 TFLOP/s f32,"
+                            " 3.35 TB/s"}
+
+
+def ptxas_residency(source: str, defines: dict) -> dict:
+    """Registers a thread and spilled bytes ``nvcc -Xptxas -v`` reported."""
+    log = _build.last_build_log(source, defines)
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    check(bool(regs), f"the build log of {source} {defines} reports its registers")
+    return {"registers": max(regs), "spill_bytes": ptxas_spill_bytes(source, defines)}
+
+
 def kernels_admm_stage(problem) -> dict:
     """K1 against its plain version at the fleet tick's shapes."""
     batch = BATCH
@@ -451,22 +486,19 @@ def kernels_admm_stage(problem) -> dict:
     plain_ms = statistics.median(
         time_cuda(lambda: admm_kernel.admm_stage_reference(*args, **kw),
                   warmup=1, reps=3))
-    flops = STAGE_ITERS * 2 * (2 * M * N) * batch
-    nbytes = 4 * (batch * ((3 * M + 2 * N + 1) + (M + N)) + M * N + M + N)
-    ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
-    entry = {
+    bound = f32_stage_bound(M, N, batch, STAGE_ITERS)
+    return {
         "name": "admm_stage", "shape": [M, N], "iters": STAGE_ITERS,
         "batch_timed": batch, "cases": cases, "nan_lane": "confined",
+        **ptxas_residency(admm_kernel.SOURCE, admm_kernel.stage_defines(M, N)),
+        "shared_bytes": admm_kernel.stage_shared_bytes(M, N),
         "max_rel_err": max_rel, "max_abs_err": max_abs, "tolerance_rel": REL_TOL,
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
-        "tflops": flops / (kernel_ms * 1e-3) / 1e12,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, **bound,
+        "fraction_of_bound": bound["bound_ms"] / kernel_ms,
+        "fraction_of_fma_bound": bound["bound_fma_ms"] / kernel_ms,
+        "tflops_tensor": bound["passes"] * 2 * M * N * batch / (kernel_ms * 1e-3) / 1e12,
         "library_ms": None,
     }
-    return entry
 
 
 def median_ms(fn, warmup: int, reps: int) -> float:
@@ -810,17 +842,14 @@ def kernels_admm_stage_stack(seen) -> dict:
     kernel_ms = median_ms(lambda: admm_kernel.admm_stage(*args, **kw), 3, 11)
     plain_ms = median_ms(lambda: admm_kernel.admm_stage_reference(*args, **kw), 1, 3)
     B, m, n, iters = args[0].shape[0], STACK_M, STACK_N, kw["iters"]
-    flops = iters * 2 * (2 * m * n) * B
-    nbytes = 4 * (B * ((3 * m + 2 * n + 1) + (m + n)) + m * n + m + n)
-    ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    bound = f32_stage_bound(m, n, B, iters)
     return {
         "name": "admm_stage", "path": "stack", "shape": [m, n], "iters": iters,
         "batch_timed": B, "cases": cases, "max_rel_err": max_rel, "max_abs_err": max_abs,
-        "tolerance_rel": REL_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s", "library_ms": None,
+        **ptxas_residency(admm_kernel.SOURCE, admm_kernel.stage_defines(m, n)),
+        "shared_bytes": admm_kernel.stage_shared_bytes(m, n),
+        "tolerance_rel": REL_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms, **bound,
+        "fraction_of_bound": bound["bound_ms"] / kernel_ms, "library_ms": None,
     }
 
 
@@ -1287,6 +1316,20 @@ def kernels_foot_rollout() -> dict:
         *args(fleet), dt=fleet.dt, steps=FOOT_STEPS), 2, 11)
     short_ms = median_ms(lambda: rollout_kernel.foot_rollout_fused(
         *args(fleet), dt=fleet.dt, steps=IDENT_STEPS), 5, 21)
+    # the same launches without the wrapper: its operands made once, the
+    # library called directly (what the card takes; the rest is host work)
+    tensors, scalars, k_value, b_value, flags = rollout_kernel.launch_operands(
+        *args(fleet), fleet.dt)
+    lib, raw_out = rollout_kernel.build_foot_rollout(), torch.empty(18 * FOOT_LANES, device=DEVICE)
+
+    def raw(steps):
+        check(lib.blf_foot_rollout_f32(
+            *[None if t is None else t.data_ptr() for t in tensors], scalars, k_value, b_value,
+            raw_out.data_ptr(), FOOT_LANES, steps, *map(int, flags),
+            torch.cuda.current_stream().cuda_stream) == 0, "raw K5 launch")
+
+    raw_ms = median_ms(lambda: raw(FOOT_STEPS), 2, 11)
+    raw_short_ms = median_ms(lambda: raw(IDENT_STEPS), 5, 21)
     plain_ms = median_ms(lambda: rollout_kernel.foot_rollout_fused_reference(
         *args(fleet), dt=fleet.dt, steps=FOOT_STEPS), 0, 3)
     bound, ops_ms, bytes_ms = foot_bound_ms(fleet, FOOT_STEPS)
@@ -1296,6 +1339,8 @@ def kernels_foot_rollout() -> dict:
         "name": "foot_rollout_fused", "path": "foot", "shape": [FOOT_LANES, FOOT_STEPS],
         "cases": cases, "nan_lane": "confined", "max_abs_err": max_abs, "max_rel_err": None,
         "tolerance_abs": FOOT_TOL, "kernel_ms": kernel_ms, "kernel_ms_10_steps": short_ms,
+        "raw_launch_ms": raw_ms, "raw_launch_ms_10_steps": raw_short_ms,
+        **ptxas_residency(rollout_kernel.SOURCE, {}), "shared_bytes": 0,
         "plain_ms": plain_ms, "library_ms": None,
         "bound_ms": bound, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms, "bound_ms_10_steps": short_bound,

@@ -9,7 +9,12 @@ runs the kernel's plain version) against
   Pallas kernel accumulates in float32, so it is no float64 yardstick).
 
 The CUDA kernel itself cannot run without a GPU; ``chip_smoke.py`` holds it
-against the same plain version on the card.
+against the same plain version on the card. What the CPU can check of it is
+its arithmetic: the kernel takes each product as six bf16 passes on the
+tensor cores, and an emulation of that order (with the tensor cores' f32
+accumulation modelled as truncation) is held to the plain version here. Run
+as a script, this file is that study at the fleet tick's shape, on the
+tick's own stages.
 """
 
 import functools
@@ -144,22 +149,175 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
 
 
 def test_shapes_the_kernel_cannot_hold_are_rejected():
-    assert port.stage_shared_bytes(192, 128) == 191488
-    port._check_shape(192, 128)
-    port._check_shape(48, 32)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        port._check_shape(48, 30)
+    """G2's three bf16 pieces (rows padded to 64, columns to whole 64-row
+    tiles of n: 144 KB at (192, 128)), one 32-lane tile's pieces of w and tau
+    (60 KB) and its s / (1 + s d) (16 KB); one warpgroup a 64-row tile of m,
+    at most three."""
+    assert port.stage_shared_bytes(192, 128) == 225280
+    assert port.stage_shared_bytes(48, 32) == 36352          # 16-lane tiles
+    assert port.stage_defines(48, 32) == {"ADMM_M": 48, "ADMM_N": 32, "ADMM_LANES": 16}
+    for m, n in ((192, 128), (48, 32), (48, 30), (96, 64), (1, 1)):
+        port._check_shape(m, n)
+    with pytest.raises(ValueError, match="warpgroup"):
+        port._check_shape(256, 128)
+    with pytest.raises(ValueError, match="warpgroup"):       # n's row tiles outnumber m's
+        port._check_shape(64, 96)
     with pytest.raises(ValueError, match="shared memory"):
-        port._check_shape(384, 256)
+        port._check_shape(192, 192)
 
 
 def test_kernel_source_is_self_contained_cuda():
-    """The kernel computes both products in its own body: no library GEMM."""
+    """The kernel computes both products in its own body, on wgmma: no
+    library GEMM."""
     from blf_tpu_torch.ops.cuda import _build
 
-    src = (_build.CSRC_DIR / port.SOURCE).read_text()
-    assert "__global__" in src and "fmaf" in src
-    for banned in ("cublas", "cutlass", "torch/", "ATen"):
+    files = _build.source_files(port.SOURCE)
+    assert [f.name for f in files] == ["admm_stage.cu", "wgmma_common.cuh"]
+    src = "".join(f.read_text() for f in files)
+    assert "__global__" in src and "wgmma.mma_async" in src and "imm-trans-a" not in src
+    for banned in ("cublas", "cutlass", "torch/", "ATen", "mma.sync"):
         assert banned not in src
     assert "-use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# --------------------------------------------------------------------------
+# the six-pass product of csrc/admm_stage.cu, emulated in torch
+# --------------------------------------------------------------------------
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _pieces(x):
+    """hi, mid, lo: three bf16 values whose sum is x exactly (float32)."""
+    hi = _bf16(x)
+    mid = _bf16(x - hi)
+    return hi, mid, _bf16(x - hi - mid)
+
+
+def _toward_zero(s):
+    """float64 -> float32, rounded toward zero."""
+    r = s.to(torch.float32)
+    return torch.where(r.double().abs() > s.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _tensor_core_sum(x, a, acc=None):
+    """``acc + x @ a`` as the tensor cores are modelled to sum it: 16 terms
+    (a k step) at a time, each exact product and the accumulator aligned to
+    the largest of them and truncated to 24 bits, summed, and rounded toward
+    zero to float32 (pessimistic: no guard bits)."""
+    for k0 in range(0, x.shape[1], 16):
+        terms = x[:, k0:k0 + 16, None].double() * a[None, k0:k0 + 16].double()
+        if acc is not None:
+            terms = torch.cat([acc.double()[:, None], terms], dim=1)
+        top = terms.abs().amax(dim=1, keepdim=True)
+        quantum = torch.ldexp(torch.ones_like(top), torch.frexp(top)[1] - 24)
+        quantum = torch.where(top > 0, quantum, torch.ones_like(quantum))
+        acc = _toward_zero((torch.trunc(terms / quantum) * quantum).sum(dim=1))
+    return acc
+
+
+def six_pass_product(x, a_pieces):
+    """``x @ A`` in the kernel's order: the five small passes (lh, mm, hl,
+    mh, hm) into one accumulator, then the hh pass one k step at a time from
+    zero, each added in float32 round-to-nearest."""
+    (ah, am, al), (xh, xm, xl) = a_pieces, _pieces(x)
+    acc = None
+    for xp, ap in ((xh, al), (xm, am), (xl, ah), (xh, am), (xm, ah)):
+        acc = _tensor_core_sum(xp, ap, acc)
+    for k0 in range(0, x.shape[1], 16):
+        acc = acc + _tensor_core_sum(xh[:, k0:k0 + 16], ah[k0:k0 + 16])
+    return acc
+
+
+def six_pass_stage(v, tau, s, gq, l, u, G2, d, base_rho, *, iters, alpha):
+    """:func:`admm_stage_reference`'s f32 recursion with the six-pass
+    products (float32 tensors)."""
+    sdinv = s / (1.0 + s * d)
+    gqs = gq / s
+    g2 = _pieces(G2)
+    g2t = tuple(p.T for p in g2)
+    for _ in range(iters):
+        z = torch.minimum(torch.maximum(v, l), u)
+        w = base_rho * (2.0 * z - v)
+        tau = (six_pass_product(w, g2) - gqs) * sdinv
+        v = v + alpha * (six_pass_product(tau, g2t) - z)
+    return v, tau
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def test_six_pass_emulation_holds_the_plain_version():
+    """The kernel's arithmetic at (96, 64), 256 lanes, 25 iterations: within
+    chip_smoke.py's REL_TOL = 1e-5 of the exact f32 plain version (measured
+    1.2e-6; the plain version itself lies 1.4e-6 from float64), and a NaN
+    lane confined. The pieces hold every normal float32 exactly."""
+    a = stage_problem(16, 256, np.float32)
+    args = [torch.as_tensor(a[k]) for k in ORDER]
+    x = torch.cat([args[0].flatten(), args[6].flatten(), torch.tensor([1e-30, -1e30, 0.0])])
+    assert torch.equal(sum(_pieces(x)), x)
+    v6, t6 = six_pass_stage(*args, iters=25, alpha=ALPHA)
+    vp, tp = port.admm_stage_reference(*args, iters=25, alpha=ALPHA)
+    assert max(_rel(v6, vp), _rel(t6, tp)) <= 1e-5
+    args[0] = args[0].clone()
+    args[0][5, 3] = float("nan")
+    vn, tn = six_pass_stage(*args, iters=2, alpha=ALPHA)
+    vc, tc = six_pass_stage(*[torch.as_tensor(a[k]) for k in ORDER], iters=2, alpha=ALPHA)
+    others = torch.arange(256) != 5
+    assert not bool(torch.isfinite(vn[5]).all()) and torch.equal(vn[others], vc[others])
+
+
+def study(lanes=1024, ticks=10):
+    """The six-pass emulation against the plain version at the fleet tick's
+    (192, 128): on stage_problem's cold inputs and on both stages of the
+    port's own f32 tick (``backend="cuda"``, the plain version on the CPU) at
+    ticks 1, 3 and ``ticks``; each beside the plain version's own distance
+    from float64."""
+    import json
+    from unittest import mock
+
+    from blf_tpu_torch.mpc import qp as tqp
+    from blf_tpu_torch.parallel.sweep import init_fleet, make_fleet_step
+    from blf_tpu_torch.problems import stationary_push_recovery
+
+    torch.set_num_threads(8)
+
+    def row(name, args, kw):
+        v6, t6 = six_pass_stage(*args, **kw)
+        vp, tp = port.admm_stage_reference(*args, **kw)
+        ve, te = port.admm_stage_reference(*(x.double() for x in args), **kw)
+        out = {"inputs": name, "B": args[0].shape[0], "iters": kw["iters"],
+               "six_pass_vs_plain": max(_rel(v6, vp), _rel(t6, tp)),
+               "six_pass_vs_float64": max(_rel(v6.double(), ve), _rel(t6.double(), te)),
+               "plain_vs_float64": max(_rel(vp.double(), ve), _rel(tp.double(), te))}
+        print(json.dumps(out), flush=True)
+
+    a = stage_problem(32, lanes, np.float32)
+    row("stage_problem", [torch.as_tensor(a[k]) for k in ORDER], dict(iters=25, alpha=ALPHA))
+    problem = stationary_push_recovery(lanes, 32, seed=0, device="cpu", dtype=torch.float32)
+    refs = (problem.dcm_ref, problem.zmp_ref, problem.poly_A, problem.poly_b)
+    seen = []
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return port.admm_stage(*args, **kw)
+
+    state = init_fleet(lanes, 32, problem.num_constraints, problem.dcm0, problem.com0,
+                       device="cpu", dtype=torch.float32)
+    step = make_fleet_step(problem.params, problem.dt, iterations=50, backend="cuda",
+                           device="cpu")
+    with mock.patch.object(tqp, "admm_stage", record):
+        for _ in range(ticks):
+            state, _ = step(state, problem.disturbance[:lanes], *refs)
+    for tick in (1, 3, ticks):
+        for stage in (0, 1):
+            args, kw = seen[2 * (tick - 1) + stage]
+            row(f"tick{tick}_stage{stage + 1}", list(args),
+                dict(iters=kw["iters"], alpha=kw["alpha"]))
+
+
+if __name__ == "__main__":
+    study()

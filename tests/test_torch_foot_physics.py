@@ -102,3 +102,60 @@ def test_wrapper_runs_the_plain_version_on_cpu_and_raises_elsewhere():
                                           dt=fleet.dt, steps=3)
     with pytest.raises(ValueError, match="unknown backend"):
         foot_rollout(*args, fleet.dt, 3, backend="pallas")
+
+
+def test_kernel_takes_its_scalars_by_value_in_the_plain_versions_order():
+    """K5's launch operands copy nothing to the device: ``FootScalars`` holds
+    (L, W, mass, I1, I2, I3, rho, dt) in the order of the plain version's (8,)
+    tensor, k and b go by value where one value serves every lane and as
+    contiguous (B,) tensors where they are per lane; a parameter changed in
+    place is read again."""
+    from blf_tpu_torch.problems import contact_identification_fleet
+
+    fleet = foot_drop_fleet(5, device="cpu")
+    args = (fleet.cparams, fleet.fparams, fleet.state, fleet.null_position,
+            fleet.null_rotation, fleet.dt)
+    tensors, scalars, k_value, b_value, per_lane = rollout_kernel.launch_operands(*args)
+    plain = rollout_kernel.rollout_operands(*args)[8]
+    packed = [scalars.length, scalars.width, scalars.mass, *scalars.inertia,
+              scalars.baumgarte_rho, scalars.dt]
+    assert [f[0] for f in rollout_kernel.FootScalars._fields_] == [
+        "length", "width", "mass", "inertia", "baumgarte_rho", "dt"]
+    np.testing.assert_array_equal(np.float32(packed), plain.numpy())
+    assert (k_value, b_value, per_lane) == (2e5, 2e3, (True, False, False, False))
+    assert tensors[6] is None and tensors[7] is None and tensors[5].shape == (3, 3)
+    assert all(t.is_contiguous() for t in tensors[:6])
+
+    ident = contact_identification_fleet(6, samples=2, device="cpu")
+    tensors, _, _, _, per_lane = rollout_kernel.launch_operands(
+        ident.cparams, ident.fparams, ident.state, ident.null_position, ident.null_rotation,
+        ident.dt)
+    assert per_lane == (False, False, True, True)
+    assert tensors[6].shape == (6,) and tensors[7].shape == (6,)
+    assert torch.equal(tensors[6], ident.cparams.spring_coeff[:, 0])
+
+    fleet.fparams.mass.fill_(2.0)          # in place: a new version, read again
+    assert rollout_kernel.launch_operands(*args)[1].mass == 2.0
+
+
+def test_kernel_operands_reject_wrong_shapes():
+    """The launch path checks what the plain version's path checks."""
+    fleet = foot_drop_fleet(5, device="cpu")
+    cp, fp, state = fleet.cparams, fleet.fparams, fleet.state
+    run = lambda **kw: rollout_kernel.launch_operands(
+        kw.get("cp", cp), kw.get("fp", fp), kw.get("state", state),
+        kw.get("p0", fleet.null_position), kw.get("R0", fleet.null_rotation), fleet.dt)
+    with pytest.raises(ValueError, match="spring_coeff"):
+        run(cp=cp._replace(spring_coeff=torch.ones(4)))
+    with pytest.raises(ValueError, match="damper_coeff"):
+        run(cp=cp._replace(damper_coeff=torch.ones(5, 2)))
+    with pytest.raises(ValueError, match="null_rotation"):
+        run(R0=torch.eye(3)[:, :2])
+    with pytest.raises(ValueError, match="null_position"):
+        run(p0=torch.zeros(4, 3))
+    with pytest.raises(ValueError, match=r"position must be \(B, 3\)"):
+        run(state=FootState(*(x[None] for x in state)))
+    with pytest.raises(ValueError, match="rotation must be"):
+        run(state=state._replace(rotation=state.rotation[:, :2]))
+    with pytest.raises(ValueError, match="inertia"):
+        run(fp=fp._replace(inertia=torch.ones(2)))
