@@ -1,85 +1,78 @@
-// Fused shared-operator v-space ADMM stage on Hopper's tensor cores (sm_90a),
-// exact float32: every product a six-pass sum of bf16 products.
+// Fused shared-operator v-space ADMM stage for NVIDIA Hopper (sm_90a), f32.
 //
 // Replaces the TPU kernel blf_tpu/ops/pallas/admm.py::_stage_kernel_t (entry
 // admm_stage_t / admm_stage, matmul="f32"). One launch runs `iters`
 // iterations, at a fixed per-lane penalty multiplier s, of
 //
-//     z   = clip(v, l, u)
-//     w   = rho * (2 z - v)
-//     t   = G2^T w                      (n outputs, contraction over m)
+//     z  = clip(v, l, u)
+//     w  = rho * (2 z - v)
+//     t  = G2^T w                       (n outputs, contraction over m)
 //     tau = (t - gq / s) * s / (1 + s d)
-//     v  += alpha (G2 tau - z)          (m outputs, contraction over n)
+//     v += alpha (G2 tau - z)           (m outputs, contraction over n)
 //
-// for every lane of a fleet that shares one operator G2 (m, n). The
-// reference's "f32" mode is itself a tensor-core algorithm: Precision.HIGHEST
-// products, six bf16 passes (admm.py:62-63). This kernel takes the same road
-// on wgmma: every f32 operand x is split into three bf16 pieces, hi = bf16(x),
-// mid = bf16(x - hi), lo = bf16(x - hi - mid), which hold its 24 bits exactly,
-// and a product A b is the six passes hh + hm + mh + hl + mm + lh of piece
-// products (the three left out are below 2^-24 of it), each exact in f32,
-// accumulated in f32.
+// for every lane of a fleet that shares one operator G2 (m, n). Both products
+// of an iteration are computed here, in this kernel's body; v and tau never
+// leave the SM between the first and the last iteration.
 //
-// What bounds it on an H100. At (m, n, B, iters) = (192, 128, 98304, 25) a
-// stage is 2 products x 6 passes x 25 iterations = 300 passes of 2 m n B
-// flop, 1.47 ms at the H100 SXM data sheet's 989 TFLOP/s bf16 dense peak;
-// the FMA form of the same stage needs 3.61 ms at its 67 TFLOP/s f32. The
-// elementwise work (some 45 f32 operations an element of v an iteration) and
-// the device-memory traffic (4.6 KB a lane, once) lie below that.
+// What bounds it on an H100: operations. A stage does 4*m*n flops a lane an
+// iteration and moves (4m + 3n + 1) floats a lane once; at (m, n, iters) =
+// (192, 128, 25) that is 2.5 Mflop against 4.6 KB a lane, some 530 flop a
+// byte, far above the card's f32 balance of about 20. So the design spends
+// its effort on the FMA pipe and none on the device-memory traffic.
 //
-// What held the FMA kernel this one replaces (this file until then; on an
-// NVIDIA H100 80GB HBM3 at 700.00 W, 8.0 ms at that shape, PERF.md section
-// 6): its two products were 90 % of its time (a copy without them ran 0.85
-// ms), at 29 TFLOP/s with one block of 8 warps an SM, its 187 KB of shared
-// memory allowing no second.
+// Why the FMA units and not the tensor cores. The reference's "f32" is six
+// bf16 passes a product (Precision.HIGHEST); the same passes on wgmma ran the
+// stage in 3.4 ms where this kernel's first version took 8.0 and agreed
+// with the plain version to 4.5e-6 (this kernel: 2.5e-6), but the fleet tick
+// on them left 1-3 % of its lanes unconverged on its hardest ticks, 3 to 5,
+// against at most 0.02 % on round-to-nearest FMA sums (PERF.md section 6;
+// NVIDIA H100 80GB HBM3, 700.00 W). The tensor cores' f32 accumulation
+// truncates; which of its effects moves the tick is not identified.
+//
+// What held the first version (one 32-lane tile on 256 threads; on the card
+// above, 8.0 ms at (192, 128), B 98304): its products were 90 % of its time
+// (a copy without them took 0.85 ms) at 45 % of the FMA peak, with one block
+// of 8 warps an SM, two a scheduler, to hide the shared-memory loads that feed
+// them; its 187 KB of shared memory let no second block in.
 //
 // Design (each choice with its reason):
-//  * The operator is kept ONCE, as its three bf16 pieces, 3 x 48 KB at
-//    (192, 128): both orientations in hi/mid/lo would need 288 KB. G2 tau
-//    reads it K-major; G2^T w reads the same bytes MN-major, through wgmma's
-//    transpose of A. rho is applied to w as an m-vector, as the plain
-//    version does, so no second, rho-scaled copy is needed. (3xTF32 would
-//    need both orientations in hi/lo words: tf32 wgmma takes K-major
-//    operands only.)
-//  * Operands are staged as the three pieces of w (36 KB for 32 lanes) and of
-//    tau (24 KB); s / (1 + s d) of the tile (16 KB) lies in shared memory,
-//    not in registers: 220 KB in all. cvt.rn.bf16x2.f32 packs two lanes, and
-//    stmatrix.trans writes a warp's accumulator fragment as the K-major rows
-//    of the next product's B. Two barriers an iteration: after the w pieces
-//    and after the tau pieces are written.
-//  * Accumulation. Tensor-core f32 accumulation drops the low bits of what
-//    it adds to a large running sum, toward zero (PERF.md section 6, PR 5).
-//    So the five small passes (lh, mm, hl, mh, hm, in that order) are summed
-//    in one accumulator of their own, 2^-8 of the product's size, and the
-//    large hh pass is taken one k-step (16 terms) and 16 lanes at a time from
-//    zero, each added to that sum in f32 round-to-nearest: two m64n16 scratch
-//    accumulators alternate, so one is in flight while the last is added. The
-//    CPU study of this order (tests/test_torch_admm_stage.py run as a
-//    script, with tensor-core accumulation modelled as truncation) stays
-//    within the plain version's own float32 noise.
-//  * Everything else is admm_stage_tc.cu's machinery: 32-lane tiles (wgmma's
-//    N) on one warpgroup a 64-row tile of m (three at (192, 128), the two
-//    that own a row tile of n carry gq/s and take 176 registers by
-//    setmaxnreg, the third 152), persistent blocks that load and
-//    split the operator once, an L2 prefetch of the next tile; one warpgroup
-//    and 16-lane tiles for an operator of one row tile each way (the
-//    stack's (48, 32)), whose stage is latency-bound.
-//  * The elementwise steps use __fmul_rn / __fadd_rn / __fsub_rn and
-//    IEEE division (s/(1 + s d) and gq/s, once a stage), as the plain
-//    version rounds them; no -use_fast_math.
-//  * clip passes on a NaN of v, l or u (max.NaN / min.NaN). A product never
-//    mixes lanes (a lane is a column of B), so a poisoned lane poisons
-//    nothing else.
-//  * Any B >= 1: lanes past B are loaded as zeros (s = 1) and never stored.
+//  * One block of 512 threads, 16 warps an SM, works on a tile of 32 lanes:
+//    two halves of 256 threads split the contraction of each product, the
+//    first half over m's (or n's) first half, the second over the rest, each
+//    with the first version's register micro-tiles (4 n-rows x 4 lanes in
+//    G2^T w, ceil(m/32) m-rows x 4 lanes in G2 tau; each 16-byte shared load
+//    feeds 4 or 16 FMAs). Twice the warps with the same loads an FMA, at the
+//    cost of one exchange of partial sums a product through shared memory.
+//  * Each half owns half of the outputs: two rows of each of its n-row quads
+//    of t, and half of its m-rows of v. A half writes the partial sums of
+//    the other's rows, the other adds them to its own (a + b, round-to-
+//    nearest, the same whichever half adds). So v, z and the gains
+//    s/(1 + s d), gq/s are held once, by their owner: under 128 registers.
+//    The half is a template parameter, so every register index is fixed at
+//    compile time.
+//  * The operator is resident in shared memory, ONE copy for both products
+//    (rho is applied as an m-vector), rows padded by 4 floats so that the
+//    rows a warp reads together fall on different banks.
+//  * Four barriers an iteration: after w, after the partials of t, after
+//    tau, after the partials of G2 tau.
+//  * Both product loops unrolled 4 deep: 7.0 ms at (192, 128) where 4 / 2
+//    gave 7.2, 8 / 2 7.3 and 2 / 2 8.0 (NVIDIA H100 80GB HBM3, 700.00 W;
+//    PERF.md section 6); 128 registers, none spilled.
+//  * s/(1+s d) and gq/s are formed once per stage, in IEEE division.
+//  * clip is written with comparisons and passes on a NaN of v, l or u, as
+//    jnp.clip and torch.minimum(torch.maximum()) do; fminf/fmaxf would swallow
+//    it. Lanes never mix, so a poisoned lane poisons nothing else.
+//  * The last tile is masked: lanes past B are loaded as zeros (s = 1) and
+//    never stored, so any B >= 1 is taken.
 //
-// The shape (m, n) and the tile width are compile-time constants
-// (-DADMM_M=.. -DADMM_N=.. -DADMM_LANES=16|32): ops/cuda/_build.py compiles
-// one library per shape at first use. m <= 192 and n <= 64 ceil(m / 64).
+// The shape (m, n) is a compile-time constant (-DADMM_M=.. -DADMM_N=..):
+// ops/cuda/_build.py compiles one library per shape at first use. n must be a
+// multiple of 4 and the tile must fit in 227 KB of shared memory.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//             -shared -Xcompiler -fPIC -Xptxas -v (no -use_fast_math).
+//             -shared -Xcompiler -fPIC (no -use_fast_math).
 
-#include "wgmma_common.cuh"
+#include <cuda_runtime.h>
 
 #ifndef ADMM_M
 #error "compile with -DADMM_M=<rows of G2>"
@@ -87,352 +80,284 @@
 #ifndef ADMM_N
 #error "compile with -DADMM_N=<columns of G2>"
 #endif
-#ifndef ADMM_LANES
-#error "compile with -DADMM_LANES=16 or 32 (lanes of a tile)"
-#endif
 
 namespace {
 
 constexpr int M = ADMM_M;
 constexpr int N = ADMM_N;
-constexpr int LT = ADMM_LANES;           // lanes of a tile: wgmma's N
-constexpr int NV = LT / 2;               // accumulator values a thread holds of a row tile
-constexpr int MT1 = (N + 63) / 64;       // 64-row tiles of t = G2^T w (n rows)
-constexpr int MT2 = (M + 63) / 64;       // 64-row tiles of G2 tau (m rows)
-constexpr int WGS = MT2;                 // warpgroups: one a row tile of m
-constexpr int THREADS = 128 * WGS;
-constexpr int K1 = (M + 15) / 16 * 16;   // contraction of t, padded to wgmma's k
-constexpr int K2 = (N + 15) / 16 * 16;   // contraction of G2 tau
-constexpr int KC = 64 * MT1;             // columns of the stored operator: n padded to
-                                         // whole row tiles of t, which reads it MN-major
-constexpr int R2 = 64 * MT2;             // rows of the stored operator
-constexpr int G_ELEMS = R2 * KC;         // bf16 elements of one piece of G2
-constexpr int W_ELEMS = LT * K1;         // one piece of w
-constexpr int T_ELEMS = LT * K2;         // one piece of tau
-constexpr int SD_FLOATS = MT1 * NV * 128;   // s / (1 + s d) of t's row tiles, a slot a thread
-constexpr size_t SMEM_BYTES = 2 * 3 * ((size_t)G_ELEMS + W_ELEMS + T_ELEMS) + 4 * (size_t)SD_FLOATS;
-// Registers a thread of a warpgroup with a row tile of t, and of one
-// without, where both kinds exist among three: setmaxnreg moves registers
-// between them inside the 3 x 168 a thread the block was launched with
-// (asking for more than was released waits for ever).
-constexpr int REG_T = 176;
-constexpr int REG_U = 152;
-static_assert(WGS < 3 || MT1 * REG_T + (WGS - MT1) * REG_U <= 3 * 168, "register split");
-constexpr int BAR_ALL = 1;               // barrier id of every warpgroup (0 is __syncthreads)
+constexpr int L = 32;             // lanes per block
+constexpr int THREADS = 512;      // two halves of 32 row groups x 8 lane groups
+constexpr int NP = N + 4;         // padded row stride of the operator
+constexpr int MJ = (M + 31) / 32;     // m-rows of a row group: rg + 32 j
+constexpr int MJ0 = (MJ + 1) / 2;     // half 0 owns j < MJ0, half 1 the rest
+constexpr int NJ = (N + 127) / 128;   // n-row quads of a row group: 4 rg + 128 j
+constexpr bool M_FULL = (M % 32 == 0);
+constexpr bool N_FULL = (N % 128 == 0);
+constexpr int KM = M / 2;             // G2^T w: half 0 sums over m in [0, KM), half 1 the rest
+constexpr int KN = N / 8 * 4;         // G2 tau: half 0 over n in [0, KN), half 1 the rest
+constexpr int PR = M > N ? M : N;     // rows of the partial sums
+constexpr int SMEM_FLOATS = M * NP + 3 * M * L + N * L + PR * L;
+constexpr size_t SMEM_BYTES = sizeof(float) * (size_t)SMEM_FLOATS;
 
-static_assert(LT == 16 || LT == 32, "tiles of 16 or 32 lanes");
-static_assert(M >= 1 && N >= 1, "empty operator");
-static_assert(WGS <= 3, "one warpgroup a 64-row tile: at most three of 168 registers");
-static_assert(MT1 <= MT2, "t's row tiles are owned by the warpgroups of m's");
-static_assert(SMEM_BYTES <= 232448, "operator pieces and operand buffers do not fit in shared memory");
-static_assert(KC * 16 <= 0x3FFF0 && K1 * 16 <= 0x3FFF0, "stride does not fit a matrix descriptor");
+static_assert(N % 4 == 0, "n must be a multiple of 4");
+static_assert(M >= 1 && N >= 4, "empty operator");
+static_assert(SMEM_BYTES <= 232448, "tile does not fit in shared memory");
 
-// Byte offsets: a piece of G2 to the next; the w pieces and the tau pieces
-// from the start of the w pieces; s / (1 + s d) from the start of G2.
-constexpr uint32_t G_STEP = 2 * G_ELEMS;
-constexpr uint32_t W_STEP = 2 * W_ELEMS;
-constexpr uint32_t T_BASE = 3 * W_STEP;
-constexpr uint32_t T_STEP = 2 * T_ELEMS;
-constexpr uint32_t SD_BASE = 3 * G_STEP + T_BASE + 3 * T_STEP;
-
-// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) of a pair of
-// lanes; both differences are exact in f32, so x = hi + mid + lo.
-__device__ __forceinline__ void split3_pair(float x0, float x1, uint32_t& hi, uint32_t& mid,
-                                            uint32_t& lo) {
-    hi = pack_bf16x2(x0, x1);
-    const float r0 = __fsub_rn(x0, low_of(hi)), r1 = __fsub_rn(x1, high_of(hi));
-    mid = pack_bf16x2(r0, r1);
-    lo = pack_bf16x2(__fsub_rn(r0, low_of(mid)), __fsub_rn(r1, high_of(mid)));
+// Every thread of the block: a named barrier, so that the two halves may
+// reach it from their own code.
+__device__ __forceinline__ void block_barrier() {
+    asm volatile("bar.sync 1, %0;\n" :: "n"(THREADS) : "memory");
 }
 
-// acc's 16-lane half h += part, in round-to-nearest
-__device__ __forceinline__ void add_half_rn(float (&acc)[NV], float (&part)[8], int h) {
-    fence_registers(part);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[8 * h + i] = __fadd_rn(acc[8 * h + i], part[i]);
+// min(max(v, l), u) in which a NaN in any operand gives NaN.
+__device__ __forceinline__ float clip_nan(float v, float l, float u) {
+    float z = (v < l) ? l : v;
+    z = (z > u) ? u : z;
+    return (l != l || u != u) ? (l + u) : z;
 }
 
-// acc = A b over contraction K, six passes, for one 64-row tile of A: a[p]
-// and b[p] are the shared addresses of piece p (hi, mid, lo) of A's row tile
-// and of the LT-lane operand b (K-major). A is K-major (TRANS_A false, the
-// next 8 rows SBO_A bytes on) or MN-major (TRANS_A, the next 8 k LBO_A bytes
-// on); A_STEP is its advance a k step, in 16-byte units. The five small
-// passes go into acc as one commit group; the hh pass one k step and 16
-// lanes at a time (m64n16) from zero into t0 / t1, each added to its half of
-// acc in round-to-nearest while the next is in flight: 16 scratch registers,
-// not 32. Every thread of the warpgroup calls it.
-template <int K, bool TRANS_A, uint32_t LBO_A, uint32_t SBO_A, uint32_t A_STEP>
-__device__ __forceinline__ void product6(float (&acc)[NV], const uint32_t (&a)[3],
-                                         const uint32_t (&b)[3]) {
-    constexpr int KS = K / 16;
-    constexpr int HALVES = NV / 8;           // 16-lane halves of the tile
-    constexpr int J = KS * HALVES;           // hh wgmmas: k step j / HALVES, half j % HALVES
-    constexpr uint32_t HALF = 2 * K;         // b's lane 0 to its lane 16, in 16-byte units
-    float t0[8], t1[8];
-    fence_registers(acc);
-    fence_registers(t0);
-    fence_registers(t1);
-    wgmma_fence();
-#pragma unroll
-    for (int p = 0; p < 5; ++p) {
-        // lh, mm, hl, mh, hm: A's piece and b's
-        const int pa = p == 0 ? 2 : (p & 1), pb = p == 2 ? 2 : (p == 0 || p == 3) ? 0 : 1;
-        uint64_t da = opaque(descriptor(a[pa], LBO_A, SBO_A));
-        uint64_t db = opaque(descriptor<K>(b[pb]));
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-            wgmma<NV, TRANS_A>(acc, da, db, p + ks > 0 ? 1 : 0);
-            da = opaque(da + A_STEP);
-            db = opaque(db + 16);
-        }
+// Copy a tile of a lane-major (B, R) array into shared memory as [R][L].
+// The tile is one contiguous run of nl*R floats in device memory.
+template <int R>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
+                                          long long lane0, int nl, float fill) {
+    const float* base = src + lane0 * R;
+    for (int e = threadIdx.x; e < L * R; e += THREADS) {
+        int ll = e / R, r = e - ll * R;
+        dst[r * L + ll] = (ll < nl) ? base[e] : fill;
     }
-    wgmma_commit();
-    // each step's descriptors made from the last's (opaque), so that none is
-    // hoisted into registers of its own
-    uint64_t da = opaque(descriptor(a[0], LBO_A, SBO_A));
-    uint64_t db = opaque(descriptor<K>(b[0]));
-    wgmma<8, TRANS_A>(t0, da, db, 0);
-    wgmma_commit();
+}
+
+template <int R>
+__device__ __forceinline__ void store_tile(float* __restrict__ dst, const float* src,
+                                           long long lane0, int nl) {
+    float* base = dst + lane0 * R;
+    for (int e = threadIdx.x; e < nl * R; e += THREADS) {
+        int ll = e / R, r = e - ll * R;
+        base[e] = src[r * L + ll];
+    }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&x)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// The stage as half H of the block sees it, from the staged tile to v's
+// rows written back to sW. Half H owns m-rows rg + 32 j for j in [J0, J0 +
+// JH) and the n-rows 4 rg + 128 j + 2 H + i2 (i2 < 2) of t.
+template <int H>
+__device__ __forceinline__ void half_stage(float* smem, const float* __restrict__ s_in,
+                                           const float* __restrict__ d_in,
+                                           const float* __restrict__ rho_in, long long lane0,
+                                           int nl, int iters, float alpha) {
+    constexpr int J0 = H ? MJ0 : 0;
+    constexpr int JH = H ? MJ - MJ0 : MJ0;
+    constexpr int JA = JH > 0 ? JH : 1;          // array extent
+    constexpr int KB1 = H ? KM : 0, KE1 = H ? M : KM;
+    constexpr int KB2 = H ? KN : 0, KE2 = H ? N : KN;
+    float* sG = smem;                 // [M][NP] operator
+    float* sL = sG + M * NP;          // [M][L]  lower bounds
+    float* sU = sL + M * L;           // [M][L]  upper bounds
+    float* sW = sU + M * L;           // [M][L]  w (and staging of v)
+    float* sT = sW + M * L;           // [N][L]  tau (and staging of gq)
+    float* sP = sT + N * L;           // [PR][L] partial sums handed to the other half
+
+    const int tid = threadIdx.x & 255;
+    const int lg = tid & 7;           // lane group: lanes 4 lg .. 4 lg + 3
+    const int rg = tid >> 3;          // row group 0..31
+    const int c0 = 4 * lg;
+
+    // per-thread state: v and z of this half's m-rows, the gains of its n-rows
+    float v[JA][4], z[JA][4], rho[JA];
 #pragma unroll
-    for (int j = 1; j < J; ++j) {
-        if (j % HALVES == 0) {
-            da = opaque(da + A_STEP);
-            db = opaque(db - (uint64_t)(HALVES - 1) * HALF + 16);
+    for (int jj = 0; jj < JA; ++jj) {
+        const int mi = rg + 32 * (J0 + jj);
+        if (jj < JH && (M_FULL || mi < M)) {
+            const float4 x = ld4(sW + mi * L + c0);
+            v[jj][0] = x.x; v[jj][1] = x.y; v[jj][2] = x.z; v[jj][3] = x.w;
+            rho[jj] = rho_in[mi];
         } else {
-            db = opaque(db + HALF);
+            v[jj][0] = v[jj][1] = v[jj][2] = v[jj][3] = 0.0f;
+            rho[jj] = 0.0f;
         }
-        if (j & 1) {
-            wgmma<8, TRANS_A>(t1, da, db, 0);
-            wgmma_commit();
-            wgmma_wait<1>();
-            fence_registers(acc);
-            add_half_rn(acc, t0, (j - 1) % HALVES);
-        } else {
-            wgmma<8, TRANS_A>(t0, da, db, 0);
-            wgmma_commit();
-            wgmma_wait<1>();
-            fence_registers(acc);
-            add_half_rn(acc, t1, (j - 1) % HALVES);
-        }
-        wgmma_fence();      // the scratch just read is the next step's
+        z[jj][0] = z[jj][1] = z[jj][2] = z[jj][3] = 0.0f;
     }
-    wgmma_wait<0>();
-    fence_registers(acc);
-    if constexpr ((J - 1) & 1)
-        add_half_rn(acc, t1, (J - 1) % HALVES);
-    else
-        add_half_rn(acc, t0, (J - 1) % HALVES);
-}
-
-// What a warpgroup holds in registers for the tile, in wgmma's m64nLT f32
-// fragment of its row tile: value i is row 16 warp + g + 8 ((i >> 1) & 1) of
-// the tile, lane 8 (i >> 2) + 2 q + (i & 1), for g = lane / 4, q = lane % 4
-// of the thread in its warp.
-struct Tile {
-    float v[NV], lo[NV], up[NV];     // iterate and bounds, its rows of m
-    float rho[2];                    // rho of its two rows
-    float gqs[NV];                   // its rows of n: gq / s (s / (1 + s d) lies in
-                                     // shared memory, see sdinv_slot)
-};
-
-// This thread's slot of s / (1 + s d), value i: a float a thread, 128 apart.
-__device__ __forceinline__ float* sdinv_slot(int i) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    return reinterpret_cast<float*>(smem_raw + SD_BASE) + i * MT1 * 128 + threadIdx.x;
-}
-
-// Where this thread works: its warpgroup, warp and place in the accumulator
-// fragment, and its stmatrix rows in the w and tau buffers (byte offsets
-// from their first piece). Made from the thread index where it is used,
-// never kept across the loops: registers are what the per-lane state needs.
-struct Block {
-    int wg, warp, g, q;
-    uint32_t g2;                     // shared address of G2's hi piece
-    uint32_t w;                      // ... of w's hi piece (tau's follow w's)
-    uint32_t st_w, st_t;             // this thread's stmatrix row in a w / tau piece
-};
-
-__device__ __forceinline__ Block place() {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    uint32_t t;
-    asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
-    Block o;
-    o.wg = __shfl_sync(0xffffffffu, (int)(t >> 7), 0);   // warp-uniform, and seen so
-    t &= 127;
-    o.warp = t >> 5;
-    o.g = (t & 31) >> 2;
-    o.q = t & 3;
-    o.g2 = (uint32_t)__cvta_generic_to_shared(smem_raw);
-    o.w = o.g2 + 3 * G_STEP;
-    // stmatrix: thread 8 b + r of a warp gives row r of block b, block b being
-    // lanes 8 (b >> 1) .. +7 (of the first four; the next x4 adds 16 lanes)
-    // and rows 8 (b & 1) .. +7 of the warp's 16
-    const int lane = t & 31, b = lane >> 3, r = lane & 7;
-    const int k0 = 64 * o.wg + 16 * o.warp + 8 * (b & 1);
-    o.st_w = 2 * kmajor<K1>(8 * (b >> 1) + r, k0 < K1 ? k0 : 0);
-    o.st_t = 2 * kmajor<K2>(8 * (b >> 1) + r, k0 < K2 ? k0 : 0);
-    return o;
-}
-
-__device__ __forceinline__ int row_of(const Block& o, int i) {
-    return 64 * o.wg + 16 * o.warp + o.g + 8 * ((i >> 1) & 1);
-}
-__device__ __forceinline__ int lane_of(const Block& o, int i) {
-    return 8 * (i >> 2) + 2 * o.q + (i & 1);
-}
-
-// Store a warp's LT x 16 block of the operand (its 16 rows of the row tile,
-// as rows of the contraction K), packed as pairs r[2 j + h] = values
-// (4 j + 2 h, 4 j + 2 h + 1) of the fragment, into the K-major buffer at
-// `row` (this thread's stmatrix row, see Block) plus `buf`: unless its rows
-// lie past the contraction.
-template <int K>
-__device__ __forceinline__ void store_pairs(const Block& o, uint32_t buf, uint32_t row,
-                                            const uint32_t (&r)[NV / 2]) {
-    if constexpr (K % 64 != 0)                   // a row tile may reach past K
-        if (64 * o.wg + 16 * o.warp >= K) return;    // warp-uniform
-    stmatrix_x4_trans(buf + row, r[0], r[1], r[2], r[3]);
-    if constexpr (LT == 32)
-        stmatrix_x4_trans(buf + row + 2 * 2 * 8 * K, r[4], r[5], r[6], r[7]);
-}
-
-// Split a fragment's values (pairs of lanes) into their three bf16 pieces
-// and store each into its K-major buffer.
-template <int K>
-__device__ __forceinline__ void store_pieces(const Block& o, uint32_t buf, uint32_t step,
-                                             uint32_t row, const float (&x)[NV]) {
-    uint32_t hi[NV / 2], mid[NV / 2], lo[NV / 2];
+    float s[4];
 #pragma unroll
-    for (int p = 0; p < NV / 2; ++p) split3_pair(x[2 * p], x[2 * p + 1], hi[p], mid[p], lo[p]);
-    store_pairs<K>(o, buf, row, hi);
-    store_pairs<K>(o, buf + step, row, mid);
-    store_pairs<K>(o, buf + 2 * step, row, lo);
-}
-
-// One iteration of a warpgroup that owns a row tile of t (HAS_T) or not;
-// tau goes to tau_out (lanes lane0 .. lane0 + nl - 1) unless it is null: in
-// the last iteration only, so that no register holds it across the next
-// product.
-template <bool HAS_T>
-__device__ __forceinline__ void iteration(Tile& x, float alpha, float* __restrict__ tau_out,
-                                          long long lane0, int nl) {
-    const Block o = place();
-
-    // w = rho (2 clip(v, l, u) - v): its three pieces
-    {
-        float w[NV];
+    for (int c = 0; c < 4; ++c)
+        s[c] = (c0 + c < nl) ? s_in[lane0 + c0 + c] : 1.0f;
+    float gqs[NJ][2][4], sdinv[NJ][2][4];
 #pragma unroll
-        for (int i = 0; i < NV; ++i) {
-            const float z = clip_nan(x.v[i], x.lo[i], x.up[i]);
-            w[i] = __fmul_rn(x.rho[(i >> 1) & 1], __fsub_rn(__fmul_rn(2.0f, z), x.v[i]));
-        }
-        store_pieces<K1>(o, o.w, W_STEP, o.st_w, w);
-        fence_shared_to_async();
-    }
-    barrier(BAR_ALL, THREADS);
-
-    // t = G2^T w, its row tile, reading G2 MN-major; tau = (t - gq/s) s/(1 + s d)
-    if constexpr (HAS_T) {
-        float tau[NV];
-        const uint32_t a0 = o.g2 + 2 * kmajor<KC>(0, 64 * o.wg);
-        product6<K1, true, KC * 16, 128, KC * 2>(
-            tau, {a0, a0 + G_STEP, a0 + 2 * G_STEP}, {o.w, o.w + W_STEP, o.w + 2 * W_STEP});
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-        for (int i = 0; i < NV; ++i)
-            tau[i] = __fmul_rn(__fsub_rn(tau[i], x.gqs[i]), *sdinv_slot(i));
-        store_pieces<K2>(o, o.w + T_BASE, T_STEP, o.st_t, tau);
-        fence_shared_to_async();
-        if (tau_out != nullptr) {
+        for (int i2 = 0; i2 < 2; ++i2) {
+            const int ni = 4 * rg + 128 * j + 2 * H + i2;
+            const bool ok = N_FULL || ni < N;
+            const float dn = ok ? d_in[ni] : 0.0f;
+            float4 g = ok ? ld4(sT + ni * L + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float gv[4] = {g.x, g.y, g.z, g.w};
 #pragma unroll
-            for (int i = 0; i < NV; ++i) {
-                const int row = row_of(o, i), col = lane_of(o, i);
-                if (row < N && col < nl) tau_out[(size_t)(lane0 + col) * N + row] = tau[i];
+            for (int c = 0; c < 4; ++c) {
+                gqs[j][i2][c] = gv[c] / s[c];
+                sdinv[j][i2][c] = s[c] / (1.0f + s[c] * dn);
             }
         }
     }
-    barrier(BAR_ALL, THREADS);
+    block_barrier();   // staging reads done before sW / sT are overwritten
 
-    // u = G2 tau, its row tile (G2 K-major); v += alpha (u - z)
-    {
-        float u[NV];
-        const uint32_t a0 = o.g2 + 2 * kmajor<KC>(64 * o.wg, 0);
-        const uint32_t b0 = o.w + T_BASE;
-        product6<K2, false, 128, KC * 16, 16>(u, {a0, a0 + G_STEP, a0 + 2 * G_STEP},
-                                              {b0, b0 + T_STEP, b0 + 2 * T_STEP});
+    for (int it = 0; it < iters; ++it) {
+        // z = clip(v, l, u); w = rho (2 z - v), this half's m-rows
 #pragma unroll
-        for (int i = 0; i < NV; ++i) {
-            const float z = clip_nan(x.v[i], x.lo[i], x.up[i]);
-            x.v[i] = __fadd_rn(x.v[i], __fmul_rn(alpha, __fsub_rn(u[i], z)));
+        for (int jj = 0; jj < JH; ++jj) {
+            const int mi = rg + 32 * (J0 + jj);
+            if (M_FULL || mi < M) {
+                const float4 lo = ld4(sL + mi * L + c0);
+                const float4 hi = ld4(sU + mi * L + c0);
+                z[jj][0] = clip_nan(v[jj][0], lo.x, hi.x);
+                z[jj][1] = clip_nan(v[jj][1], lo.y, hi.y);
+                z[jj][2] = clip_nan(v[jj][2], lo.z, hi.z);
+                z[jj][3] = clip_nan(v[jj][3], lo.w, hi.w);
+                float w[4];
+#pragma unroll
+                for (int c = 0; c < 4; ++c) w[c] = rho[jj] * (2.0f * z[jj][c] - v[jj][c]);
+                st4(sW + mi * L + c0, w);
+            }
         }
+        block_barrier();
+
+        // t = G2^T w : rows 4 rg + 128 j + i, this half's share of m
+        {
+            float acc[NJ][4][4];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) acc[j][i][c] = 0.0f;
+#pragma unroll 4
+            for (int k = KB1; k < KE1; ++k) {
+                const float4 w = ld4(sW + k * L + c0);
+#pragma unroll
+                for (int j = 0; j < NJ; ++j) {
+                    const int nb = 4 * rg + 128 * j;
+                    if (N_FULL || nb < N) {
+                        const float4 g = ld4(sG + k * NP + nb);
+                        const float gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                            acc[j][i][0] = fmaf(gv[i], w.x, acc[j][i][0]);
+                            acc[j][i][1] = fmaf(gv[i], w.y, acc[j][i][1]);
+                            acc[j][i][2] = fmaf(gv[i], w.z, acc[j][i][2]);
+                            acc[j][i][3] = fmaf(gv[i], w.w, acc[j][i][3]);
+                        }
+                    }
+                }
+            }
+            // the other half's two rows of each quad go to it through sP
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                const int nb = 4 * rg + 128 * j;
+                if (N_FULL || nb < N) {
+#pragma unroll
+                    for (int i2 = 0; i2 < 2; ++i2)
+                        st4(sP + (nb + 2 * (1 - H) + i2) * L + c0, acc[j][2 * (1 - H) + i2]);
+                }
+            }
+            block_barrier();
+            // tau = (t - gq/s) * s/(1 + s d), this half's rows of each quad
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                const int nb = 4 * rg + 128 * j;
+                if (N_FULL || nb < N) {
+#pragma unroll
+                    for (int i2 = 0; i2 < 2; ++i2) {
+                        const int ni = nb + 2 * H + i2;
+                        const float4 o = ld4(sP + ni * L + c0);
+                        const float ov[4] = {o.x, o.y, o.z, o.w};
+                        float t[4];
+#pragma unroll
+                        for (int c = 0; c < 4; ++c)
+                            t[c] = (acc[j][2 * H + i2][c] + ov[c] - gqs[j][i2][c]) *
+                                   sdinv[j][i2][c];
+                        st4(sT + ni * L + c0, t);
+                    }
+                }
+            }
+        }
+        block_barrier();
+
+        // v += alpha (G2 tau - z) : rows rg + 32 j, this half's share of n
+        {
+            float acc[MJ][4];
+#pragma unroll
+            for (int j = 0; j < MJ; ++j)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) acc[j][c] = 0.0f;
+#pragma unroll 4
+            for (int k0 = KB2; k0 < KE2; k0 += 4) {
+                const float4 t0 = ld4(sT + (k0 + 0) * L + c0);
+                const float4 t1 = ld4(sT + (k0 + 1) * L + c0);
+                const float4 t2 = ld4(sT + (k0 + 2) * L + c0);
+                const float4 t3 = ld4(sT + (k0 + 3) * L + c0);
+#pragma unroll
+                for (int j = 0; j < MJ; ++j) {
+                    const int mi = rg + 32 * j;
+                    if (M_FULL || mi < M) {
+                        const float4 g = ld4(sG + mi * NP + k0);
+                        acc[j][0] = fmaf(g.x, t0.x, acc[j][0]);
+                        acc[j][1] = fmaf(g.x, t0.y, acc[j][1]);
+                        acc[j][2] = fmaf(g.x, t0.z, acc[j][2]);
+                        acc[j][3] = fmaf(g.x, t0.w, acc[j][3]);
+                        acc[j][0] = fmaf(g.y, t1.x, acc[j][0]);
+                        acc[j][1] = fmaf(g.y, t1.y, acc[j][1]);
+                        acc[j][2] = fmaf(g.y, t1.z, acc[j][2]);
+                        acc[j][3] = fmaf(g.y, t1.w, acc[j][3]);
+                        acc[j][0] = fmaf(g.z, t2.x, acc[j][0]);
+                        acc[j][1] = fmaf(g.z, t2.y, acc[j][1]);
+                        acc[j][2] = fmaf(g.z, t2.z, acc[j][2]);
+                        acc[j][3] = fmaf(g.z, t2.w, acc[j][3]);
+                        acc[j][0] = fmaf(g.w, t3.x, acc[j][0]);
+                        acc[j][1] = fmaf(g.w, t3.y, acc[j][1]);
+                        acc[j][2] = fmaf(g.w, t3.z, acc[j][2]);
+                        acc[j][3] = fmaf(g.w, t3.w, acc[j][3]);
+                    }
+                }
+            }
+            // the other half's m-rows go to it through sP
+#pragma unroll
+            for (int j = 0; j < MJ; ++j) {
+                const int mi = rg + 32 * j;
+                if ((j >= J0 && j < J0 + JH) || !(M_FULL || mi < M)) continue;
+                st4(sP + mi * L + c0, acc[j]);
+            }
+            block_barrier();
+#pragma unroll
+            for (int jj = 0; jj < JH; ++jj) {
+                const int mi = rg + 32 * (J0 + jj);
+                if (M_FULL || mi < M) {
+                    const float4 o = ld4(sP + mi * L + c0);
+                    const float ov[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+                    for (int c = 0; c < 4; ++c)
+                        v[jj][c] += alpha * (acc[J0 + jj][c] + ov[c] - z[jj][c]);
+                }
+            }
+        }
+        // No barrier here: the next w is written over what this iteration's
+        // G2^T w read before its exchange barrier; the next partials go to sP
+        // after the next iteration's first barrier, which every thread
+        // reaches only after it has read its partials here.
     }
-    // No barrier here: the next w pieces overwrite what this iteration's t
-    // products read, all waited for before the barrier above; the next tau
-    // pieces are written after the next iteration's first barrier, which each
-    // warpgroup reaches only after waiting for its u product.
-}
 
-// The block's tiles, one after another, as one warpgroup sees them.
-template <bool HAS_T>
-__device__ __forceinline__ void tiles(const float* __restrict__ v_in,
-                                      const float* __restrict__ s_in,
-                                      const float* __restrict__ gq_in,
-                                      const float* __restrict__ l_in,
-                                      const float* __restrict__ u_in,
-                                      const float* __restrict__ d_in,
-                                      const float* __restrict__ rho_in, float* __restrict__ v_out,
-                                      float* __restrict__ tau_out, long long B, int iters,
-                                      float alpha) {
-    const int ntiles = (int)((B + LT - 1) / LT);
-
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        const long long lane0 = (long long)tile * LT;
-        const int nl = (int)((B - lane0 < LT) ? (B - lane0) : LT);
-
-        // ask L2 for the next tile's inputs while this one iterates
-        const long long next0 = ((long long)tile + gridDim.x) * LT;
-        if (next0 < B) {
-            const long long nn = (B - next0 < LT) ? (B - next0) : LT;
-            prefetch_range(v_in + next0 * M, 4 * nn * M, THREADS);
-            prefetch_range(l_in + next0 * M, 4 * nn * M, THREADS);
-            prefetch_range(u_in + next0 * M, 4 * nn * M, THREADS);
-            prefetch_range(gq_in + next0 * N, 4 * nn * N, THREADS);
-            prefetch_range(s_in + next0, 4 * nn, THREADS);
-        }
-
-        Tile x;
-        const Block o = place();
+    // v -> sW; tau is already in sT
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int row = row_of(o, 2 * h);
-            x.rho[h] = row < M ? rho_in[row] : 0.0f;
-        }
-#pragma unroll
-        for (int i = 0; i < NV; ++i) {
-            const int row = row_of(o, i);
-            const int col = lane_of(o, i);
-            const bool ok = row < M && col < nl;
-            const size_t off = (size_t)(lane0 + col) * M + row;
-            x.v[i] = ok ? v_in[off] : 0.0f;
-            x.lo[i] = ok ? l_in[off] : 0.0f;
-            x.up[i] = ok ? u_in[off] : 0.0f;
-            const float sc = col < nl ? s_in[lane0 + col] : 1.0f;
-            if (!HAS_T) continue;
-            const bool okt = row < N && col < nl;
-            x.gqs[i] = okt ? __fdiv_rn(gq_in[(size_t)(lane0 + col) * N + row], sc) : 0.0f;
-            *sdinv_slot(i) = row < N ? __fdiv_rn(sc, __fadd_rn(1.0f, __fmul_rn(sc, d_in[row])))
-                                     : 0.0f;
-        }
-
-        for (int it = 0; it < iters; ++it)
-            iteration<HAS_T>(x, alpha, it == iters - 1 ? tau_out : nullptr, lane0, nl);
-
-        const Block p = place();
-#pragma unroll
-        for (int i = 0; i < NV; ++i) {
-            const int row = row_of(p, i);
-            const int col = lane_of(p, i);
-            if (row < M && col < nl) v_out[(size_t)(lane0 + col) * M + row] = x.v[i];
-        }
+    for (int jj = 0; jj < JH; ++jj) {
+        const int mi = rg + 32 * (J0 + jj);
+        if (M_FULL || mi < M) st4(sW + mi * L + c0, v[jj]);
     }
 }
 
@@ -443,43 +368,33 @@ admm_stage_kernel(const float* __restrict__ v_in, const float* __restrict__ s_in
                   const float* __restrict__ d_in, const float* __restrict__ rho_in,
                   float* __restrict__ v_out, float* __restrict__ tau_out,
                   long long B, int iters, float alpha) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    uint16_t* sG = reinterpret_cast<uint16_t*>(smem_raw);   // 3 x [R2 x KC]: G2's pieces
+    extern __shared__ __align__(16) float smem[];
+    float* sG = smem;                 // [M][NP] operator
+    float* sL = sG + M * NP;          // [M][L]  lower bounds
+    float* sU = sL + M * L;           // [M][L]  upper bounds
+    float* sW = sU + M * L;           // [M][L]  w (and staging of v)
+    float* sT = sW + M * L;           // [N][L]  tau (and staging of gq)
+    const long long lane0 = (long long)blockIdx.x * L;
+    const int nl = (int)((B - lane0 < L) ? (B - lane0) : L);
 
-    // The operator, split once a block; reads run along G2's rows. Rows past
-    // m and columns past n are zero in shared memory only.
-#pragma unroll 4
-    for (int e = threadIdx.x; e < G_ELEMS; e += THREADS) {
-        const int r = e / KC, k = e - r * KC;
-        const float x = (r < M && k < N) ? G2[(size_t)r * N + k] : 0.0f;
-        uint32_t hi, mid, lo;
-        split3_pair(x, 0.0f, hi, mid, lo);
-        const int idx = kmajor<KC>(r, k);
-        sG[idx] = (uint16_t)hi;
-        sG[G_ELEMS + idx] = (uint16_t)mid;
-        sG[2 * G_ELEMS + idx] = (uint16_t)lo;
+    // operator -> shared memory, 16 bytes at a time
+    for (int e = threadIdx.x; e < M * (N / 4); e += THREADS) {
+        int r = e / (N / 4), c = e - r * (N / 4);
+        *reinterpret_cast<float4*>(sG + r * NP + 4 * c) = ld4(G2 + (size_t)r * N + 4 * c);
     }
-    fence_shared_to_async();
+    load_tile<M>(sL, l_in, lane0, nl, 0.0f);
+    load_tile<M>(sU, u_in, lane0, nl, 0.0f);
+    load_tile<M>(sW, v_in, lane0, nl, 0.0f);
+    load_tile<N>(sT, gq_in, lane0, nl, 0.0f);
     __syncthreads();
 
-    const int wg = place().wg;
-    // Warpgroups that own a row tile of t carry three more arrays; three
-    // warpgroups share 168 registers a thread, so where some own none, those
-    // give registers to the owners (setmaxnreg).
-    if constexpr (MT1 < WGS) {
-        if (wg < MT1) {
-            if constexpr (WGS == 3) set_max_registers<true, REG_T>();
-            tiles<true>(v_in, s_in, gq_in, l_in, u_in, d_in, rho_in, v_out, tau_out, B, iters,
-                        alpha);
-        } else {
-            if constexpr (WGS == 3) set_max_registers<false, REG_U>();
-            tiles<false>(v_in, s_in, gq_in, l_in, u_in, d_in, rho_in, v_out, tau_out, B, iters,
-                         alpha);
-        }
-    } else {
-        tiles<true>(v_in, s_in, gq_in, l_in, u_in, d_in, rho_in, v_out, tau_out, B, iters,
-                    alpha);
-    }
+    if (threadIdx.x < 256)            // warp-uniform: the halves are warps 0-7 and 8-15
+        half_stage<0>(smem, s_in, d_in, rho_in, lane0, nl, iters, alpha);
+    else
+        half_stage<1>(smem, s_in, d_in, rho_in, lane0, nl, iters, alpha);
+    block_barrier();
+    store_tile<M>(v_out, sW, lane0, nl);
+    store_tile<N>(tau_out, sT, lane0, nl);
 }
 
 }  // namespace
@@ -493,31 +408,25 @@ const char* blf_cuda_error_string(int code) {
 }
 
 // Launch one stage on `stream`. All pointers are device pointers to contiguous
-// f32 arrays: v, l, u (B, m); gq (B, n); s (B,); G2 (m, n); d (n,); rho (m,);
-// outputs v_out (B, m), tau_out (B, n). Returns the CUDA error code of the
-// launch (0 on success), or -1 for a shape other than the one compiled, -2
-// for a bad batch or iteration count. Does not synchronise.
-int blf_admm_stage_f32(const float* v, const float* s, const float* gq, const float* l,
-                       const float* u, const float* G2, const float* d, const float* rho,
-                       float* v_out, float* tau_out, long long B, int m, int n, int iters,
+// f32 arrays: v, l, u (B, m); gq (B, n); s (B,); G2 (m, n), 16-byte aligned;
+// d (n,); rho (m,); outputs v_out (B, m), tau_out (B, n). Returns the CUDA error
+// code of the launch (0 on success), or -1 for a shape other than the one
+// compiled, -2 for a bad batch or iteration count. Does not synchronise.
+int blf_admm_stage_f32(const float* v, const float* s, const float* gq,
+                       const float* l, const float* u, const float* G2,
+                       const float* d, const float* rho, float* v_out,
+                       float* tau_out, long long B, int m, int n, int iters,
                        float alpha, void* stream) {
     if (m != M || n != N) return -1;
     if (B < 1 || iters < 1) return -2;
     cudaError_t err = cudaFuncSetAttribute(
-        admm_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+        admm_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
-    int device = 0, sms = 0, per_sm = 0;
-    err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, admm_stage_kernel, THREADS,
-                                                        SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    const long long tiles = (B + LT - 1) / LT;
-    const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    const long long blocks = tiles < fit ? tiles : fit;
-    admm_stage_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+    const long long blocks = (B + L - 1) / L;
+    if (blocks > 2147483647LL) return -2;
+    admm_stage_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES,
+                        (cudaStream_t)stream>>>(
         v, s, gq, l, u, G2, d, rho, v_out, tau_out, B, iters, alpha);
     return (int)cudaGetLastError();
 }

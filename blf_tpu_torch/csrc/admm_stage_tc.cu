@@ -115,7 +115,8 @@
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC -Xptxas -v (no -use_fast_math).
 
-#include "wgmma_common.cuh"
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 #ifndef ADMM_M
 #error "compile with -DADMM_M=<rows of G2>"
@@ -169,9 +170,129 @@ static_assert(K2 <= K1, "tau's lo passes through w's lo buffer: n <= m");
 static_assert(SMEM_BYTES <= 232448, "operators and operand buffers do not fit in shared memory");
 static_assert(K1 <= 16383 && K2 <= 16383, "stride does not fit a matrix descriptor");
 
+// Element (r, k) of a K-major operand with K (a multiple of 16) columns, in
+// wgmma's no-swizzle canonical layout: 8-row x 8-column core matrices of 128
+// contiguous bytes, row r % 8 at 16-byte stride inside one; the core matrix
+// next along k lies 128 bytes on (LBO), the one next along r K * 16 bytes on
+// (SBO).
+template <int K>
+__device__ __forceinline__ int kmajor(int r, int k) {
+    return (((r >> 3) * (K >> 3) + (k >> 3)) << 6) + ((r & 7) << 3) + (k & 7);
+}
+
+// Matrix descriptor of a K-major, no-swizzle operand starting at shared
+// address `addr`.
+template <int K>
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr) {
+    constexpr uint64_t LBO = 128;                 // bytes to the next core matrix along k
+    constexpr uint64_t SBO = (uint64_t)K * 16;    // bytes to the next 8 rows
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((LBO >> 4) << 16) | ((SBO >> 4) << 32);
+    // base offset 0 and layout type 0 (no swizzle) in bits 49-51 and 62-63
+}
+
+// D (64 x LT, f32) += A (64 x 16) B (16 x LT), bf16, both from shared memory.
+template <int V>
+__device__ __forceinline__ void wgmma(float (&d)[V], uint64_t da, uint64_t db) {
+    static_assert(V == 8 || V == 16, "m64n16 or m64n32");
+    if constexpr (V == 8) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "setp.ne.b32 p, %10, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+            "}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+              "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+            : "l"(da), "l"(db), "r"(1));
+    } else {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "setp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+            "%16, %17, p, 1, 1, 0, 0;\n"
+            "}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+              "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "l"(da), "l"(db), "r"(1));
+    }
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Make this thread's ordinary shared-memory stores visible to wgmma's reads.
+__device__ __forceinline__ void fence_shared_to_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void barrier(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+    asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
+}
+
+// Four 8 x 8 bf16 blocks of a warp's accumulator fragment, each register two
+// lanes of one row (the low half the lower lane), stored transposed: a
+// block's row (a lane) becomes 16 contiguous bytes at the address thread
+// 8 b + r gives for row r of block b.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1,
+                                                  uint32_t r2, uint32_t r3) {
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
+}
+
+// bf16(x0) in the low half, bf16(x1) in the high half, to nearest even
+__device__ __forceinline__ uint32_t pack_bf16x2(float x0, float x1) {
+    uint32_t r;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(x1), "f"(x0));
+    return r;
+}
+__device__ __forceinline__ float low_of(uint32_t r) { return __uint_as_float(r << 16); }
+__device__ __forceinline__ float high_of(uint32_t r) { return __uint_as_float(r & 0xFFFF0000u); }
+// hi = bf16(x), lo = bf16(x - hi) of a pair
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+    hi = pack_bf16x2(x0, x1);
+    lo = pack_bf16x2(__fsub_rn(x0, low_of(hi)), __fsub_rn(x1, high_of(hi)));
+}
+
+// Keep the compiler from moving accesses of accumulator registers across the
+// asynchronous products.
+__device__ __forceinline__ void fence_registers(float (&acc)[NV]) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
+}
+
 __device__ __forceinline__ void zero(float (&acc)[NV]) {
 #pragma unroll
     for (int i = 0; i < NV; ++i) acc[i] = 0.0f;
+}
+
+// min(max(v, l), u) in which a NaN in any operand gives NaN, as jnp.clip
+// and torch.minimum/maximum: the .NaN forms of min and max, one instruction
+// each.
+__device__ __forceinline__ float clip_nan(float v, float l, float u) {
+    float z;
+    asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(z) : "f"(v), "f"(l));
+    asm("min.NaN.f32 %0, %1, %2;\n" : "=f"(z) : "f"(z), "f"(u));
+    return z;
+}
+
+// An opaque copy of x: values derived from it are computed where they are
+// used, never hoisted out of the iteration loop into registers of their own.
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+    asm volatile("" : "+l"(x));
+    return x;
 }
 
 // acc += sum over the NP passes j of A_j B_j: A_j a 64-row tile of an
@@ -382,6 +503,12 @@ __device__ __forceinline__ void iteration(Tile& x, float alpha) {
     if (FULL) barrier(BAR_ALL, THREADS);
 }
 
+// Ask L2 for `bytes` bytes from p on, one 128-byte line a thread at a time.
+__device__ __forceinline__ void prefetch_range(const float* p, long long bytes) {
+    for (long long off = 128LL * threadIdx.x; off < bytes; off += 128LL * THREADS)
+        prefetch_l2(reinterpret_cast<const char*>(p) + off);
+}
+
 // The block's tiles, one after another, as one warpgroup sees them.
 template <bool HAS_T>
 __device__ __forceinline__ void tiles(const float* __restrict__ v_in,
@@ -402,11 +529,11 @@ __device__ __forceinline__ void tiles(const float* __restrict__ v_in,
         const long long next0 = ((long long)tile + gridDim.x) * LT;
         if (next0 < B) {
             const long long nn = (B - next0 < LT) ? (B - next0) : LT;
-            prefetch_range(v_in + next0 * M, 4 * nn * M, THREADS);
-            prefetch_range(l_in + next0 * M, 4 * nn * M, THREADS);
-            prefetch_range(u_in + next0 * M, 4 * nn * M, THREADS);
-            prefetch_range(gq_in + next0 * N, 4 * nn * N, THREADS);
-            prefetch_range(s_in + next0, 4 * nn, THREADS);
+            prefetch_range(v_in + next0 * M, 4 * nn * M);
+            prefetch_range(l_in + next0 * M, 4 * nn * M);
+            prefetch_range(u_in + next0 * M, 4 * nn * M);
+            prefetch_range(gq_in + next0 * N, 4 * nn * N);
+            prefetch_range(s_in + next0, 4 * nn);
         }
 
         Tile x;
@@ -446,6 +573,14 @@ __device__ __forceinline__ void tiles(const float* __restrict__ v_in,
                     __fmul_rn(__fsub_rn(x.t_acc[i], x.gqs[i]), x.sdinv[i]);
         }
     }
+}
+
+template <bool INC, int REGS>
+__device__ __forceinline__ void set_max_registers() {
+    if constexpr (INC)
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REGS));
+    else
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REGS));
 }
 
 __global__ void __launch_bounds__(THREADS, 1)

@@ -13,9 +13,8 @@ v-space recursion of :func:`blf_tpu_torch.mpc.qp.solve_qp_factored`::
 ``matmul`` takes the reference's names:
 
 - ``"f32"`` (the port's default): exact float32 products, the kernel
-  ``csrc/admm_stage.cu``: on Hopper's tensor cores as the reference's
-  ``Precision.HIGHEST`` is on the TPU's, each product six bf16 passes of the
-  operands' hi/mid/lo pieces (``admm.py:62-63``), rho applied to w.
+  ``csrc/admm_stage.cu`` (FMA units; why not the tensor cores: see its
+  source).
 - ``"split"``: every product a 3-pass sum of bf16 hi/lo products,
   ``A_hi b_hi + A_hi b_lo + A_lo b_hi`` (``admm.py:93-135``, ``:234-255``).
 - ``"delta"``: 3-pass products in iteration 1, then 2-pass products of the
@@ -54,8 +53,8 @@ from blf_tpu_torch.ops.precision import f32_matmuls
 __all__ = ["admm_stage", "admm_stage_reference", "launch_count",
            "reference_count", "tc_launch_count", "tc_reference_count",
            "reset_counts", "stage_shared_bytes", "stage_tc_shared_bytes", "tc_lanes",
-           "stage_defines", "tc_defines", "build_admm_stage", "build_admm_stage_tc",
-           "MATMUL_MODES", "SOURCE", "REPLACES", "TC_SOURCE", "TC_REPLACES"]
+           "build_admm_stage", "build_admm_stage_tc", "MATMUL_MODES", "SOURCE",
+           "REPLACES", "TC_SOURCE", "TC_REPLACES"]
 
 MATMUL_MODES = ("f32", "split", "delta")
 SOURCE = "admm_stage.cu"
@@ -65,6 +64,7 @@ REPLACES = "blf_tpu/ops/pallas/admm.py:138"
 TC_SOURCE = "admm_stage_tc.cu"
 TC_REPLACES = "blf_tpu/ops/pallas/admm.py:138"
 
+_LANES = 32                 # lanes per block (csrc/admm_stage.cu)
 _MAX_SHARED = 232448        # bytes of shared memory a block may use on sm_90
 
 # Plain integers: how often each kernel was launched (the tensor-core one by
@@ -195,37 +195,25 @@ def admm_stage_reference(v, tau, s, gq, l, u, G2, d, base_rho, *,
     return v, tau
 
 
-def _up(x: int, k: int) -> int:
-    return -(-x // k) * k
-
-
 def stage_shared_bytes(m: int, n: int) -> int:
     """Shared memory one block of the f32 kernel needs at shape ``(m, n)``
-    (csrc/admm_stage.cu): the three bf16 pieces of G2, rows padded to 64 and
-    columns to whole 64-row tiles of ``t = G2^T w``, the three pieces of one
-    tile's w and tau (:func:`tc_lanes` lanes), contractions padded to 16, and
-    the tile's f32 s / (1 + s d) on t's row tiles."""
-    lanes = tc_lanes(m, n)
-    return (2 * 3 * (_up(m, 64) * _up(n, 64) + lanes * (_up(m, 16) + _up(n, 16)))
-            + 4 * _up(n, 64) * lanes)
+    (csrc/admm_stage.cu): the operator, rows padded by 4 floats, and a
+    32-lane tile's bounds, w, tau and the partial sums its two halves hand
+    each other."""
+    return 4 * (m * (n + 4) + 3 * m * _LANES + n * _LANES + max(m, n) * _LANES)
 
 
 def _check_shape(m: int, n: int) -> None:
-    if m < 1 or n < 1 or m > 192 or _up(n, 64) > _up(m, 64):
+    if n % 4 != 0 or n < 4 or m < 1:
         raise ValueError(
-            f"admm_stage gives each 64-row tile of G2 (m, n) a warpgroup, at most three,"
-            f" and each 64-row tile of n one of them: (m, n) = ({m}, {n})")
+            f"admm_stage kernel needs n to be a positive multiple of 4, got"
+            f" (m, n) = ({m}, {n})")
     need = stage_shared_bytes(m, n)
     if need > _MAX_SHARED:
         raise ValueError(
-            f"admm_stage keeps G2's three bf16 pieces and a {tc_lanes(m, n)}-lane tile's"
-            f" operand pieces in shared memory: (m, n) = ({m}, {n}) needs {need} bytes,"
-            f" the card offers {_MAX_SHARED}")
-
-
-def stage_defines(m: int, n: int) -> Dict[str, int]:
-    """Compile-time definitions of the f32 kernel's library."""
-    return {"ADMM_M": m, "ADMM_N": n, "ADMM_LANES": tc_lanes(m, n)}
+            f"admm_stage kernel keeps the operator and a {_LANES}-lane tile in"
+            f" shared memory: (m, n) = ({m}, {n}) needs {need} bytes, the card"
+            f" offers {_MAX_SHARED}")
 
 
 def build_admm_stage(m: int, n: int) -> ctypes.CDLL:
@@ -234,7 +222,7 @@ def build_admm_stage(m: int, n: int) -> ctypes.CDLL:
     if lib is not None:
         return lib
     _check_shape(m, n)
-    lib = _build.load_library(SOURCE, stage_defines(m, n))
+    lib = _build.load_library(SOURCE, {"ADMM_M": m, "ADMM_N": n})
     P = ctypes.c_void_p
     lib.blf_admm_stage_f32.argtypes = [P] * 10 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -252,7 +240,7 @@ def build_admm_stage(m: int, n: int) -> ctypes.CDLL:
 
 
 def tc_lanes(m: int, n: int) -> int:
-    """Lanes of a tile of both tensor-core kernels at ``(m, n)`` (wgmma's N):
+    """Lanes of a tile of the tensor-core kernel at ``(m, n)`` (wgmma's N):
     32 where the operator has more than one 64-row tile, so that each of the
     block's warpgroups owns one; 16 for an operator of one row tile each way,
     whose latency-bound stage wants more blocks in flight."""
@@ -264,8 +252,9 @@ def stage_tc_shared_bytes(m: int, n: int, matmul: str) -> int:
     (csrc/admm_stage_tc.cu), the same in both modes: both bf16 operator
     pairs, rows padded to 64 and the contraction to 16, and the operand
     buffers of one tile of :func:`tc_lanes` lanes (w's hi and lo, tau's hi)."""
-    k1, k2, lanes = _up(m, 16), _up(n, 16), tc_lanes(m, n)
-    operators = 2 * (2 * _up(n, 64) * k1 + 2 * _up(m, 64) * k2)
+    up = lambda x, k: -(-x // k) * k
+    k1, k2, lanes = up(m, 16), up(n, 16), tc_lanes(m, n)
+    operators = 2 * (2 * up(n, 64) * k1 + 2 * up(m, 64) * k2)
     return operators + 2 * lanes * (2 * k1 + k2)
 
 
@@ -378,6 +367,8 @@ def admm_stage(v, tau, s, gq, l, u, G2, d, base_rho, *, iters: int, alpha: float
         _raise_on(code, lib, "admm_stage_tc")
         _counts["tc_" + matmul] += 1
         return v_out, tau_out
+    if G2.data_ptr() % 16:
+        raise ValueError("G2 must be 16-byte aligned")
     lib = build_admm_stage(m, n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

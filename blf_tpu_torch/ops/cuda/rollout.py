@@ -15,10 +15,11 @@ one pose for every lane ((3,) / (3, 3), or a (B, ...) view whose lane stride
 is 0); ``spring_coeff`` and ``damper_coeff`` scalar, (B,) or (B, 1). The
 eight scalars (L, W, mass, I1..3, rho, dt) go to the kernel by value, a
 :class:`FootScalars` argument, as do k and b where they are scalars: a launch
-copies nothing to the device and allocates one buffer, the outputs'. Their
-host values are read once for each set of scalar tensors (a tensor's value
-is cached by identity and in-place version counter, so a device tensor costs
-one synchronising read, not one a launch). The reference's
+copies nothing to the device and allocates one buffer, the outputs'. What
+the kernel takes of the parameters and the null pose is made once for each
+set of those objects (cached by their identity and their tensors' in-place
+versions), so a device tensor among them costs one synchronising read, not
+one a launch. The reference's
 struct-of-tiles layout, its padding of odd batches, ``block_lanes``,
 ``chunks``, ``step_unroll`` and ``interpret`` are TPU matters and have no
 counterpart here: the kernel checks each lane against ``B``.

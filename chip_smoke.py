@@ -298,8 +298,8 @@ def phase_device() -> dict:
 def phase_build() -> dict:
     """Build every kernel library of both paths, one ``nvcc`` each, all
     started together; then load them through their wrappers."""
-    jobs = [("admm_stage", admm_kernel.SOURCE, admm_kernel.stage_defines(M, N)),
-            ("admm_stage_stack", admm_kernel.SOURCE, admm_kernel.stage_defines(STACK_M, STACK_N)),
+    jobs = [("admm_stage", admm_kernel.SOURCE, {"ADMM_M": M, "ADMM_N": N}),
+            ("admm_stage_stack", admm_kernel.SOURCE, {"ADMM_M": STACK_M, "ADMM_N": STACK_N}),
             ("admm_lane", lane_kernel.SOURCE, {"ADMM_M": WBC_M, "ADMM_N": WBC_N})]
     jobs += [(f"admm_stage_tc_{mode}{tag}", admm_kernel.TC_SOURCE,
               admm_kernel.tc_defines(m, n, mode))
@@ -385,29 +385,21 @@ def rel_err(a, b) -> float:
 
 
 def f32_stage_bound(m: int, n: int, B: int, iters: int) -> dict:
-    """The least time of an exact-f32 stage at (m, n, B, iters) as
-    csrc/admm_stage.cu computes it: 2 products x 6 bf16 passes an iteration
-    (2 m n B flop each) at the bf16 tensor-core peak, against the f32
-    elementwise operations counted from its source (an element of v: clip 2,
-    w 3, its three pieces 4, the hh pass's k-step sums n/16, the update 5; of
-    tau: its k-step sums m/16, 2, its pieces 4; 5 an element of tau for the
-    stage's gains; at the f32 peak) and the bytes (each input read once, each
-    output written once). Beside it, the bound of the same stage in f32 FMAs
-    (4 m n B flop an iteration at the f32 peak), which no exact kernel on the
-    FMA units can beat."""
-    k1, k2 = -(-m // 16), -(-n // 16)
-    ops = B * (iters * (m * (14 + k2) + n * (6 + k1)) + 5 * n)
+    """The least time of an exact-f32 stage at (m, n, B, iters) on the FMA
+    units, which csrc/admm_stage.cu uses: 2 products of 2 m n B flop an
+    iteration at the f32 peak, against the bytes (each input read once, each
+    output written once). Beside it, the bound of the reference's own f32
+    algorithm on the tensor cores, 6 bf16 passes a product at the bf16 peak
+    (PERF.md section 6: a kernel of them cost the fleet tick converged lanes,
+    so the port runs none)."""
+    ops_ms = 1e3 * iters * 2 * (2 * m * n) * B / PEAK_F32_FLOPS
     nbytes = 4 * (B * ((3 * m + 2 * n + 1) + (m + n)) + m * n + m + n)
-    times = {"tensor": 1e3 * iters * 2 * 6 * 2 * m * n * B / PEAK_BF16_FLOPS,
-             "elementwise": 1e3 * ops / PEAK_F32_FLOPS,
-             "bytes": 1e3 * nbytes / PEAK_BYTES_PER_S}
-    by = max(times, key=times.get)
-    return {"bound_ms": times[by], "bound_by": "bytes" if by == "bytes" else "operations",
-            "bound_basis": by, "bound_tensor_ms": times["tensor"],
-            "bound_elementwise_ms": times["elementwise"], "bound_bytes_ms": times["bytes"],
-            "bound_fma_ms": 1e3 * iters * 2 * (2 * m * n) * B / PEAK_F32_FLOPS,
-            "passes": 12 * iters,
-            "bound_source": "H100 SXM data sheet: 989 TFLOP/s bf16 dense, 67 TFLOP/s f32,"
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+            "bound_six_pass_ms": 1e3 * iters * 2 * 6 * 2 * m * n * B / PEAK_BF16_FLOPS,
+            "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 989 TFLOP/s bf16 dense,"
                             " 3.35 TB/s"}
 
 
@@ -490,13 +482,12 @@ def kernels_admm_stage(problem) -> dict:
     return {
         "name": "admm_stage", "shape": [M, N], "iters": STAGE_ITERS,
         "batch_timed": batch, "cases": cases, "nan_lane": "confined",
-        **ptxas_residency(admm_kernel.SOURCE, admm_kernel.stage_defines(M, N)),
+        **ptxas_residency(admm_kernel.SOURCE, {"ADMM_M": M, "ADMM_N": N}),
         "shared_bytes": admm_kernel.stage_shared_bytes(M, N),
         "max_rel_err": max_rel, "max_abs_err": max_abs, "tolerance_rel": REL_TOL,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, **bound,
         "fraction_of_bound": bound["bound_ms"] / kernel_ms,
-        "fraction_of_fma_bound": bound["bound_fma_ms"] / kernel_ms,
-        "tflops_tensor": bound["passes"] * 2 * M * N * batch / (kernel_ms * 1e-3) / 1e12,
+        "tflops": STAGE_ITERS * 2 * (2 * M * N) * batch / (kernel_ms * 1e-3) / 1e12,
         "library_ms": None,
     }
 
@@ -846,7 +837,7 @@ def kernels_admm_stage_stack(seen) -> dict:
     return {
         "name": "admm_stage", "path": "stack", "shape": [m, n], "iters": iters,
         "batch_timed": B, "cases": cases, "max_rel_err": max_rel, "max_abs_err": max_abs,
-        **ptxas_residency(admm_kernel.SOURCE, admm_kernel.stage_defines(m, n)),
+        **ptxas_residency(admm_kernel.SOURCE, {"ADMM_M": m, "ADMM_N": n}),
         "shared_bytes": admm_kernel.stage_shared_bytes(m, n),
         "tolerance_rel": REL_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms, **bound,
         "fraction_of_bound": bound["bound_ms"] / kernel_ms, "library_ms": None,
@@ -1320,7 +1311,8 @@ def kernels_foot_rollout() -> dict:
     # library called directly (what the card takes; the rest is host work)
     tensors, scalars, k_value, b_value, flags = rollout_kernel.launch_operands(
         *args(fleet), fleet.dt)
-    lib, raw_out = rollout_kernel.build_foot_rollout(), torch.empty(18 * FOOT_LANES, device=DEVICE)
+    lib = rollout_kernel.build_foot_rollout()
+    raw_out = torch.empty(18 * FOOT_LANES, device=DEVICE)
 
     def raw(steps):
         check(lib.blf_foot_rollout_f32(

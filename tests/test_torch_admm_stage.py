@@ -9,12 +9,16 @@ runs the kernel's plain version) against
   Pallas kernel accumulates in float32, so it is no float64 yardstick).
 
 The CUDA kernel itself cannot run without a GPU; ``chip_smoke.py`` holds it
-against the same plain version on the card. What the CPU can check of it is
-its arithmetic: the kernel takes each product as six bf16 passes on the
-tensor cores, and an emulation of that order (with the tensor cores' f32
-accumulation modelled as truncation) is held to the plain version here. Run
-as a script, this file is that study at the fleet tick's shape, on the
-tick's own stages.
+against the same plain version on the card.
+
+The reference's own f32 mode is six bf16 passes a product
+(``Precision.HIGHEST``). The same passes on Hopper's tensor cores were tried
+for this kernel: an emulation of them (the tensor cores' f32 accumulation
+modelled as truncation) is held to the plain version here. It holds the
+tolerance, as the tensor-core kernel did on the card; but there the fleet
+tick lost lanes on its hardest ticks, which the model does not reproduce, so
+the kernel stays on the FMA units (PERF.md section 6). Run as a script, this
+file is that study at the fleet tick's shape, on the tick's own stages.
 """
 
 import functools
@@ -149,33 +153,27 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
 
 
 def test_shapes_the_kernel_cannot_hold_are_rejected():
-    """G2's three bf16 pieces (rows padded to 64, columns to whole 64-row
-    tiles of n: 144 KB at (192, 128)), one 32-lane tile's pieces of w and tau
-    (60 KB) and its s / (1 + s d) (16 KB); one warpgroup a 64-row tile of m,
-    at most three."""
-    assert port.stage_shared_bytes(192, 128) == 225280
-    assert port.stage_shared_bytes(48, 32) == 36352          # 16-lane tiles
-    assert port.stage_defines(48, 32) == {"ADMM_M": 48, "ADMM_N": 32, "ADMM_LANES": 16}
-    for m, n in ((192, 128), (48, 32), (48, 30), (96, 64), (1, 1)):
-        port._check_shape(m, n)
-    with pytest.raises(ValueError, match="warpgroup"):
-        port._check_shape(256, 128)
-    with pytest.raises(ValueError, match="warpgroup"):       # n's row tiles outnumber m's
-        port._check_shape(64, 96)
+    """The operator (rows padded by 4 floats) and a 32-lane tile's bounds, w,
+    tau and the partial sums its two halves of 256 threads hand each other."""
+    assert port.stage_shared_bytes(192, 128) == 216064
+    port._check_shape(192, 128)
+    port._check_shape(48, 32)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        port._check_shape(48, 30)
     with pytest.raises(ValueError, match="shared memory"):
-        port._check_shape(192, 192)
+        port._check_shape(384, 256)
 
 
 def test_kernel_source_is_self_contained_cuda():
-    """The kernel computes both products in its own body, on wgmma: no
-    library GEMM."""
+    """The kernel computes both products in its own body, on the FMA units
+    (round-to-nearest sums): no library GEMM, no tensor-core product."""
     from blf_tpu_torch.ops.cuda import _build
 
     files = _build.source_files(port.SOURCE)
-    assert [f.name for f in files] == ["admm_stage.cu", "wgmma_common.cuh"]
-    src = "".join(f.read_text() for f in files)
-    assert "__global__" in src and "wgmma.mma_async" in src and "imm-trans-a" not in src
-    for banned in ("cublas", "cutlass", "torch/", "ATen", "mma.sync"):
+    assert [f.name for f in files] == ["admm_stage.cu"]
+    src = files[0].read_text()
+    assert "__global__" in src and "fmaf" in src
+    for banned in ("cublas", "cutlass", "torch/", "ATen", "wgmma.", "mma.sync"):
         assert banned not in src
     assert "-use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -251,10 +249,13 @@ def _rel(a, b):
 
 
 def test_six_pass_emulation_holds_the_plain_version():
-    """The kernel's arithmetic at (96, 64), 256 lanes, 25 iterations: within
+    """Six-pass bf16 products at (96, 64), 256 lanes, 25 iterations: within
     chip_smoke.py's REL_TOL = 1e-5 of the exact f32 plain version (measured
     1.2e-6; the plain version itself lies 1.4e-6 from float64), and a NaN
-    lane confined. The pieces hold every normal float32 exactly."""
+    lane confined. The pieces hold every normal float32 exactly. In this
+    model one product's error is smaller than the plain version's and about
+    as often toward zero as away (measured 53 %, plain 50 %): what cost the
+    card's tensor-core kernel lanes on the fleet tick is not in the model."""
     a = stage_problem(16, 256, np.float32)
     args = [torch.as_tensor(a[k]) for k in ORDER]
     x = torch.cat([args[0].flatten(), args[6].flatten(), torch.tensor([1e-30, -1e30, 0.0])])

@@ -218,11 +218,8 @@ def test_shapes_and_shared_memory_of_the_tensor_core_kernel():
 
 
 def test_kernel_source_is_self_contained_tensor_core_cuda():
-    """Both products in the kernel's own body, on wgmma (its building blocks
-    in the header it shares with the f32 kernel): no library GEMM."""
-    files = _build.source_files(port.TC_SOURCE)
-    assert [f.name for f in files] == ["admm_stage_tc.cu", "wgmma_common.cuh"]
-    src = "".join(f.read_text() for f in files)
+    """Both products in the kernel's own body, on wgmma: no library GEMM."""
+    src = (_build.CSRC_DIR / port.TC_SOURCE).read_text()
     assert "__global__" in src and "wgmma.mma_async" in src and "sm_90a" in src
     for banned in ("cublas", "cutlass", "torch/", "ATen", "mma.sync"):
         assert banned not in src
