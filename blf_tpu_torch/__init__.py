@@ -20,7 +20,7 @@ Slice 2b: the whole control stack over a push-recovery fleet of the humanoid,
 :func:`blf_tpu_torch.mpc.stack.make_fleet_stack_step` (DCM-MPC, whole-body
 QP, contact model, stiff ROS2-W plant, momentum observer and RLS), with the
 batched SPD solve of the wrench attribution as a hand-written CUDA kernel
-(``csrc/chol_solve.cu`` over ``csrc/chol_common.cuh``).
+(``csrc/chol_solve.cu``).
 
 Slice 3: BASELINE config 2, the spring-damper foot rollout over a fleet,
 :func:`blf_tpu_torch.models.foot.foot_rollout`, with the whole horizon in

@@ -60,8 +60,8 @@
 //    L[j][j] = s d, L[i][j] = (..) d, Linv[i][.] = (..) (1 / L[i][i]) as the
 //    reference forms them; the sums run in another order.
 //
-// chol_common.cuh (the factorization of the first design) is now included by
-// chol_solve.cu alone.
+// The batched solve (chol_solve.cu) carries its own factorization: one thread
+// a matrix for small n, this kernel's warp form past it.
 //
 // n is a compile-time constant (-DCHOL_N=..): ops/cuda/_build.py compiles one
 // library per n at first use. Any n >= 1 whose matrix fits in 227 KB of

@@ -10,7 +10,8 @@ Both kernels run the reference's left-looking Cholesky factorization
   ``K^-1 = L^-T L^-1`` (``csrc/chol_lane.cu``: one warp a matrix);
 - K4, ``cholesky_solve_lane`` (``_solve_kernel``): ``K`` (B, n, n), ``b``
   (B, n) -> ``K^-1 b`` (B, n) by the factor and a forward and a backward
-  substitution (``csrc/chol_solve.cu`` over ``csrc/chol_common.cuh``);
+  substitution (``csrc/chol_solve.cu``: one thread a matrix up to
+  :data:`SOLVE_N_REG`, one warp a matrix past it; :func:`solve_plan`);
   ``spd_solve_lane`` dispatches to it.
 
 A matrix that is not positive definite, or holds a NaN, yields NaN in its own
@@ -36,7 +37,7 @@ matters and have no counterpart here.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -48,7 +49,8 @@ __all__ = ["cholesky_inverse_lane", "cholesky_inverse_lane_reference",
            "launch_count", "reference_count", "solve_launch_count",
            "solve_reference_count", "reset_counts", "inverse_stride",
            "inverse_shared_bytes", "inverse_kernel_attributes", "solve_shared_bytes",
-           "build_chol_lane", "build_chol_solve",
+           "solve_plan", "SolvePlan", "solve_kernel_attributes", "build_chol_lane",
+           "build_chol_solve", "SOLVE_MAX_N", "SOLVE_N_REG", "SOLVE_THREADS",
            "SOURCE", "REPLACES", "SOLVE_SOURCE", "SOLVE_REPLACES"]
 
 SOURCE = "chol_lane.cu"
@@ -66,6 +68,7 @@ _counts = {"launch": 0, "reference": 0, "solve_launch": 0, "solve_reference": 0}
 _launches_by_n: Dict[int, int] = {}       # K3 launches by matrix size
 _libs: Dict[int, ctypes.CDLL] = {}
 _solve_libs: Dict[int, ctypes.CDLL] = {}
+_solve_fns: Dict[int, object] = {}         # K4's launch function by n
 
 
 def launch_count(n: Optional[int] = None) -> int:
@@ -97,7 +100,7 @@ def reset_counts() -> None:
 
 
 def _cholesky_columns(K: torch.Tensor):
-    """The kernels' factorization (``chol_common.cuh``, ``chol_lane.cu``),
+    """The kernels' factorization (``chol_lane.cu``, ``chol_solve.cu``),
     column by column: the lower factor ``L`` (B, n, n) with ``L[j, j] = s d``."""
     n = K.shape[-1]
     L = torch.zeros_like(K)
@@ -259,9 +262,43 @@ def cholesky_solve_lane_reference(K: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return torch.where(bad[:, None], torch.full_like(x, float("nan")), x)
 
 
+#: the largest n the solve kernel takes: its first design's bound (the factor,
+#: rows padded to n + 1, and three vectors in 227 KB of shared memory), kept
+SOLVE_MAX_N = 239
+#: the largest n solved one thread a matrix (``N_REG`` in the source)
+SOLVE_N_REG = 20
+#: threads (matrices) a block on that path (``THREADS_T``)
+SOLVE_THREADS = 32
+_SMEM_DEFAULT = 48 * 1024   # dynamic shared memory a block gets without opting in
+
+
+class SolvePlan(NamedTuple):
+    """How ``csrc/chol_solve.cu`` lays out size ``n``: ``path`` "thread" (one
+    thread a matrix, n <= :data:`SOLVE_N_REG`) or "warp" (one warp a matrix);
+    ``stride`` the floats of a thread's slot (K then b) or of a matrix row in
+    shared memory, odd on both paths."""
+    path: str
+    threads: int
+    matrices_per_block: int
+    stride: int
+    shared_bytes: int
+
+
+def solve_plan(n: int) -> SolvePlan:
+    """The solve kernel's compile-time plan at size ``n``, as the library
+    reports it (checked when it is loaded)."""
+    if n <= SOLVE_N_REG:
+        slot = n * n + n + 1
+        return SolvePlan("thread", SOLVE_THREADS, SOLVE_THREADS, slot, 4 * SOLVE_THREADS * slot)
+    stride = n | 1
+    per = 4 * n * stride
+    w = max(1, min(4, _SMEM_DEFAULT // per))
+    return SolvePlan("warp", 32 * w, w, stride, w * per)
+
+
 def solve_shared_bytes(n: int) -> int:
     """Shared memory one block of the solve kernel needs at size ``n``."""
-    return 4 * (n * (n + 1) + 3 * n)
+    return solve_plan(n).shared_bytes
 
 
 def build_chol_solve(n: int) -> ctypes.CDLL:
@@ -269,10 +306,10 @@ def build_chol_solve(n: int) -> ctypes.CDLL:
     lib = _solve_libs.get(n)
     if lib is not None:
         return lib
-    if n < 1 or solve_shared_bytes(n) > _MAX_SHARED:
+    if n < 1 or n > SOLVE_MAX_N:
         raise ValueError(
-            f"cholesky_solve_lane kernel keeps the factor in shared memory: n = {n}"
-            f" needs {solve_shared_bytes(n)} bytes, the card offers {_MAX_SHARED}")
+            f"cholesky_solve_lane kernel keeps the matrix in shared memory: it takes"
+            f" n from 1 to {SOLVE_MAX_N}, not {n}")
     lib = _build.load_library(SOLVE_SOURCE, {"CHOL_N": n})
     P = ctypes.c_void_p
     lib.blf_chol_solve_f32.argtypes = [P, P, P, ctypes.c_longlong, ctypes.c_int, P]
@@ -281,10 +318,42 @@ def build_chol_solve(n: int) -> ctypes.CDLL:
     lib.blf_cuda_error_string.restype = ctypes.c_char_p
     lib.blf_chol_solve_n.argtypes = []
     lib.blf_chol_solve_n.restype = ctypes.c_int
+    lib.blf_chol_solve_plan.argtypes = [P]
+    lib.blf_chol_solve_plan.restype = None
+    lib.blf_chol_solve_empty.argtypes = [ctypes.c_longlong, P]
+    lib.blf_chol_solve_empty.restype = ctypes.c_int
+    lib.blf_chol_solve_attributes.argtypes = [P]
+    lib.blf_chol_solve_attributes.restype = ctypes.c_int
     if lib.blf_chol_solve_n() != n:
         raise RuntimeError("chol_solve library was compiled for another size")
+    out = (ctypes.c_int * 5)()
+    lib.blf_chol_solve_plan(ctypes.addressof(out))
+    plan = solve_plan(n)
+    if (("thread", "warp")[out[0]],) + tuple(out[1:]) != tuple(plan):
+        raise RuntimeError(f"chol_solve library's plan {list(out)} disagrees with its"
+                           f" wrapper's {plan}")
     _solve_libs[n] = lib
+    _solve_fns[n] = lib.blf_chol_solve_f32
     return lib
+
+
+def solve_kernel_attributes(n: int) -> Dict[str, int]:
+    """Registers a thread, local (spill) bytes a thread and matrices an SM of
+    the solve kernel built for size ``n``, as the CUDA runtime reports them."""
+    lib = build_chol_solve(n)
+    out = (ctypes.c_int * 3)()
+    code = lib.blf_chol_solve_attributes(ctypes.addressof(out))
+    if code != 0:
+        raise RuntimeError(f"chol_solve attributes: {_solve_error(lib, code)}")
+    return {"registers": out[0], "local_bytes": out[1],
+            "matrices_per_sm": out[2] * solve_plan(n).matrices_per_block}
+
+
+def _solve_error(lib, code: int) -> str:
+    if code > 0:
+        return lib.blf_cuda_error_string(code).decode()
+    return {-1: "library compiled for another size", -2: "bad batch",
+            -3: "device ordinal past 63"}.get(code, "?")
 
 
 def cholesky_solve_lane(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -292,37 +361,44 @@ def cholesky_solve_lane(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     CPU tensors go through :func:`cholesky_solve_lane_reference`. CUDA
     tensors must be contiguous float32 on one device; the kernel is launched
-    on the current stream, its launch error is checked, and the call does not
-    synchronise.
+    on that device's current stream, its launch error is checked, and the
+    call does not synchronise. The launch path is light: the library's
+    function is cached by n, and no device context is entered when the
+    tensors lie on the current device.
     """
     if K.device.type == "cpu" and b.device.type == "cpu":
         _counts["solve_reference"] += 1
         return cholesky_solve_lane_reference(K, b)
-    if K.device.type != "cuda" or b.device != K.device:
+    device = K.device
+    if device.type != "cuda" or b.device != device:
         raise ValueError(
             f"cholesky_solve_lane runs on cpu or cuda tensors of one device, not"
-            f" {K.device} and {b.device}")
+            f" {device} and {b.device}")
     if K.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(
             f"cholesky_solve_lane kernel is float32 only; K is {K.dtype}, b is {b.dtype}")
-    if (K.dim() != 3 or K.shape[-1] != K.shape[-2] or K.shape[0] < 1
-            or tuple(b.shape) != tuple(K.shape[:2])):
+    shape = K.shape
+    if (len(shape) != 3 or shape[2] != shape[1] or shape[0] < 1
+            or b.shape != shape[:2]):
         raise ValueError(f"K must be (B, n, n) with B >= 1 and b (B, n), got"
-                         f" {tuple(K.shape)} and {tuple(b.shape)}")
+                         f" {tuple(shape)} and {tuple(b.shape)}")
     if not (K.is_contiguous() and b.is_contiguous()):
         raise ValueError("K and b must be contiguous")
-    B, n, _ = K.shape
-    lib = build_chol_solve(n)
+    B, n = shape[0], shape[1]
+    fn = _solve_fns.get(n)
+    if fn is None:
+        build_chol_solve(n)
+        fn = _solve_fns[n]
     out = torch.empty_like(b)
-    with torch.cuda.device(K.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.blf_chol_solve_f32(K.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                      B, n, stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        code = fn(K.data_ptr(), b.data_ptr(), out.data_ptr(), B, n, stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(K.data_ptr(), b.data_ptr(), out.data_ptr(), B, n, stream)
     if code != 0:
-        what = (lib.blf_cuda_error_string(code).decode() if code > 0
-                else {-1: "library compiled for another size",
-                      -2: "bad batch"}.get(code, "?"))
-        raise RuntimeError(f"cholesky_solve_lane launch failed ({code}): {what}")
+        raise RuntimeError(f"cholesky_solve_lane launch failed ({code}):"
+                           f" {_solve_error(_solve_libs[n], code)}")
     _counts["solve_launch"] += 1
     return out
 

@@ -146,7 +146,11 @@ STACK_M, STACK_N = 6 * STACK_R05.horizon, 4 * STACK_R05.horizon      # (48, 32)
 STACK_MPC_STAGES = -(-STACK_R05.mpc_iterations // STAGE_ITERS)     # 4 K1 launches a tick
 STACK_INNER = STACK_R05.wbc_per_mpc                                 # 10 inner ticks
 NV = 29                                                             # the humanoid's nu
-SOLVE_SIZES = (1, 6, 29)              # 6: the stack's wrench attribution
+# 6: the stack's wrench attribution; N_REG and N_REG + 1: the last size solved
+# one thread a matrix and the first one warp a matrix
+SOLVE_SIZES = (1, 6, chol_kernel.SOLVE_N_REG, chol_kernel.SOLVE_N_REG + 1, 29)
+SOLVE_RAW_LAUNCHES = 100              # raw launches between two events
+SOLVE_HOST_CALLS = 400                # wrapper calls timed on the host clock
 # the reference's contracts (tests/test_control_stack.py:129-141), every lane
 STACK_UPRIGHT, STACK_TWIST, STACK_DCM = 0.98, 0.6, 0.06
 STACK_EST_REL, STACK_EST_ABS = 0.3, 3.0
@@ -1116,10 +1120,69 @@ def kernels_chol_inverse_stack(seen) -> dict:
     }
 
 
+def raw_launch_ms(launch, count: int = SOLVE_RAW_LAUNCHES, reps: int = 7) -> float:
+    """Device milliseconds of one launch: ``count`` launches back to back
+    between two events, the median of ``reps``. A sleeping kernel holds the
+    stream while the host enqueues them, so the host's launch rate is not
+    what is timed."""
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(count):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / count)
+    return statistics.median(times)
+
+
+def host_us_per_call(fn, calls: int = SOLVE_HOST_CALLS) -> float:
+    """Host microseconds a call of ``fn``, on the host clock, with no
+    synchronisation inside the timed calls."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
+
+
+def solve_timings(K, b) -> dict:
+    """K4 at (K, b): one wrapper call between events, the raw kernel and the
+    empty launch with its grid (each ``SOLVE_RAW_LAUNCHES`` back to back), and
+    the wrapper's host microseconds a call."""
+    B, n = K.shape[0], K.shape[1]
+    lib = chol_kernel.build_chol_solve(n)
+    out = torch.empty_like(b)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        check(lib.blf_chol_solve_f32(K.data_ptr(), b.data_ptr(), out.data_ptr(), B, n,
+                                     stream) == 0, "raw K4 launch")
+
+    def empty():
+        check(lib.blf_chol_solve_empty(B, stream) == 0, "empty launch")
+
+    return {"kernel_ms": median_ms(lambda: chol_kernel.cholesky_solve_lane(K, b), 5, 21),
+            "raw_ms": raw_launch_ms(raw), "launch_floor_ms": raw_launch_ms(empty),
+            "host_us_per_call": host_us_per_call(lambda: chol_kernel.cholesky_solve_lane(K, b))}
+
+
 def kernels_chol_solve(seen) -> dict:
     """K4 against its plain version at n in SOLVE_SIZES and on the stack's own
     normal equations; NaN and non-SPD lanes stay local; timed at the stack's
-    (4096, 6, 6) beside the library pair, and at B = 1 (launch latency)."""
+    (4096, 6, 6) beside the library pair, and at B = 1 (launch latency): one
+    wrapper call between events, the raw kernel, the empty launch of its grid
+    (the launch floor) and the wrapper's host time a call."""
     cases, max_rel, max_abs = [], 0.0, 0.0
 
     def compare(K, b, inputs, exact_factor):
@@ -1173,18 +1236,33 @@ def kernels_chol_solve(seen) -> dict:
 
     (K, b), _ = seen["solve"][-1]
     B, n = K.shape[0], K.shape[1]
-    kernel_ms = median_ms(lambda: chol_kernel.cholesky_solve_lane(K, b), 5, 21)
-    one_ms = median_ms(lambda: chol_kernel.cholesky_solve_lane(K[:1], b[:1]), 5, 21)
+    plain_runs = chol_kernel.solve_reference_count()
+    full = solve_timings(K, b)
+    one = solve_timings(K[:1].contiguous(), b[:1].contiguous())
+    check(chol_kernel.solve_reference_count() == plain_runs, "K4's timings ran the kernel only")
     plain_ms = median_ms(lambda: chol_kernel.cholesky_solve_lane_reference(K, b), 1, 5)
     library_ms = median_ms(lambda: torch.cholesky_solve(
         b[..., None], torch.linalg.cholesky_ex(K)[0])[..., 0], 3, 11)
     ops_ms = 1e3 * B * (n ** 3 / 3 + 2 * n * n) / PEAK_F32_FLOPS
     bytes_ms = 1e3 * 4 * B * (n * n + 2 * n) / PEAK_BYTES_PER_S
+    residency = {}
+    for size in SOLVE_SIZES:
+        attrs = chol_kernel.solve_kernel_attributes(size)
+        spill = ptxas_spill_bytes(chol_kernel.SOLVE_SOURCE, {"CHOL_N": size})
+        residency[size] = {"kernel_path": chol_kernel.solve_plan(size).path, **attrs,
+                           "spill_bytes": spill}
+        check(attrs["local_bytes"] == 0 and spill == 0, f"K4 at n = {size} spills nothing")
     return {
         "name": "cholesky_solve_lane", "path": "stack", "shape": [n, n], "batch_timed": B,
         "cases": cases, "nan_lane": "confined", "not_spd_lane": "confined",
         "max_rel_err": max_rel, "max_abs_err": max_abs, "tolerance_rel": REL_TOL,
-        "kernel_ms": kernel_ms, "kernel_ms_batch_1": one_ms, "plain_ms": plain_ms,
+        "plan": chol_kernel.solve_plan(n)._asdict(), **residency[n],
+        "residency_by_n": residency,
+        "kernel_ms": full["kernel_ms"], "raw_ms": full["raw_ms"],
+        "launch_floor_ms": full["launch_floor_ms"], "host_us_per_call": full["host_us_per_call"],
+        "kernel_ms_batch_1": one["kernel_ms"], "raw_ms_batch_1": one["raw_ms"],
+        "launch_floor_ms_batch_1": one["launch_floor_ms"],
+        "host_us_per_call_batch_1": one["host_us_per_call"], "plain_ms": plain_ms,
         "library_ms": library_ms,
         "library_call": "torch.linalg.cholesky_ex + torch.cholesky_solve",
         "bound_ms": max(ops_ms, bytes_ms),

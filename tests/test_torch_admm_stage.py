@@ -248,16 +248,22 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+SIX_PASS_LANES = 64
+
+
 def test_six_pass_emulation_holds_the_plain_version():
-    """Six-pass bf16 products at (96, 64), 256 lanes, 25 iterations: within
+    """Six-pass bf16 products at (96, 64), the first 64 lanes of the inputs
+    of ``test_f32_matches_pallas_interpret``, 25 iterations: within
     chip_smoke.py's REL_TOL = 1e-5 of the exact f32 plain version (measured
-    1.2e-6; the plain version itself lies 1.4e-6 from float64), and a NaN
-    lane confined. The pieces hold every normal float32 exactly. In this
-    model one product's error is smaller than the plain version's and about
-    as often toward zero as away (measured 53 %, plain 50 %): what cost the
-    card's tensor-core kernel lanes on the fleet tick is not in the model."""
+    6.0e-6; the plain version itself lies 6.8e-6 from float64 on these
+    lanes; on all 256, 1.2e-6 and 1.4e-6), and a NaN lane confined. The
+    pieces hold every normal float32 exactly. In this model one product's
+    error is smaller than the plain version's and about as often toward zero
+    as away (measured 53 %, plain 50 %): what cost the card's tensor-core
+    kernel lanes on the fleet tick is not in the model."""
     a = stage_problem(16, 256, np.float32)
-    args = [torch.as_tensor(a[k]) for k in ORDER]
+    lanes = lambda k: a[k][:SIX_PASS_LANES] if k in ORDER[:6] else a[k]
+    args = [torch.as_tensor(lanes(k)) for k in ORDER]
     x = torch.cat([args[0].flatten(), args[6].flatten(), torch.tensor([1e-30, -1e30, 0.0])])
     assert torch.equal(sum(_pieces(x)), x)
     v6, t6 = six_pass_stage(*args, iters=25, alpha=ALPHA)
@@ -266,8 +272,8 @@ def test_six_pass_emulation_holds_the_plain_version():
     args[0] = args[0].clone()
     args[0][5, 3] = float("nan")
     vn, tn = six_pass_stage(*args, iters=2, alpha=ALPHA)
-    vc, tc = six_pass_stage(*[torch.as_tensor(a[k]) for k in ORDER], iters=2, alpha=ALPHA)
-    others = torch.arange(256) != 5
+    vc, tc = six_pass_stage(*[torch.as_tensor(lanes(k)) for k in ORDER], iters=2, alpha=ALPHA)
+    others = torch.arange(SIX_PASS_LANES) != 5
     assert not bool(torch.isfinite(vn[5]).all()) and torch.equal(vn[others], vc[others])
 
 

@@ -15,6 +15,8 @@ recursion with another summation order inside the dot products); float64
 at n <= 35; at n = 64 the plain version is held to float64 numpy.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +26,15 @@ torch.set_num_threads(1)
 
 from blf_tpu.ops.pallas import linalg as jlinalg
 from blf_tpu_torch.ops.cuda import linalg as tlinalg
-from test_torch_wbc_loop import run_reference
+from test_torch_wbc_loop import reference_jit
+
+# The reference kernels in interpret mode, each one program per input shape
+# and dtype, compiled once a process (with ``reference_jit``'s options):
+# tests that hand them the same shapes share the compile.
+interpret_inverse = reference_jit(
+    lambda K: jlinalg.cholesky_inverse_lane(K, interpret=True))
+interpret_solve = reference_jit(
+    lambda K, b: jlinalg.cholesky_solve_lane(K, b, interpret=True))
 
 
 def spd(rng, B, n, dtype):
@@ -47,8 +57,7 @@ def test_f32_matches_pallas_interpret(B, n):
     assert tlinalg.reference_count() == 1 and tlinalg.launch_count() == 0
     assert out.dtype == torch.float32 and tuple(out.shape) == (B, n, n)
     if n <= INTERPRET_MAX_N:
-        ref = np.asarray(run_reference(jlinalg.cholesky_inverse_lane, jnp.asarray(K),
-                                       interpret=True))
+        ref = np.asarray(interpret_inverse(jnp.asarray(K)))
         assert rel(out.numpy(), ref) < 1e-5
     assert rel(out.numpy(), np.linalg.inv(K.astype(np.float64))) < 1e-5
 
@@ -59,8 +68,7 @@ def test_f64_matches_pallas_interpret_and_numpy(B, n):
     out = tlinalg.cholesky_inverse_lane(torch.as_tensor(K)).numpy()
     assert out.dtype == np.float64
     if n <= INTERPRET_MAX_N:
-        ref = np.asarray(run_reference(jlinalg.cholesky_inverse_lane, jnp.asarray(K),
-                                       interpret=True))
+        ref = np.asarray(interpret_inverse(jnp.asarray(K)))
         assert rel(out, ref) < 1e-10
     assert rel(out, np.linalg.inv(K)) < 1e-10
     # L^-T L^-1 is formed from one factor: symmetric to rounding
@@ -83,8 +91,7 @@ def test_a_failed_lane_is_nan_and_stays_local(poison):
     out = tlinalg.cholesky_inverse_lane(torch.as_tensor(K))
     assert bool(torch.isnan(out[2]).all())
     assert torch.equal(out[[0, 1, 3]], clean[[0, 1, 3]])
-    ref = np.asarray(run_reference(jlinalg.cholesky_inverse_lane, jnp.asarray(K),
-                                   interpret=True))
+    ref = np.asarray(interpret_inverse(jnp.asarray(K)))
     assert np.isnan(ref[2]).all() and np.isfinite(ref[[0, 1, 3]]).all()
 
 
@@ -127,12 +134,28 @@ def rhs(rng, B, n, dtype):
     return rng.normal(size=(B, n)).astype(dtype)
 
 
-@pytest.mark.parametrize("B,n", [(3, 1), (5, 6), (4, 9)])
+N_REG = tlinalg.SOLVE_N_REG
+# n = 1, the stack's 6, the last size solved one thread a matrix and the first
+# one warp a matrix; B = 1 and either side of 128, which no block divides
+SOLVE_CASES = ([(3, 1), (5, 6), (4, 9)]
+               + [(B, n) for n in (1, 6, N_REG, N_REG + 1) for B in (1, 127, 129)])
+SOLVE_B_MAX = 129
+
+
+@functools.lru_cache(maxsize=None)
+def solve_inputs(n, dtype, seed):
+    """``SOLVE_B_MAX`` systems of size ``n`` and the reference kernel's
+    solution in interpret mode, made once a process; a case takes the first B
+    lanes (the kernel solves each lane on its own)."""
+    rng = np.random.default_rng(seed)
+    K, b = spd(rng, SOLVE_B_MAX, n, dtype), rhs(rng, SOLVE_B_MAX, n, dtype)
+    ref = np.asarray(interpret_solve(jnp.asarray(K), jnp.asarray(b)))
+    return K, b, ref
+
+
+@pytest.mark.parametrize("B,n", SOLVE_CASES)
 def test_solve_f32_matches_pallas_interpret(B, n):
-    rng = np.random.default_rng(n)
-    K, b = spd(rng, B, n, np.float32), rhs(rng, B, n, np.float32)
-    ref = np.asarray(run_reference(jlinalg.cholesky_solve_lane, jnp.asarray(K),
-                                   jnp.asarray(b), interpret=True))
+    K, b, ref = (a[:B] for a in solve_inputs(n, np.float32, n))
     tlinalg.reset_counts()
     out = tlinalg.cholesky_solve_lane(torch.as_tensor(K), torch.as_tensor(b))
     assert tlinalg.solve_reference_count() == 1 and tlinalg.solve_launch_count() == 0
@@ -143,15 +166,12 @@ def test_solve_f32_matches_pallas_interpret(B, n):
     assert rel(out.numpy(), exact) < 1e-5
 
 
-@pytest.mark.parametrize("B,n", [(3, 1), (5, 6), (4, 9)])
+@pytest.mark.parametrize("B,n", SOLVE_CASES)
 def test_solve_f64_matches_numpy_and_pallas_interpret(B, n):
-    rng = np.random.default_rng(10 + n)
-    K, b = spd(rng, B, n, np.float64), rhs(rng, B, n, np.float64)
+    K, b, ref = (a[:B] for a in solve_inputs(n, np.float64, 10 + n))
     out = tlinalg.cholesky_solve_lane(torch.as_tensor(K), torch.as_tensor(b)).numpy()
-    assert out.dtype == np.float64
+    assert out.dtype == np.float64 and out.shape == (B, n)
     assert rel(out, np.linalg.solve(K, b[..., None])[..., 0]) < 1e-10
-    ref = np.asarray(run_reference(jlinalg.cholesky_solve_lane, jnp.asarray(K),
-                                   jnp.asarray(b), interpret=True))
     assert rel(out, ref) < 1e-10
 
 
@@ -169,8 +189,7 @@ def test_a_failed_solve_lane_is_nan_and_stays_local(poison):
     out = tlinalg.cholesky_solve_lane(torch.as_tensor(K), torch.as_tensor(b))
     assert bool(torch.isnan(out[2]).all())
     assert torch.equal(out[[0, 1, 3]], clean[[0, 1, 3]])
-    ref = np.asarray(run_reference(jlinalg.cholesky_solve_lane, jnp.asarray(K),
-                                   jnp.asarray(b), interpret=True))
+    ref = np.asarray(interpret_solve(jnp.asarray(K), jnp.asarray(b)))
     assert np.isnan(ref[2]).all() and np.isfinite(ref[[0, 1, 3]]).all()
 
 
@@ -201,7 +220,31 @@ def test_solve_wrapper_checks_what_the_kernel_does_not_take():
         tlinalg.cholesky_solve_lane(K.to("meta"), b.to("meta"))
     with pytest.raises(ValueError, match=r"\(B, n\)"):
         tlinalg.cholesky_solve_lane_reference(K, b[:, :3])
-    with pytest.raises(ValueError, match="shared memory"):
-        tlinalg.build_chol_solve(400)
-    assert tlinalg.solve_shared_bytes(6) == 4 * (6 * 7 + 18)
+    for n in (400, tlinalg.SOLVE_MAX_N + 1, 0):
+        with pytest.raises(ValueError, match="shared memory"):
+            tlinalg.build_chol_solve(n)
+    # one thread a matrix at n = 6: 32 slots of K, b and one float of padding
+    assert tlinalg.solve_shared_bytes(6) == 4 * 32 * (36 + 6 + 1)
     assert tlinalg.SOLVE_REPLACES == "blf_tpu/ops/pallas/linalg.py:81"
+
+
+@pytest.mark.parametrize("n,path,threads,per_block,stride,opts_in", [
+    (1, "thread", 32, 32, 3, False), (6, "thread", 32, 32, 43, False),
+    (16, "thread", 32, 32, 273, False), (N_REG, "thread", 32, 32, 421, True),
+    (N_REG + 1, "warp", 128, 4, 21, False), (29, "warp", 128, 4, 29, False),
+    (64, "warp", 64, 2, 65, False), (110, "warp", 32, 1, 111, False),
+    (111, "warp", 32, 1, 111, True), (239, "warp", 32, 1, 239, True)])
+def test_solve_layout(n, path, threads, per_block, stride, opts_in):
+    """Which path each n takes and its shared memory, up to the largest n
+    taken (239, the first design's bound). Up to N_REG one thread a matrix,
+    its slot K then b at an odd stride; past it one warp a matrix, rows at an
+    odd stride, as many matrices a block (at most 4) as fit in the 48 KB a
+    block gets without opting in, and one past that; the kernel opts in to
+    more once a device."""
+    plan = tlinalg.solve_plan(n)
+    assert tuple(plan)[:4] == (path, threads, per_block, stride) and stride % 2 == 1
+    per_matrix = stride if path == "thread" else n * stride
+    assert plan.shared_bytes == 4 * per_block * per_matrix <= 232448
+    assert tlinalg.solve_shared_bytes(n) == plan.shared_bytes
+    assert (plan.shared_bytes > 48 * 1024) == opts_in
+    assert tlinalg.SOLVE_MAX_N == 239 and N_REG == 20

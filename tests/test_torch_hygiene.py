@@ -163,18 +163,16 @@ def test_kernel_sources_name_what_they_replace():
         assert "use_fast_math" in source and "cublas" not in source.lower()
         path, line = replaces.split(":")
         assert f"def {function}(" in (ROOT / path).read_text().splitlines()[int(line) - 1]
-    # K4 runs the factorization of its header; K3 (one warp a matrix) its own
-    assert '#include "chol_common.cuh"' in (PACKAGE / "csrc" / linalg.SOLVE_SOURCE).read_text()
-    assert [p.name for p in _build.source_files(linalg.SOURCE)] == ["chol_lane.cu"]
+    # K3 and K4 each carry their own factorization: neither includes a header
+    for source_name in (linalg.SOURCE, linalg.SOLVE_SOURCE):
+        assert [p.name for p in _build.source_files(source_name)] == [source_name]
 
 
 def test_library_path_follows_the_headers_a_source_includes(monkeypatch, tmp_path):
     """An edited header builds anew: the library's name hashes every header
     of ``csrc/`` that a source includes, through other headers too."""
-    from blf_tpu_torch.ops.cuda import _build, linalg
+    from blf_tpu_torch.ops.cuda import _build
 
-    assert [p.name for p in _build.source_files(linalg.SOLVE_SOURCE)] == [
-        "chol_solve.cu", "chol_common.cuh"]
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\n')

@@ -20,7 +20,7 @@ from blf_tpu_torch.models import kinematics as tkin
 from blf_tpu_torch.models import rigid_body as trb
 from blf_tpu_torch.models.robots import HUMANOID_SOLE_FRAMES, make_humanoid_23dof
 from blf_tpu_torch.ops.lie import so3_exp
-from test_torch_wbc_loop import reference_jit
+from test_torch_wbc_loop import in_background, reference_jit
 
 # One intra-op thread: the tensors here are small, and test workers running side
 # by side would each start a thread per core and slow every other worker down.
@@ -129,12 +129,14 @@ def torch_everything(s):
 @pytest.fixture(scope="module")
 def both():
     s = random_states()
-    ref = reference_jit(jax.vmap(jax_everything))({k: jnp.asarray(v) for k, v in s.items()})
-    ref = {k: np.asarray(v) for k, v in ref.items()}
+    args = {k: jnp.asarray(v) for k, v in s.items()}
+    # traced here, compiled on a thread while the port computes its side
+    compiled = in_background(reference_jit(jax.vmap(jax_everything)).lower(args).compile)
     st = {k: torch.as_tensor(v) for k, v in s.items()}
     with torch.no_grad():
         got = torch_everything(st)
         solo = [torch_everything({k: v[i] for k, v in st.items()}) for i in range(B)]
+    ref = {k: np.asarray(v) for k, v in compiled()(args).items()}
     return ref, got, solo
 
 

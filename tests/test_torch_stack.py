@@ -48,7 +48,7 @@ from blf_tpu_torch.mpc import stack as tstack
 from blf_tpu_torch.mpc.wholebody import WholeBodyParams
 from blf_tpu_torch.ops.cuda import admm, admm_lane, linalg
 from blf_tpu_torch.utils.status import SolverStatus
-from test_torch_wbc_loop import SOLES, make_biped, reference_jit
+from test_torch_wbc_loop import SOLES, in_background, make_biped, reference_jit
 
 # One intra-op thread: the tensors here are a few lanes wide, so more threads
 # gain nothing, and test workers running side by side would each start a
@@ -149,15 +149,22 @@ def to_numpy_tree(jax_state):
 
 def test_two_outer_ticks_match_the_reference_and_a_poisoned_lane_is_reset():
     ref_step, ref_state, ref_refs = reference()
+    # the reference's tick is traced here and compiled on a thread while the
+    # port runs its ticks; then the reference runs its own
+    ref_step = in_background(ref_step.lower(ref_state, jnp.asarray(PUSHES), *ref_refs).compile)
     step, refs = port()
     pushes = torch.as_tensor(PUSHES)
     state = to_port(ref_state)
     for counts in (admm, admm_lane, linalg):
         counts.reset_counts()
-    for k in range(TICKS):
-        ref_state, ref_trace = ref_step(ref_state, jnp.asarray(PUSHES), *ref_refs)
+    ours = []
+    for _ in range(TICKS):
         state, trace = step(state, pushes, *refs)
-        assert_same_tick(state, trace, ref_state, ref_trace, f"tick {k + 1}")
+        ours.append((state, trace))
+    ref_step = ref_step()
+    for k, (ours_state, ours_trace) in enumerate(ours):
+        ref_state, ref_trace = ref_step(ref_state, jnp.asarray(PUSHES), *ref_refs)
+        assert_same_tick(ours_state, ours_trace, ref_state, ref_trace, f"tick {k + 1}")
     # every kernel of the path ran its plain version on the CPU, as often as
     # the configuration says: K1 4 stages of 25 a tick, K2 one stage an inner
     # tick, K3 the lagged M^-1 once a tick and the KKT once an inner tick, K4

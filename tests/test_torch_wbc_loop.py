@@ -3,13 +3,18 @@
 100 Hz ticks of ``wbc_balance_step(backend="cuda")`` on a small fleet: QP
 build, warm-started ``solve_qp_lanes`` (on the CPU the two kernels' plain
 versions, six of each a tick), RK4 plant, against the same loop written with
-``blf_tpu`` and ``backend="pallas"`` (its two Pallas kernels in interpret
-mode), from the same seeded inputs.
+``blf_tpu``, from the same seeded inputs.
 
-* Float64, five ticks, state and torques within 1e-6: a tick's QP is solved to
-  eps = 1e-5 on both sides from iterates that agree to ~1e-9, and the plant
-  integrates 10 ms of the difference.
-* Float32, twenty ticks at eps = 1e-4: the converged flags and the penalty
+* Float64, five ticks, against the reference's ``backend="xla"`` (in float64
+  its two solver paths agree to rounding; the two kernels' plain versions are
+  held to the reference's Pallas kernels in interpret mode by
+  ``tests/test_torch_admm_lane.py`` and ``tests/test_torch_chol_lane.py``):
+  state and torques within 1e-6, a tick's QP being solved to eps = 1e-5 on
+  both sides from iterates that agree to ~1e-9, and the plant integrating 10
+  ms of the difference.
+* Float32, twenty ticks at eps = 1e-4, against the reference's
+  ``backend="pallas"`` (its two Pallas kernels in interpret mode, the
+  rounding the port's plain versions repeat): the converged flags and the penalty
   multiplier ``rho_scale`` tick by tick. Lane by lane the multiplier is not
   comparable early on: the rule that moves it takes the ratio of the relative
   primal to the relative dual residual, and in float32 the dual residual
@@ -36,6 +41,7 @@ converged, the median and max primal and dual residuals and the range of
 ``rho_scale`` on each side as one JSON line.
 """
 
+import concurrent.futures
 import contextlib
 import functools
 import importlib
@@ -74,8 +80,8 @@ SOLES = ("l_sole", "r_sole")
 #: XLA's least optimization for the JAX references the port's tests compile:
 #: at a few lanes they run in milliseconds either way, and the compile is what
 #: a test waits for (about a third less of it). Not for the float32 test of
-#: this file: it moves the reference's rounding, and that test holds the
-#: reference's own rounding-driven behaviour.
+#: this file: it moves the reference's rounding (``rho_scale`` by decades),
+#: and that test holds the reference's own rounding-driven behaviour.
 FAST_COMPILE = {"xla_backend_optimization_level": 0,
                 "xla_llvm_disable_expensive_passes": True}
 
@@ -86,38 +92,59 @@ _FK_CALLERS = ("blf_tpu.models.kinematics", "blf_tpu.models.rigid_body",
                "blf_tpu.estimators.wrench_observer")
 
 
-@contextlib.contextmanager
-def forward_kinematics_traced_once():
-    """While a reference program is traced, the reference's forward
-    kinematics is a ``jax.jit`` of itself for each tree: the mass matrix, the
-    bias forces, every frame and the plant each rerun it on the same shapes,
-    and its trace is most of the program's. XLA inlines the inner program, so
-    the operations and their order do not change."""
-    fk = jkin.forward_kinematics
+def _jit_per_tree(fn):
+    """``fn(tree, *args, **kwargs)`` as a ``jax.jit`` of itself for each tree
+    and each set of static arguments: the arrays among the arguments are
+    traced, everything else is static."""
     jitted = {}
 
-    def once(tree, base_position, base_rotation, q):
-        if id(tree) not in jitted:
-            jitted[id(tree)] = (tree, jax.jit(lambda bp, bR, qq: fk(tree, bp, bR, qq)))
-        return jitted[id(tree)][1](base_position, base_rotation, q)
+    def once(tree, *args, **kwargs):
+        leaves, treedef = jax.tree_util.tree_flatten((args, kwargs))
+        traced = tuple(isinstance(leaf, (jax.Array, np.ndarray)) for leaf in leaves)
+        static = tuple(leaf for leaf, t in zip(leaves, traced) if not t)
+        key = (id(tree), treedef, traced, static)
+        if key not in jitted:
+            def call(arrays):
+                it, st = iter(arrays), iter(static)
+                a, kw = jax.tree_util.tree_unflatten(
+                    treedef, [next(it) if t else next(st) for t in traced])
+                return fn(tree, *a, **kw)
 
+            jitted[key] = (tree, jax.jit(call))
+        return jitted[key][1]([leaf for leaf, t in zip(leaves, traced) if t])
+
+    return once
+
+
+@contextlib.contextmanager
+def traced_once_per_tree():
+    """While a reference program is traced, the reference's forward
+    kinematics and its floating-base dynamics are each a ``jax.jit`` of
+    themselves for each tree: the mass matrix, the bias forces, every frame
+    and the plant rerun the kinematics on the same shapes, and the plant's
+    RK4 stages the dynamics; their traces are most of the program's. XLA
+    inlines the inner programs, so the operations and their order do not
+    change (the float32 loop of this file gives the same bits)."""
     with contextlib.ExitStack() as stack:
+        fk = _jit_per_tree(jkin.forward_kinematics)
         for name in _FK_CALLERS:
             stack.enter_context(mock.patch.object(importlib.import_module(name),
-                                                  "forward_kinematics", once))
+                                                  "forward_kinematics", fk))
+        stack.enter_context(mock.patch.object(
+            jrb, "floating_base_dynamics", _jit_per_tree(jrb.floating_base_dynamics)))
         yield
 
 
-def reference_jit(fn):
-    """``jax.jit`` of a JAX reference with :data:`FAST_COMPILE`, traced with
-    :func:`forward_kinematics_traced_once`."""
+def reference_jit(fn, compiler_options=FAST_COMPILE):
+    """``jax.jit`` of a JAX reference with ``compiler_options``, traced with
+    :func:`traced_once_per_tree`."""
 
     @functools.wraps(fn)
     def traced(*args, **kwargs):
-        with forward_kinematics_traced_once():
+        with traced_once_per_tree():
             return fn(*args, **kwargs)
 
-    return jax.jit(traced, compiler_options=FAST_COMPILE)
+    return jax.jit(traced, compiler_options=compiler_options)
 
 
 def run_reference(fn, *args, **kwargs):
@@ -136,6 +163,17 @@ def run_reference(fn, *args, **kwargs):
         return fn(*a, **kw)
 
     return reference_jit(call)([leaf for leaf, t in zip(leaves, traced) if t])
+
+
+def in_background(fn, *args, **kwargs):
+    """Start ``fn(*args, **kwargs)`` (a JAX reference) on a thread of its own
+    and return a function that waits for its result. XLA compiles outside
+    Python's lock, so the caller's port run overlaps the reference's compile;
+    what either computes does not change."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(fn, *args, **kwargs)
+    pool.shutdown(wait=False)
+    return future.result
 
 
 def box_inertia(mass, lx, ly, lz):
@@ -191,6 +229,14 @@ def jax_loop(tree, fleet, ticks, eps, backend="pallas"):
     unless told otherwise), vmapped plant; in the dtype of ``fleet``. ``tree``
     is ``blf_tpu``'s copy of ``fleet.tree``. Returns ``(state, solution)`` of
     every tick."""
+    return jax_loop_start(tree, fleet, ticks, eps, backend)()
+
+
+def jax_loop_start(tree, fleet, ticks, eps, backend="pallas"):
+    """:func:`jax_loop` in two halves: its tick is traced now and compiled
+    on a thread of its own, so that the caller's port run overlaps the
+    compile; the function returned waits for it and runs the ticks. The
+    program and its results are those of a plain ``jax.jit``."""
     dtype = jnp.float64 if fleet.q_ref.dtype == torch.float64 else jnp.float32
     as_j = lambda t: jnp.asarray(np.asarray(t), dtype)
     n, nv = tree.num_dofs, tree.nv
@@ -228,19 +274,24 @@ def jax_loop(tree, fleet, ticks, eps, backend="pallas"):
                            backend=backend)
         return jax.vmap(plant)(state, sol.x), sol
 
-    tick = reference_jit(tick) if dtype == jnp.float64 else jax.jit(tick)
+    tick = reference_jit(tick, FAST_COMPILE if dtype == jnp.float64 else None)
     state = jrb.FloatingBaseState(**{
         k: as_j(v) for k, v in floating_base_state_to_numpy(fleet.state).items()})
     nx, m = nv + 12 + n, nv + 12 + 22 + n
     x0, y0, s0 = (jnp.zeros((lanes, nx), dtype), jnp.zeros((lanes, m), dtype),
                   jnp.ones((lanes, 1), dtype))
-    history = []
-    for _ in range(ticks):
-        state, sol = tick(state, x0, y0, s0)
-        x0, y0, s0 = sol.x, sol.y, sol.rho_scale
-        history.append((state, sol))
-    assert sol.x.dtype == dtype
-    return history
+    compiled = in_background(tick.lower(state, x0, y0, s0).compile)
+
+    def run():
+        step, carry, history = compiled(), (state, x0, y0, s0), []
+        for _ in range(ticks):
+            st, sol = step(*carry)
+            carry = (st, sol.x, sol.y, sol.rho_scale)
+            history.append((st, sol))
+        assert all(sol.x.dtype == dtype for _, sol in history)
+        return history
+
+    return run
 
 
 def torch_loop(fleet, ticks, eps, backend="cuda"):
@@ -256,10 +307,12 @@ def test_five_ticks_on_the_kernel_backend_match_the_reference():
     lanes, ticks, eps = 4, 5, 1e-5
     fleet = biped_fleet(lanes, torch.float64)
     nv = fleet.tree.nv
-    ref = jax_loop(make_biped(jkin.KinematicTreeBuilder), fleet, ticks, eps)
+    ref = jax_loop_start(make_biped(jkin.KinematicTreeBuilder), fleet, ticks, eps,
+                         backend="xla")
     admm_lane.reset_counts()
     linalg.reset_counts()
     out = torch_loop(fleet, ticks, eps)
+    ref = ref()
     for k, ((state, sol, warm), (ref_state, ref_sol)) in enumerate(zip(out, ref)):
         for name, val in floating_base_state_to_numpy(state).items():
             np.testing.assert_allclose(val, np.asarray(getattr(ref_state, name)),
@@ -280,8 +333,9 @@ def test_five_ticks_on_the_kernel_backend_match_the_reference():
 def test_float32_penalty_sinks_alike_on_both_sides():
     lanes, ticks, eps = 8, 20, 1e-4
     fleet = biped_fleet(lanes, torch.float32)
-    ref = jax_loop(make_biped(jkin.KinematicTreeBuilder), fleet, ticks, eps)
+    ref = jax_loop_start(make_biped(jkin.KinematicTreeBuilder), fleet, ticks, eps)
     out = torch_loop(fleet, ticks, eps)
+    ref = ref()
     s_port = np.stack([sol.qp.rho_scale.numpy()[:, 0] for _, sol, _ in out])
     s_ref = np.stack([np.asarray(sol.rho_scale)[:, 0] for _, sol in ref])
     assert s_port.dtype == s_ref.dtype == np.float32

@@ -21,7 +21,7 @@ from blf_tpu_torch.models.kinematics import forward_kinematics
 from blf_tpu_torch.models.rigid_body import com_position
 from blf_tpu_torch.ops.cuda import admm_lane, linalg
 from blf_tpu_torch.problems import standing_fleet
-from test_torch_wbc_loop import jax_loop, torch_loop
+from test_torch_wbc_loop import jax_loop_start, torch_loop
 
 # One intra-op thread: the tensors here are a few lanes wide, so more threads
 # gain nothing, and test workers running side by side would each start a
@@ -33,10 +33,11 @@ B, TICKS, EPS = 4, 5, 1e-5
 
 def test_five_ticks_of_the_balance_loop_match_the_reference():
     fleet = standing_fleet(B, seed=0, device="cpu", dtype=torch.float64)
-    ref = jax_loop(jax_humanoid(), fleet, TICKS, EPS, backend="xla")
+    ref = jax_loop_start(jax_humanoid(), fleet, TICKS, EPS, backend="xla")
     admm_lane.reset_counts()
     linalg.reset_counts()
     out = torch_loop(fleet, TICKS, EPS, backend="torch")
+    ref = ref()
     for k, ((state, sol, _), (ref_state, ref_sol)) in enumerate(zip(out, ref)):
         for name, val in floating_base_state_to_numpy(state).items():
             np.testing.assert_allclose(val, np.asarray(getattr(ref_state, name)),
