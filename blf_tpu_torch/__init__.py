@@ -28,6 +28,15 @@ one hand-written CUDA kernel (``csrc/foot_rollout.cu``), and contact
 identification on it, :func:`blf_tpu_torch.problems.identify_contacts`
 (RLS in three forms: sequential, one reduction, a log-depth scan).
 
+Slice 4 (first part): BASELINE config 1 closed out
+(:func:`blf_tpu_torch.models.lipm.dcm_reference_trajectory`) and config 3,
+the full gait, :func:`blf_tpu_torch.planners.gait.plan_gait` (contact
+timeline, batched convex hulls, the shared DCM QP), whose shared QP at
+(960, 384) runs K1's exact f32 stage on a kernel that streams the operator
+from L2 (``csrc/admm_stage_l2.cu``). Beside it, not called by it, the native
+host runtime :mod:`blf_tpu_torch.native`: a standalone batch API (schedule
+lowering and support polygons in C++) for sweeps set up on the host.
+
 Rules that hold everywhere in the package:
 
 - **Device.** ``device=None`` means ``torch.device("cuda")``; without CUDA the

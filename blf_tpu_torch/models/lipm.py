@@ -9,10 +9,8 @@ Counterpart of ``blf_tpu/models/lipm.py``. Continuous dynamics:
 
 Everything is closed-form exponential (exact zero-order-hold discretisation),
 batched over leading axes and dtype-generic. Time loops that are
-``lax.scan`` in the reference are Python loops here.
-
-Not yet ported: ``dcm_reference_trajectory`` (the footstep-plan helper of the
-planners slice).
+``lax.scan`` in the reference are Python loops here. Everything of the
+reference module is ported.
 """
 
 from __future__ import annotations
@@ -29,6 +27,7 @@ __all__ = [
     "dcm_discrete_step",
     "com_discrete_step",
     "dcm_backward_recursion",
+    "dcm_reference_trajectory",
     "com_trajectory_from_dcm",
 ]
 
@@ -81,6 +80,17 @@ def dcm_backward_recursion(params: LIPMParams, zmp_knots, dcm_final, dt):
         xi = z_k + a * (xi - z_k)
         xis.append(xi)
     return torch.stack(xis[::-1], dim=0)
+
+
+def dcm_reference_trajectory(params: LIPMParams, footholds, durations, dt):
+    """Piecewise-constant-ZMP reference: ``footholds`` ``(S, 2)`` with per-step
+    ``durations`` ``(S,)`` (seconds, multiples of dt). Returns (zmp_knots
+    ``(T, 2)``, dcm_ref ``(T+1, 2)``) with the DCM ending on the final
+    foothold."""
+    seconds = torch.as_tensor(durations, dtype=torch.float64, device=footholds.device)
+    reps = torch.round(seconds / dt).long()
+    zmp = torch.repeat_interleave(footholds, reps, dim=0)
+    return zmp, dcm_backward_recursion(params, zmp, footholds[-1], dt)
 
 
 def com_trajectory_from_dcm(params: LIPMParams, com0, dcm_traj, zmp_knots, dt):

@@ -29,11 +29,12 @@ import time
 from pathlib import Path
 from typing import Dict, List, Mapping, Optional, Tuple
 
+from blf_tpu_torch._paths import BUILD_DIR, PACKAGE_DIR
+
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "source_files",
            "library_path", "build_library", "load_library", "last_build_log"]
 
-CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
+CSRC_DIR = PACKAGE_DIR / "csrc"
 
 #: No ``-use_fast_math``: divisions and square roots stay IEEE (see
 #: ``blf_tpu_torch/ops/precision.py``). ``-Xptxas -v`` makes the compiler

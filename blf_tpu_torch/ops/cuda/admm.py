@@ -12,9 +12,12 @@ v-space recursion of :func:`blf_tpu_torch.mpc.qp.solve_qp_factored`::
 
 ``matmul`` takes the reference's names:
 
-- ``"f32"`` (the port's default): exact float32 products, the kernel
-  ``csrc/admm_stage.cu`` (FMA units; why not the tensor cores: see its
-  source).
+- ``"f32"`` (the port's default): exact float32 products on the FMA units
+  (why not the tensor cores: see ``csrc/admm_stage.cu``), by one of two
+  kernels chosen by shape: ``csrc/admm_stage.cu`` keeps G2 and a 32-lane
+  tile in one block's shared memory (:func:`stage_shared_bytes` up to
+  227 KB); past that, ``csrc/admm_stage_l2.cu`` streams G2 through shared
+  memory from L2 (the config-3 gait's (960, 384), for instance).
 - ``"split"``: every product a 3-pass sum of bf16 hi/lo products,
   ``A_hi b_hi + A_hi b_lo + A_lo b_hi`` (``admm.py:93-135``, ``:234-255``).
 - ``"delta"``: 3-pass products in iteration 1, then 2-pass products of the
@@ -35,9 +38,10 @@ guard of the reference are TPU matters and have no counterpart here.
 - :func:`admm_stage` runs the plain loop for tensors that lie on the CPU and
   launches the mode's hand-written kernel for CUDA tensors. There it launches
   or raises: nothing falls back.
-- Counts are kept per kernel: :func:`launch_count` / :func:`reference_count`
-  for the f32 kernel, :func:`tc_launch_count` / :func:`tc_reference_count`
-  for the tensor-core kernel.
+- Counts are kept per kernel: :func:`launch_count` / :func:`l2_launch_count`
+  for the two f32 kernels and :func:`reference_count` for their plain version,
+  :func:`tc_launch_count` / :func:`tc_reference_count` for the tensor-core
+  kernel.
 """
 
 from __future__ import annotations
@@ -50,38 +54,52 @@ import torch
 from blf_tpu_torch.ops.cuda import _build
 from blf_tpu_torch.ops.precision import f32_matmuls
 
-__all__ = ["admm_stage", "admm_stage_reference", "launch_count",
+__all__ = ["admm_stage", "admm_stage_reference", "launch_count", "l2_launch_count",
            "reference_count", "tc_launch_count", "tc_reference_count",
-           "reset_counts", "stage_shared_bytes", "stage_tc_shared_bytes", "tc_lanes",
-           "build_admm_stage", "build_admm_stage_tc", "MATMUL_MODES", "SOURCE",
-           "REPLACES", "TC_SOURCE", "TC_REPLACES"]
+           "reset_counts", "stage_shared_bytes", "stage_l2_shared_bytes", "streams_operator",
+           "stage_tc_shared_bytes", "tc_lanes", "build_admm_stage", "build_admm_stage_l2",
+           "build_admm_stage_tc", "MATMUL_MODES", "SOURCE", "REPLACES", "L2_SOURCE",
+           "L2_REPLACES", "TC_SOURCE", "TC_REPLACES"]
 
 MATMUL_MODES = ("f32", "split", "delta")
 SOURCE = "admm_stage.cu"
 #: the TPU kernel this one replaces (file:line of ``_stage_kernel_t``)
 REPLACES = "blf_tpu/ops/pallas/admm.py:138"
+#: the f32 kernel for operators past shared memory, and what it replaces
+L2_SOURCE = "admm_stage_l2.cu"
+L2_REPLACES = "blf_tpu/ops/pallas/admm.py:138"
 #: the tensor-core kernel of modes "split" and "delta", and what it replaces
 TC_SOURCE = "admm_stage_tc.cu"
 TC_REPLACES = "blf_tpu/ops/pallas/admm.py:138"
 
-_LANES = 32                 # lanes per block (csrc/admm_stage.cu)
+_LANES = 32                 # lanes per block (csrc/admm_stage.cu, csrc/admm_stage_l2.cu)
+_L2_CHUNK = 32              # operator rows per chunk (csrc/admm_stage_l2.cu)
+_L2_SPLITS = 8              # ways its product G2 tau splits the contraction
 _MAX_SHARED = 232448        # bytes of shared memory a block may use on sm_90
 
-# Plain integers: how often each kernel was launched (the tensor-core one by
-# mode), and how often a plain version ran because the tensors lie on the CPU.
-_counts = {"launch": 0, "reference": 0, "tc_split": 0, "tc_delta": 0, "tc_reference": 0}
+# Plain integers: how often each kernel was launched (the f32 one that streams
+# the operator apart, the tensor-core one by mode), and how often a plain
+# version ran because the tensors lie on the CPU.
+_counts = {"launch": 0, "launch_l2": 0, "reference": 0, "tc_split": 0, "tc_delta": 0,
+           "tc_reference": 0}
 _libs: Dict[Tuple[int, int], ctypes.CDLL] = {}
+_l2_libs: Dict[Tuple[int, int], ctypes.CDLL] = {}
 _tc_libs: Dict[Tuple[int, int, str], ctypes.CDLL] = {}
 
 
 def launch_count() -> int:
-    """Launches of the f32 kernel since the last :func:`reset_counts`."""
+    """Launches of the resident f32 kernel since the last :func:`reset_counts`."""
     return _counts["launch"]
+
+
+def l2_launch_count() -> int:
+    """Launches of the f32 kernel that streams the operator from L2."""
+    return _counts["launch_l2"]
 
 
 def reference_count() -> int:
     """Plain-version runs of mode ``"f32"`` made by :func:`admm_stage` for CPU
-    tensors."""
+    tensors, at any shape."""
     return _counts["reference"]
 
 
@@ -216,6 +234,57 @@ def _check_shape(m: int, n: int) -> None:
             f" offers {_MAX_SHARED}")
 
 
+def streams_operator(m: int, n: int) -> bool:
+    """Whether mode ``"f32"`` runs the streaming kernel at ``(m, n)``: the
+    resident kernel's operator and tile do not fit in shared memory."""
+    return stage_shared_bytes(m, n) > _MAX_SHARED
+
+
+def stage_l2_shared_bytes(m: int, n: int) -> int:
+    """Shared memory one block of the streaming f32 kernel needs at ``(m, n)``
+    (csrc/admm_stage_l2.cu): two chunks of operator rows (stride n + 4), tau
+    of a 32-lane tile, the chunk's w (stride 36) and the partial sums of
+    G2 tau (stride 34); independent of m."""
+    return 4 * (2 * _L2_CHUNK * (n + 4) + n * _LANES + _L2_CHUNK * (_LANES + 4)
+                + _L2_SPLITS * _LANES * (_L2_CHUNK + 2))
+
+
+def _check_l2_shape(m: int, n: int) -> None:
+    if n % 4 != 0 or n < 4 or m < 1:
+        raise ValueError(
+            f"admm_stage_l2 kernel needs n to be a positive multiple of 4, got"
+            f" (m, n) = ({m}, {n})")
+    need = stage_l2_shared_bytes(m, n)
+    if need > _MAX_SHARED:
+        raise ValueError(
+            f"admm_stage_l2 kernel keeps two {_L2_CHUNK}-row chunks of G2 and a"
+            f" {_LANES}-lane tile's tau in shared memory: (m, n) = ({m}, {n}) needs"
+            f" {need} bytes, the card offers {_MAX_SHARED}")
+
+
+def build_admm_stage_l2(m: int, n: int) -> ctypes.CDLL:
+    """Build (at first use) and load the streaming f32 kernel for ``(m, n)``."""
+    lib = _l2_libs.get((m, n))
+    if lib is not None:
+        return lib
+    _check_l2_shape(m, n)
+    lib = _build.load_library(L2_SOURCE, {"ADMM_M": m, "ADMM_N": n})
+    P = ctypes.c_void_p
+    lib.blf_admm_stage_l2.argtypes = [P] * 10 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, P]
+    lib.blf_admm_stage_l2.restype = ctypes.c_int
+    lib.blf_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.blf_cuda_error_string.restype = ctypes.c_char_p
+    lib.blf_admm_stage_l2_smem_bytes.argtypes = []
+    lib.blf_admm_stage_l2_smem_bytes.restype = ctypes.c_int
+    if lib.blf_admm_stage_l2_smem_bytes() != stage_l2_shared_bytes(m, n):
+        raise RuntimeError("admm_stage_l2 library disagrees with its wrapper on"
+                           " the shared-memory layout")
+    _l2_libs[(m, n)] = lib
+    return lib
+
+
 def build_admm_stage(m: int, n: int) -> ctypes.CDLL:
     """Build (at first use) and load the f32 kernel's library for ``(m, n)``."""
     lib = _libs.get((m, n))
@@ -322,6 +391,8 @@ def admm_stage(v, tau, s, gq, l, u, G2, d, base_rho, *, iters: int, alpha: float
     contiguous float32 of the documented shapes; the mode's kernel is launched
     on the current stream, its launch error is checked, and the call does not
     synchronise. Any ``B >= 1`` is taken (the kernels mask their last tile).
+    In mode ``"f32"`` the shape chooses the kernel (:func:`streams_operator`):
+    the resident one, or past shared memory the streaming one.
     ``"split"`` and ``"delta"`` take float32 only, on either device.
     """
     if matmul not in MATMUL_MODES:
@@ -369,16 +440,20 @@ def admm_stage(v, tau, s, gq, l, u, G2, d, base_rho, *, iters: int, alpha: float
         return v_out, tau_out
     if G2.data_ptr() % 16:
         raise ValueError("G2 must be 16-byte aligned")
-    lib = build_admm_stage(m, n)
+    streams = streams_operator(m, n)
+    if streams and gq.data_ptr() % 16:
+        raise ValueError("gq must be 16-byte aligned")
+    lib = build_admm_stage_l2(m, n) if streams else build_admm_stage(m, n)
+    launch = lib.blf_admm_stage_l2 if streams else lib.blf_admm_stage_f32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.blf_admm_stage_f32(
+        code = launch(
             v.data_ptr(), s.data_ptr(), gq.data_ptr(), l.data_ptr(),
             u.data_ptr(), G2.data_ptr(), d.data_ptr(), base_rho.data_ptr(),
             v_out.data_ptr(), tau_out.data_ptr(), B, m, n, int(iters),
             float(alpha), stream)
-    _raise_on(code, lib, "admm_stage")
-    _counts["launch"] += 1
+    _raise_on(code, lib, "admm_stage_l2" if streams else "admm_stage")
+    _counts["launch_l2" if streams else "launch"] += 1
     return v_out, tau_out
 
 

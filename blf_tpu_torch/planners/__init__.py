@@ -1,4 +1,5 @@
 """Planners (counterpart of ``blf_tpu/planners``).
 
-Ported: ``variables``. Not yet ported: ``contacts``, ``convex_hull``, ``gait``.
+Ported: ``variables``, ``contacts``, ``convex_hull``, ``gait``: everything of
+the reference subpackage.
 """

@@ -13,6 +13,9 @@ push-recovery fleet of the whole control stack that
 rollout of ``benchmarks/rollout_bench.py`` (:func:`foot_drop_fleet`) and the
 contact identification of ``examples/02_contact_identification.py`` over a
 fleet (:func:`contact_identification_fleet`, :func:`identify_contacts`).
+BASELINE config 3: the 10-step gait of ``examples/03_full_gait.py`` over a
+fleet of initial DCMs, the sweep of ``tests/test_gait.py``'s
+``test_batched_gait_scenarios`` widened (:func:`gait_fleet`).
 Inputs are drawn with ``numpy.random.default_rng(seed)``, so the JAX package
 and the port can be fed the same numbers.
 """
@@ -40,6 +43,7 @@ from blf_tpu_torch.mpc.wholebody import (WholeBodyParams, WholeBodySolution,
                                          WholeBodyTask, solve_wholebody_qp)
 from blf_tpu_torch.ops.integrators import integrate
 from blf_tpu_torch.ops.lie import so3_exp
+from blf_tpu_torch.planners.gait import footstep_plan
 from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
 from blf_tpu_torch.utils.params import ParametersHandler
 
@@ -49,7 +53,7 @@ __all__ = ["example_problem", "PushRecoveryProblem", "stationary_push_recovery",
            "push_recovery_stack", "stack_fleet_step", "FootDropFleet", "foot_drop_fleet",
            "ContactIdentificationFleet", "contact_identification_fleet",
            "Identification", "identify_contacts", "IDENTIFY_PARTS",
-           "IDENTIFY_STEPS_PER_SAMPLE"]
+           "IDENTIFY_STEPS_PER_SAMPLE", "GaitFleet", "gait_fleet", "GAIT_ITERATIONS"]
 
 _BOX = [[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]]
 
@@ -510,3 +514,40 @@ def identify_contacts(problem: ContactIdentificationFleet, *,
         par, _ = rls_parallel(params, rls0, regressors, wrenches)
     return Identification(scan=scan.theta, fit=fit.theta, parallel=par.theta,
                           true=torch.cat([cp.spring_coeff, cp.damper_coeff], dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config 3: a fleet of 10-step gaits
+# ---------------------------------------------------------------------------
+
+#: ADMM iterations of a gait plan of the fleet (4 stages of 25)
+GAIT_ITERATIONS = 100
+
+
+class GaitFleet(NamedTuple):
+    """The arguments of ``plan_gait`` for a fleet of lanes on one gait."""
+
+    params: LIPMParams
+    lists: dict                # {"left": ContactList, "right": ContactList}
+    dt: float
+    dcm0: torch.Tensor         # (B, 2) initial DCM of each lane
+    com0: torch.Tensor         # (B, 2) = dcm0
+
+
+def gait_fleet(batch: int, *, num_steps: int = 10, step_length: float = 0.15,
+               seed: int = 0, device=None, dtype: Optional[torch.dtype] = None
+               ) -> GaitFleet:
+    """Config 3 over a fleet: the gait of ``footstep_plan(num_steps,
+    step_length)`` (10 steps of 0.15 m: 96 knots of dt = 0.1, a shared QP of
+    (m, n) = (960, 384)) planned from ``batch`` initial DCMs drawn from
+    U(-0.02, 0.02) m per axis, com0 = dcm0, as
+    ``tests/test_gait.py::test_batched_gait_scenarios`` draws its sweep. Every
+    lane shares the schedule, the polygons and the references, so
+    ``plan_gait(*fleet, shared=True)`` solves them against one factorization."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    rng = np.random.default_rng(seed)
+    dcm0 = torch.as_tensor(rng.uniform(-0.02, 0.02, (batch, 2)), dtype=dtype, device=device)
+    return GaitFleet(params=_lipm(device, dtype),
+                     lists=footstep_plan(num_steps=num_steps, step_length=step_length),
+                     dt=0.1, dcm0=dcm0, com0=dcm0.clone())

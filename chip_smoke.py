@@ -89,11 +89,16 @@ from blf_tpu_torch.ops.cuda import rollout as rollout_kernel
 from blf_tpu_torch.parallel.sweep import init_fleet, make_fleet_step
 from blf_tpu_torch.problems import WBC_CHECK_EVERY as WBC_STAGE
 from blf_tpu_torch.problems import WBC_ITERATIONS as WBC_ITERS
-from blf_tpu_torch.problems import (IDENTIFY_PARTS, IDENTIFY_STEPS_PER_SAMPLE, STACK_R05,
-                                    apply_solution, balance_task, contact_identification_fleet,
-                                    foot_drop_fleet, identify_contacts, push_recovery_stack,
-                                    stack_fleet_step, standing_fleet, stationary_push_recovery,
-                                    wbc_balance_step)
+from blf_tpu_torch import native
+from blf_tpu_torch.convert import lipm_params_from_numpy
+from blf_tpu_torch.planners.contacts import lower_contact_schedule
+from blf_tpu_torch.planners.gait import (footstep_plan, gait_horizon, gait_references,
+                                         plan_gait, support_polygons)
+from blf_tpu_torch.problems import (GAIT_ITERATIONS, IDENTIFY_PARTS, IDENTIFY_STEPS_PER_SAMPLE,
+                                    STACK_R05, apply_solution, balance_task,
+                                    contact_identification_fleet, foot_drop_fleet, gait_fleet,
+                                    identify_contacts, push_recovery_stack, stack_fleet_step,
+                                    standing_fleet, stationary_push_recovery, wbc_balance_step)
 from blf_tpu_torch.utils.status import status_counts
 from blf_tpu_torch.utils.telemetry import TelemetryStream
 
@@ -206,6 +211,20 @@ IDENT_CROSS_TOL = 1e-4    # relative, per lane: backend "cuda" against "torch"
 IDENT_SHARE_K, IDENT_SHARE_B = 0.995, 0.96      # lanes within 1 % of the truth
 IDENT_MEDIAN_K, IDENT_MEDIAN_B = 2.5e-3, 5e-3   # median relative error
 IDENT_MAX = 5e-2                                # max relative error, k and b
+# BASELINE config 3: the 10-step gait over a fleet (problems.gait_fleet, plan_gait), and
+# examples/03_full_gait.py's single plan; held to TestFullGait.test_ten_step_gait_plan's
+# checks with its float32 limit on the ZMP margin
+GAIT_LANES = 4096
+GAIT_RUNS = 3                  # timed plans, after one warm-up
+GAIT_CPU_LANES = 64            # lanes planned again in float64 on the CPU (the plain path)
+GAIT_EXAMPLE_ITERS = 2000
+GAIT_MARGIN_TOL = 5e-4
+GAIT_FINAL_DCM, GAIT_FINAL_TOL = (0.75, 0.0), 0.02
+GAIT_RMSE_TOL = 1e-3           # m, BASELINE config 1's acceptance limit on the DCM
+# K1's streaming f32 kernel (csrc/admm_stage_l2.cu): the 10-step gait's shape, the
+# 6-step gait's, and the fleet tick's transcription at horizon 40, the first shapes past
+# the resident kernel's shared memory
+L2_SHAPES = ((960, 384, "gait10"), (640, 256, "gait6"), (240, 160, "tick_h40"))
 # the tensor-core kernel of K1's modes "split" and "delta" (csrc/admm_stage_tc.cu).
 # Tolerances relative to the largest |entry|, from the CPU study of
 # tests/test_torch_admm_stage_tc.py run as a script: the plain version in two float32
@@ -236,7 +255,7 @@ CROSS_DELTA_FIRST_MISMATCH = 0.10     # share of lanes of differing status on ti
 CROSS_F32_SHARE, CROSS_F32_TOL = 25 / 256, 5e-4
 DEVICE = torch.device("cuda")
 PHASES = ("device", "build", "kernels", "tick", "cross", "tick_delta", "cross_delta", "wbc",
-          "wbc_cross", "stack", "stack_cross", "foot", "identify")
+          "wbc_cross", "stack", "stack_cross", "foot", "identify", "gait")
 
 
 START = time.perf_counter()
@@ -312,6 +331,8 @@ def phase_build() -> dict:
     jobs += [(f"chol_solve_n{n}", chol_kernel.SOLVE_SOURCE, {"CHOL_N": n})
              for n in SOLVE_SIZES]
     jobs += [("foot_rollout", rollout_kernel.SOURCE, {})]
+    jobs += [(f"admm_stage_l2_{name}", admm_kernel.L2_SOURCE, {"ADMM_M": m, "ADMM_N": n})
+             for m, n, name in L2_SHAPES + ((M, N, "tick"),)]
 
     def build(job):
         t0 = time.perf_counter()
@@ -332,6 +353,8 @@ def phase_build() -> dict:
     for n in SOLVE_SIZES:
         chol_kernel.build_chol_solve(n)
     rollout_kernel.build_foot_rollout()
+    for m, n, _ in L2_SHAPES + ((M, N, "tick"),):
+        admm_kernel.build_admm_stage_l2(m, n)
     wall = time.perf_counter() - t0
     shared = {"admm_stage": admm_kernel.stage_shared_bytes(M, N),
               "admm_stage_stack": admm_kernel.stage_shared_bytes(STACK_M, STACK_N),
@@ -344,6 +367,8 @@ def phase_build() -> dict:
     shared.update({f"chol_solve_n{n}": chol_kernel.solve_shared_bytes(n)
                    for n in SOLVE_SIZES})
     shared["foot_rollout"] = 0
+    shared.update({f"admm_stage_l2_{name}": admm_kernel.stage_l2_shared_bytes(m, n)
+                   for m, n, name in L2_SHAPES + ((M, N, "tick"),)})
     libraries = []
     for (name, source, defines), sec in zip(jobs, seconds):
         log = _build.last_build_log(source, defines)
@@ -356,30 +381,32 @@ def phase_build() -> dict:
 
 
 def stage_operators(problem):
-    """(P, A, is_eq, factors) of the production transcription's shared operator."""
+    """(P, A, is_eq, factors) of the problem's transcription's shared operator
+    (the production one at the tick's horizon)."""
     dcm0 = problem.dcm0[None, :]
     P, _, A, _, _ = build_dcm_qp(problem.params, problem.dt, dcm0, problem.dcm_ref,
                                  problem.zmp_ref, problem.poly_A, problem.poly_b)
-    is_eq = torch.arange(A.shape[0], device=DEVICE) < 2 * HORIZON
+    is_eq = torch.arange(A.shape[0], device=DEVICE) < 2 * problem.zmp_ref.shape[0]
     return P, A, is_eq, factor_shared_qp(P, A, is_eq)
 
 
 def stage_inputs(problem, factors, B: int, seed: int):
-    """Stage inputs at the shapes the tick gives the kernel: scaled bounds of
-    the transcription (polygon rows have l = -inf) for random initial DCMs, a
-    random iterate, s spread over [1e-2, 1e2]."""
+    """Stage inputs at the shapes the tick gives the kernel (at the problem's
+    horizon): scaled bounds of the transcription (polygon rows have l = -inf)
+    for random initial DCMs, a random iterate, s spread over [1e-2, 1e2]."""
     rng = np.random.default_rng(seed)
     as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
     dcm0 = as_t(rng.normal(0, 0.02, (B, 2)))
     _, q, _, l, u = build_dcm_qp(problem.params, problem.dt, dcm0, problem.dcm_ref,
                                  problem.zmp_ref, problem.poly_A, problem.poly_b)
     f = factors
+    m, n = f.A_s.shape
     lb = (f.E * l).contiguous()
     ub = (f.E * u).contiguous()
-    q = q + as_t(rng.normal(0, 0.05, (B, N)))
+    q = q + as_t(rng.normal(0, 0.05, (B, n)))
     gq = ((f.c * (q * f.D)) @ f.W).contiguous()
-    v = as_t(rng.normal(0, 0.1, (B, M)))
-    tau = torch.zeros((B, N), dtype=torch.float32, device=DEVICE)
+    v = as_t(rng.normal(0, 0.1, (B, m)))
+    tau = torch.zeros((B, n), dtype=torch.float32, device=DEVICE)
     s = as_t(10.0 ** rng.uniform(-2, 2, (B, 1)))
     return v, tau, s, gq, lb, ub, f.G2.contiguous(), f.d, f.base_rho
 
@@ -476,12 +503,21 @@ def kernels_admm_stage(problem) -> dict:
     max_rel, max_abs = max(max_rel, ev, et), max(max_abs, ea)
     check(ev <= REL_TOL and et <= REL_TOL,
           f"kernel agrees with the plain version to {REL_TOL} at B={batch}: v {ev}, tau {et}")
-    del v_k, tau_k, v_p, tau_p
+    # the streaming kernel at this shape too, where admm_stage runs the resident one:
+    # whether the resident kernel still earns its place beside it
+    v_l, tau_l = l2_launch(args, kw)
+    el = max(rel_err(v_l, v_p), rel_err(tau_l, tau_p))
+    check(el <= REL_TOL, f"admm_stage_l2 at ({M}, {N}) agrees with the plain version to"
+          f" {REL_TOL} at B={batch}: {el}")
+    del v_k, tau_k, v_p, tau_p, v_l, tau_l
     kernel_ms = statistics.median(
         time_cuda(lambda: admm_kernel.admm_stage(*args, **kw), warmup=2, reps=7))
     plain_ms = statistics.median(
         time_cuda(lambda: admm_kernel.admm_stage_reference(*args, **kw),
                   warmup=1, reps=3))
+    # in turns: resident (above), streaming, streaming, resident
+    l2_ms = [median_ms(lambda: l2_launch(args, kw), 2, 7) for _ in range(2)]
+    resident_again_ms = median_ms(lambda: admm_kernel.admm_stage(*args, **kw), 2, 7)
     bound = f32_stage_bound(M, N, batch, STAGE_ITERS)
     return {
         "name": "admm_stage", "shape": [M, N], "iters": STAGE_ITERS,
@@ -493,7 +529,29 @@ def kernels_admm_stage(problem) -> dict:
         "fraction_of_bound": bound["bound_ms"] / kernel_ms,
         "tflops": STAGE_ITERS * 2 * (2 * M * N) * batch / (kernel_ms * 1e-3) / 1e12,
         "library_ms": None,
+        "streaming_kernel_here": {
+            "kernel": "admm_stage_l2", "rel_err": el, "kernel_ms_in_turns": l2_ms,
+            "resident_ms_in_turns": [kernel_ms, resident_again_ms],
+            "streaming_over_resident": statistics.median(l2_ms)
+            / statistics.median([kernel_ms, resident_again_ms])},
     }
+
+
+def l2_launch(args, kw):
+    """K1's streaming kernel called through its library at a shape where
+    ``admm_stage`` runs the resident one (so outside every count); returns
+    ``(v, tau)``."""
+    v, tau, s, gq, l, u, G2, d, rho = args
+    (B, m), n = v.shape, G2.shape[1]
+    check(G2.data_ptr() % 16 == 0 and gq.data_ptr() % 16 == 0, "G2 and gq 16-byte aligned")
+    lib = admm_kernel.build_admm_stage_l2(m, n)
+    v_out, tau_out = torch.empty_like(v), torch.empty_like(tau)
+    code = lib.blf_admm_stage_l2(
+        v.data_ptr(), s.data_ptr(), gq.data_ptr(), l.data_ptr(), u.data_ptr(),
+        G2.data_ptr(), d.data_ptr(), rho.data_ptr(), v_out.data_ptr(), tau_out.data_ptr(),
+        B, m, n, int(kw["iters"]), float(kw["alpha"]), torch.cuda.current_stream().cuda_stream)
+    check(code == 0, f"admm_stage_l2 launched at ({m}, {n}): {code}")
+    return v_out, tau_out
 
 
 def median_ms(fn, warmup: int, reps: int) -> float:
@@ -848,6 +906,128 @@ def kernels_admm_stage_stack(seen) -> dict:
     }
 
 
+def gait_stages(lanes: int, num_steps: int) -> list:
+    """The stage arguments ``plan_gait(shared=True, backend="cuda")`` hands
+    K1 on ``gait_fleet(lanes, num_steps)``, every stage, in order."""
+    fleet = gait_fleet(lanes, num_steps=num_steps, seed=SEED, device=DEVICE,
+                       dtype=torch.float32)
+    seen = []
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return admm_kernel.admm_stage(*args, **kw)
+
+    with mock.patch.object(qp_module, "admm_stage", record):
+        plan_gait(*fleet, iterations=GAIT_ITERATIONS, shared=True, backend="cuda")
+    torch.cuda.synchronize()
+    return seen
+
+
+def with_free_rows(args, seed: int):
+    """The stage ``args`` with a random iterate, s spread over [1e-2, 1e2] and
+    a quarter of the rows free above (u = +inf) besides the -inf lower
+    bounds of the polygon rows."""
+    rng = np.random.default_rng(seed)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+    v, tau, _, gq, lb, ub = args[:6]
+    B, m = v.shape
+    free = torch.as_tensor(rng.random(m) < 0.25, device=DEVICE)
+    ub = torch.where(free, float("inf"), ub).contiguous()
+    return (as_t(rng.normal(0, 0.1, (B, m))), tau, as_t(10.0 ** rng.uniform(-2, 2, (B, 1))),
+            gq, lb, ub) + tuple(args[6:])
+
+
+def l2_compare(args, kw, what: str) -> dict:
+    """The streaming kernel against its plain version on ``args``, and both
+    against the plain version in float64."""
+    v_k, tau_k = admm_kernel.admm_stage(*args, **kw)
+    torch.cuda.synchronize()
+    v_p, tau_p = admm_kernel.admm_stage_reference(*args, **kw)
+    v_e, _ = admm_kernel.admm_stage_reference(*(a.double() for a in args), **kw)
+    check(bool(torch.isfinite(v_k).all() and torch.isfinite(tau_k).all()),
+          f"admm_stage_l2 output finite on {what}")
+    ev, et = rel_err(v_k, v_p), rel_err(tau_k, tau_p)
+    ea = max(float((v_k - v_p).abs().max()), float((tau_k - tau_p).abs().max()))
+    ek, ep = f64_distance(v_k, v_p, v_e)
+    m, n = args[6].shape
+    check(ev <= REL_TOL and et <= REL_TOL,
+          f"admm_stage_l2 at ({m}, {n}) agrees with the plain version to {REL_TOL} on {what}"
+          f" at B={v_k.shape[0]}: v {ev}, tau {et}")
+    return {"shape": [m, n], "inputs": what, "B": v_k.shape[0], "iters": kw["iters"],
+            "rel_err_v": ev, "rel_err_tau": et, "max_abs_err": ea,
+            "rel_err_vs_float64": ek, "plain_rel_err_vs_float64": ep}
+
+
+def kernels_admm_stage_l2() -> dict:
+    """K1's streaming kernel (csrc/admm_stage_l2.cu) against the plain version
+    at L2_SHAPES: on the stage inputs the gait fleet's plan hands it (the cold
+    first stage and the warm last one) at the 10-step and 6-step gaits, and on
+    random iterates with rows free above; the tick's transcription at horizon
+    40 on random iterates; B in (GAIT_LANES, 1000, 1); a NaN lane confined at
+    each shape. Timed at each shape on GAIT_LANES lanes, 25 iterations (the
+    10-step gait's warm stage, the others' random ones), and on half of them."""
+    cases, shapes = [], {}
+    for m, n, name in L2_SHAPES:
+        check(admm_kernel.streams_operator(m, n),
+              f"({m}, {n}) is past the resident kernel's shared memory")
+        if name.startswith("gait"):
+            stages = gait_stages(GAIT_LANES, int(name[4:]))
+            check(all(a[0].shape[1] == m and a[6].shape[1] == n for a, _ in stages),
+                  f"the {name} plan runs K1 at ({m}, {n})")
+            sources = {f"{name}_stage1_cold": stages[0][0], f"{name}_stage{len(stages)}_warm":
+                       stages[-1][0]}
+            check(not bool(sources[f"{name}_stage1_cold"][0].any()),
+                  "the first stage starts cold (v = 0)")
+            del stages
+        else:
+            problem = stationary_push_recovery(GAIT_LANES, n // 4, seed=SEED, device=DEVICE,
+                                               dtype=torch.float32)
+            sources = {f"{name}_random": stage_inputs(problem, stage_operators(problem)[3],
+                                                      GAIT_LANES, seed=m)}
+        timed = list(sources.values())[-1]
+        sources[f"{name}_free_rows"] = with_free_rows(timed, seed=n)
+        kw = dict(iters=STAGE_ITERS, alpha=ALPHA)
+        for what, full in sources.items():
+            check(bool(torch.isinf(full[4]).any()), f"{what}: bounds include -inf rows")
+            for B in (GAIT_LANES, 1000, 1):
+                cases.append(l2_compare(lanes_of(full[:6], B) + tuple(full[6:]), kw, what))
+        nan_confined(lanes_of(sources[f"{name}_free_rows"][:6], 1000) + tuple(timed[6:]),
+                     kw, "f32", f"admm_stage_l2 on {name}")
+        kernel_ms = median_ms(lambda: admm_kernel.admm_stage(*timed, **kw), 2, 7)
+        plain_ms = median_ms(lambda: admm_kernel.admm_stage_reference(*timed, **kw), 1, 3)
+        # half the lanes: every block still has an SM of its own, and the operator
+        # traffic from L2 halves; a time that halves too says L2 binds, one that
+        # stays says each SM's own work does
+        half = lanes_of(timed[:6], GAIT_LANES // 2) + tuple(timed[6:])
+        half_ms = median_ms(lambda: admm_kernel.admm_stage(*half, **kw), 2, 7)
+        defines = {"ADMM_M": m, "ADMM_N": n}
+        residency = ptxas_residency(admm_kernel.L2_SOURCE, defines)
+        check(residency["spill_bytes"] == 0, f"admm_stage_l2 at ({m}, {n}) spills nothing:"
+              f" {residency}")
+        bound = f32_stage_bound(m, n, GAIT_LANES, STAGE_ITERS)
+        # the operator, re-read from L2 by each 32-lane block once a pass, iters + 1 passes
+        operator_gb = (STAGE_ITERS + 1) * m * n * 4 * -(-GAIT_LANES // 32) / 1e9
+        shapes[name] = {"shape": [m, n], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                        **residency, "shared_bytes": admm_kernel.stage_l2_shared_bytes(m, n),
+                        **bound, "fraction_of_bound": bound["bound_ms"] / kernel_ms,
+                        "tflops": STAGE_ITERS * 4 * m * n * GAIT_LANES / (kernel_ms * 1e-3) / 1e12,
+                        "operator_reads_gb": operator_gb,
+                        "operator_read_gb_per_s": operator_gb / (kernel_ms * 1e-3),
+                        "kernel_ms_half_lanes": half_ms, "half_lanes_ratio": half_ms / kernel_ms}
+        del sources, timed
+    main = shapes[L2_SHAPES[0][2]]
+    return {
+        "name": "admm_stage_l2", "path": "gait", "shape": main["shape"], "iters": STAGE_ITERS,
+        "batch_timed": GAIT_LANES, "cases": cases, "nan_lane": "confined", "shapes": shapes,
+        "max_rel_err": max(max(c["rel_err_v"], c["rel_err_tau"]) for c in cases),
+        "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance_rel": REL_TOL,
+        **{k: main[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                "registers", "spill_bytes", "shared_bytes",
+                                "fraction_of_bound", "tflops")},
+        "library_ms": None,
+    }
+
+
 def tc_compare(args, kw, matmul: str, tol: float, what: str, hold: bool = True) -> dict:
     """The tensor-core kernel against its plain version on the same inputs."""
     v_k, tau_k = admm_kernel.admm_stage(*args, **kw, matmul=matmul)
@@ -913,7 +1093,7 @@ def capture_tick_stages(problem, ticks: int) -> list:
     return seen
 
 
-def tc_nan_confined(args, kw, matmul: str) -> None:
+def nan_confined(args, kw, matmul: str, what: str) -> None:
     """A poisoned lane stays non-finite and poisons no other lane, whether the
     NaN enters through the iterate or through a bound."""
     B, lane = args[0].shape[0], 137
@@ -929,16 +1109,16 @@ def tc_nan_confined(args, kw, matmul: str) -> None:
             bad[5][lane, 0] = float("nan")
         nan_v, nan_tau = admm_kernel.admm_stage(*bad, **kw, matmul=matmul)
         torch.cuda.synchronize()
-        what = f"admm_stage_tc {matmul}, NaN in {where}"
+        case = f"{what}, NaN in {where}"
         check(not bool(torch.isfinite(nan_v[lane]).all())
               and not bool(torch.isfinite(nan_tau[lane]).all()),
-              f"{what}: the lane's v and tau are non-finite")
+              f"{case}: the lane's v and tau are non-finite")
         check(bool(torch.equal(nan_v[others], clean_v[others])
                    and torch.equal(nan_tau[others], clean_tau[others])),
-              f"{what}: every other lane equals the clean run bit for bit")
+              f"{case}: every other lane equals the clean run bit for bit")
         ref_v, _ = admm_kernel.admm_stage_reference(*bad, **kw, matmul=matmul)
         check(not bool(torch.isfinite(ref_v[lane]).all()),
-              f"{what}: the plain version poisons the lane too")
+              f"{case}: the plain version poisons the lane too")
 
 
 def tc_entry(cases: list, timed_args, kw, shape, path=None) -> dict:
@@ -1000,7 +1180,7 @@ def kernels_admm_stage_tc(problem) -> dict:
     del full
     nan_args = list(stage_inputs(problem, factors, 1000, seed=7))
     for matmul in TC_MODES:
-        tc_nan_confined(nan_args, kw, matmul)
+        nan_confined(nan_args, kw, matmul, f"admm_stage_tc {matmul}")
     timed = stage_inputs(problem, factors, BATCH, seed=1)
     return tc_entry(cases, timed, kw, (M, N))
 
@@ -1436,6 +1616,7 @@ def phase_kernels(problem, device: dict) -> dict:
                 kernels_chol_solve(stack_seen)]
     del stack_seen
     entries.append(kernels_foot_rollout())
+    entries.append(kernels_admm_stage_l2())
     emit("kernels", kernels=entries)
     return {e["name"] + ("@stack" if e.get("path") == "stack" else ""): e for e in entries}
 
@@ -2287,6 +2468,143 @@ def phase_identify() -> dict:
     return record
 
 
+def native_schedule_check(lists, dt: float) -> dict:
+    """The gait's schedule and support polygons through the native library's
+    batch functions, against the planners' own (exact; hulls to 1e-12)."""
+    T = gait_horizon(lists, dt)
+    names = sorted(lists)
+    C = max(len(lists[k]) for k in names)
+    act, deact = np.zeros((1, len(names), C)), np.zeros((1, len(names), C))
+    counts, pos = np.zeros((1, len(names)), np.int32), np.zeros((1, len(names), C, 3))
+    for e, name in enumerate(names):
+        for c, contact in enumerate(lists[name]):
+            act[0, e, c], deact[0, e, c] = contact.activation_time, contact.deactivation_time
+            pos[0, e, c] = contact.position
+        counts[0, e] = len(lists[name])
+    available = native.available()                # builds the library at first call
+    native.reset_counts()
+    t0 = time.perf_counter()
+    active, index, foot = native.lower_schedules_batch(act, deact, counts, pos, T, dt)
+    A, b = native.support_polygons_batch(active, foot[..., :2], 0.07, 0.04)
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    schedule = lower_contact_schedule(lists, dt=dt, horizon=T)
+    A_ref, b_ref = support_polygons(schedule, device="cpu", dtype=torch.float64)
+    check(bool(np.array_equal(active[0], schedule.active)
+               and np.array_equal(index[0], schedule.contact_index)
+               and np.array_equal(foot[0], schedule.position)),
+          "native lowering equals lower_contact_schedule")
+    hull_err = max(float(np.abs(A[0] - A_ref.numpy()).max()),
+                   float(np.abs(b[0] - b_ref.numpy()).max()))
+    check(hull_err <= 1e-12, f"native support polygons within 1e-12 of the planners': {hull_err}")
+    return {"available": bool(available), "native_calls": native.native_count(),
+            "python_runs": native.python_count(), "host_ms": native_ms,
+            "hull_max_abs_err": hull_err, "knots": T, "build_reason": available.reason}
+
+
+def gait_checks(plan, poly_A, poly_b) -> dict:
+    """What TestFullGait.test_ten_step_gait_plan asks of a plan (every lane of
+    a batch): the worst ZMP margin against each knot's polygon, the final DCM
+    against [0.75, 0], the CoM's end and lateral sway."""
+    margins = torch.einsum("kfa,...ka->...kf", poly_A, plan.zmp) - poly_b
+    final = plan.dcm[..., -1, :] - torch.as_tensor(GAIT_FINAL_DCM, device=plan.dcm.device,
+                                                   dtype=plan.dcm.dtype)
+    return {"worst_zmp_margin": float(margins.max()),
+            "final_dcm_max_dev": float(final.abs().max()),
+            "com_final_x_min": float(plan.com[..., -1, 0].min()),
+            "com_lateral_max": float(plan.com[..., 1].abs().max()),
+            "finite": bool(torch.isfinite(plan.com).all() and torch.isfinite(plan.zmp).all())}
+
+
+def hold_gait(checks: dict, what: str) -> None:
+    check(checks["worst_zmp_margin"] <= GAIT_MARGIN_TOL,
+          f"{what}: every ZMP inside its hull to {GAIT_MARGIN_TOL}: {checks}")
+    check(checks["final_dcm_max_dev"] <= GAIT_FINAL_TOL,
+          f"{what}: the final DCM within {GAIT_FINAL_TOL} of {GAIT_FINAL_DCM}: {checks}")
+    check(checks["com_final_x_min"] > 0.6 and checks["com_lateral_max"] < 0.12
+          and checks["finite"], f"{what}: the CoM walks forward and stays bounded: {checks}")
+
+
+def phase_gait() -> dict:
+    """BASELINE config 3 over a fleet: ``plan_gait`` of the 10-step gait for
+    GAIT_LANES initial DCMs in float32, ``shared=True, backend="cuda"`` (K1's
+    streaming kernel at (960, 384)); one warm-up plan, then GAIT_RUNS timed,
+    counted from the last. The factorization timed apart; GAIT_CPU_LANES lanes
+    planned again in float64 on the CPU by the plain path; the schedule and
+    polygons through the native library; and examples/03_full_gait.py's single
+    plan (per-lane solver, ``"torch"``: no kernel on that path in either
+    package)."""
+    fleet = gait_fleet(GAIT_LANES, seed=SEED, device=DEVICE, dtype=torch.float32)
+    run = lambda: plan_gait(*fleet, iterations=GAIT_ITERATIONS, shared=True, backend="cuda")
+    run()                                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(GAIT_RUNS):
+        admm_kernel.reset_counts()                  # counts of this path start here
+        t0 = time.perf_counter()
+        plan, schedule = run()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    counts = {"l2": admm_kernel.l2_launch_count(), **stage_counts()}   # read just after
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    poly_A, poly_b = support_polygons(schedule, device=DEVICE, dtype=torch.float32)
+    checks = gait_checks(plan, poly_A, poly_b)
+    converged = int(plan.qp.converged.sum())
+
+    T = schedule.active.shape[1]
+    zmp_ref, dcm_ref = gait_references(fleet.params, schedule, fleet.dt)
+    P, _, A, _, _ = build_dcm_qp(fleet.params, fleet.dt, fleet.dcm0[:1], dcm_ref, zmp_ref,
+                                 poly_A, poly_b)
+    is_eq = torch.arange(A.shape[0], device=DEVICE) < 2 * T
+    factor_ms = median_ms(lambda: factor_shared_qp(P, A, is_eq), 1, 3)
+
+    cpu = plan_gait(lipm_params_from_numpy(0.9, 9.81, device="cpu", dtype=torch.float64),
+                    fleet.lists, fleet.dt, fleet.dcm0[:GAIT_CPU_LANES].cpu().double(),
+                    fleet.com0[:GAIT_CPU_LANES].cpu().double(), iterations=GAIT_ITERATIONS,
+                    shared=True, backend="torch")[0]
+    dcm_rmse = float((plan.dcm[:GAIT_CPU_LANES].cpu().double() - cpu.dcm).pow(2).mean().sqrt())
+
+    natively = native_schedule_check(fleet.lists, fleet.dt)
+
+    example_params = lipm_params_from_numpy(0.9, 9.81, device=DEVICE, dtype=torch.float32)
+    zero = torch.zeros(2, dtype=torch.float32, device=DEVICE)
+    admm_kernel.reset_counts()
+    t0 = time.perf_counter()
+    single, single_schedule = plan_gait(example_params, footstep_plan(10, 0.15), 0.1, zero,
+                                        zero, iterations=GAIT_EXAMPLE_ITERS)
+    torch.cuda.synchronize()
+    single_ms = 1e3 * (time.perf_counter() - t0)
+    single_checks = gait_checks(single, *support_polygons(single_schedule, device=DEVICE,
+                                                          dtype=torch.float32))
+    single_counts = stage_counts()
+
+    record = emit(
+        "gait", lanes=GAIT_LANES, knots=T, shape=list(A.shape), iterations=GAIT_ITERATIONS,
+        dtype="float32", backend="cuda", plan_ms=statistics.median(times),
+        plan_ms_min_max=[min(times), max(times)], plans_per_s=GAIT_LANES / (
+            statistics.median(times) * 1e-3), factor_ms=factor_ms, converged=converged,
+        max_primal_residual=float(plan.qp.primal_residual.max()),
+        max_dual_residual=float(plan.qp.dual_residual.max()), **checks,
+        cpu_lanes=GAIT_CPU_LANES, dcm_rmse_vs_cpu_float64=dcm_rmse,
+        launches=counts, peak_memory_gb=peak, native=natively,
+        example={"iterations": GAIT_EXAMPLE_ITERS, "backend": "torch", "plan_ms": single_ms,
+                 "converged": bool(single.qp.converged), "knots": single.zmp.shape[0],
+                 **single_checks, "launches": single_counts})
+    check(counts["l2"] == GAIT_ITERATIONS // STAGE_ITERS,
+          f"one streaming-kernel launch a stage: {counts}")
+    check(counts["plain"] == 0 and counts["f32"] == 0, f"no other stage ran: {counts}")
+    check(converged == GAIT_LANES, f"every lane converged: {converged} of {GAIT_LANES}")
+    hold_gait(checks, "the fleet")
+    check(dcm_rmse <= GAIT_RMSE_TOL,
+          f"DCM within {GAIT_RMSE_TOL} RMSE of the float64 CPU plan: {dcm_rmse}")
+    check(natively["python_runs"] == 0 and natively["available"],
+          f"the native library served the schedule: {natively}")
+    check(bool(single.qp.converged) and single.zmp.shape[0] == 96,
+          "examples/03_full_gait.py's plan converged over 96 knots")
+    hold_gait(single_checks, "examples/03_full_gait.py's plan")
+    return record
+
+
 def study_factorization(problem, lanes: int = STUDY_LANES, ticks: int = 8) -> dict:
     """Diagnostic, off by default: where the factorization is computed, and in
     which precision, against the fleet's convergence over the first ticks.
@@ -2371,6 +2689,7 @@ def main() -> None:
         stack_cross = phase_stack_cross()
     foot = phase_foot() if "foot" in phases else None
     ident = phase_identify() if "identify" in phases else None
+    gait = phase_gait() if "gait" in phases else None
     if opts.study_factorization:
         study_factorization(problem)
 
@@ -2396,8 +2715,10 @@ def main() -> None:
             "cholesky_solve_lane@stack": {"stack": stack_l.get("cholesky_solve_lane", 0)},
             "foot_rollout_fused": {"foot": foot["launches"] if foot else 0,
                                    "identify": ident["launches"] if ident else 0},
+            "admm_stage_l2": {"gait": gait["launches"]["l2"] if gait else 0},
         }
         origin = {"admm_stage": (admm_kernel.SOURCE, admm_kernel.REPLACES),
+                  "admm_stage_l2": (admm_kernel.L2_SOURCE, admm_kernel.L2_REPLACES),
                   "admm_stage_tc": (admm_kernel.TC_SOURCE, admm_kernel.TC_REPLACES),
                   "admm_lane_stage": (lane_kernel.SOURCE, lane_kernel.REPLACES),
                   "cholesky_inverse_lane": (chol_kernel.SOURCE, chol_kernel.REPLACES),

@@ -179,6 +179,65 @@ def test_kernel_source_is_self_contained_cuda():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
+
+@pytest.mark.parametrize("m,n,streams", [(192, 128, False), (48, 32, False), (200, 128, False),
+                                         (240, 160, True), (640, 256, True), (960, 384, True)])
+def test_mode_f32_chooses_its_kernel_by_shape(m, n, streams):
+    """Past the resident kernel's shared memory, mode "f32" runs the kernel
+    that streams the operator from L2 (the config-3 gait's (960, 384), the
+    6-step gait's (640, 256), the first shapes past the limit); every shape
+    the resident kernel took stays with it."""
+    assert port.streams_operator(m, n) == streams
+    assert port.streams_operator(m, n) == (port.stage_shared_bytes(m, n) > 232448)
+    if streams:
+        port._check_l2_shape(m, n)
+        with pytest.raises(ValueError, match="shared memory"):
+            port._check_shape(m, n)
+    else:
+        port._check_shape(m, n)
+
+
+def test_streaming_kernel_layout_and_the_shapes_it_cannot_take():
+    """Two 32-row chunks of G2 (stride n + 4), a 32-lane tile's tau, the
+    chunk's w (stride 36) and the partial sums of G2 tau (8 splits, stride
+    34): 187904 bytes at (960, 384), independent of m; n past about 500 or
+    not a multiple of 4 still raises."""
+    assert port.stage_l2_shared_bytes(960, 384) == 187904
+    assert port.stage_l2_shared_bytes(640, 256) == 138752
+    assert port.stage_l2_shared_bytes(240, 160) == 101888
+    assert port.stage_l2_shared_bytes(10 ** 5, 384) == 187904
+    port._check_l2_shape(10 ** 5, 496)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        port._check_l2_shape(960, 382)
+    with pytest.raises(ValueError, match="shared memory"):
+        port._check_l2_shape(960, 512)
+
+
+def test_cpu_tensors_past_shared_memory_take_the_plain_version():
+    rng = np.random.default_rng(0)
+    B, m, n = 3, 640, 256
+    shapes = {"v": (B, m), "tau": (B, n), "s": (B, 1), "gq": (B, n), "l": (B, m),
+              "u": (B, m), "G2": (m, n), "d": (n,), "base_rho": (m,)}
+    a = {k: np.abs(rng.normal(size=shape)).astype(np.float32) for k, shape in shapes.items()}
+    port.reset_counts()
+    v, tau = run_port(a, 2, torch.float32)
+    assert port.reference_count() == 1 and port.launch_count() == port.l2_launch_count() == 0
+    assert v.shape == (B, m) and tau.shape == (B, n) and np.isfinite(v).all()
+
+
+def test_streaming_kernel_source_is_self_contained_cuda():
+    """Both products in its own body on the FMA units, the operator copied
+    into shared memory with cp.async; no library GEMM, no tensor cores."""
+    from blf_tpu_torch.ops.cuda import _build
+
+    files = _build.source_files(port.L2_SOURCE)
+    assert [f.name for f in files] == ["admm_stage_l2.cu"]
+    src = files[0].read_text()
+    assert "__global__" in src and "fmaf" in src and "__pipeline_memcpy_async" in src
+    for banned in ("cublas", "cutlass", "torch/", "ATen", "wgmma.", "mma.sync"):
+        assert banned not in src
+
+
 # --------------------------------------------------------------------------
 # the six-pass product of csrc/admm_stage.cu, emulated in torch
 # --------------------------------------------------------------------------

@@ -12,9 +12,11 @@ import torch
 from conftest import F32_LANE, tol
 
 from __graft_entry__ import _example_problem
+from blf_tpu.models import lipm as jlipm
 from blf_tpu.models.lipm import LIPMParams as JLIPMParams
 from blf_tpu.mpc import dcm as jdcm
 from blf_tpu_torch.convert import lipm_params_from_numpy
+from blf_tpu_torch.models import lipm as tlipm
 from blf_tpu_torch.mpc import dcm as tdcm
 from blf_tpu_torch.problems import example_problem, stationary_push_recovery
 from test_torch_wbc_loop import run_reference
@@ -156,3 +158,48 @@ def test_stationary_push_recovery_is_the_bench_workload(monkeypatch):
     assert not pr.dcm_ref.any() and not pr.zmp_ref.any()
     with pytest.raises(RuntimeError, match="CUDA"):
         stationary_push_recovery(4, 8)          # device=None means the GPU
+
+
+def test_dcm_reference_trajectory_matches():
+    """The piecewise-constant ZMP reference of a footstep sequence and its
+    DCM by the backward recursion, ending on the last foothold."""
+    footholds = np.array([[0.0, -0.1], [0.2, 0.1], [0.4, -0.1]])
+    durations = np.array([0.8, 0.7, 0.5])
+    pj, pt = params_pair()
+    jz, jd = jlipm.dcm_reference_trajectory(pj, jnp.asarray(footholds, J_DTYPE), durations, DT)
+    tz, td = tlipm.dcm_reference_trajectory(pt, to_t(footholds), durations, DT)
+    assert tuple(tz.shape) == (20, 2) and tuple(td.shape) == (21, 2)
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), atol=0, rtol=0)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=tol(1e-14, 1e-6), rtol=0)
+    np.testing.assert_allclose(td[-1].numpy(), footholds[-1], atol=0)
+
+
+def test_config1_step_plan_matches_the_reference():
+    """BASELINE config 1, ``examples/01_dcm_step_plan.py``'s plan: stand on
+    (0, -0.1), step to (0.2, 0.1), N = 15 at dt = 0.1, one unbatched
+    ``solve_dcm_mpc`` of 400 iterations (the per-lane solver) in both
+    packages on the same inputs: the plan agrees to 1e-6 (float64), and the
+    port's passes ``tests/test_dcm_mpc.py::TestDCMMPC``'s checks: converged,
+    every ZMP inside its polygon (1e-6), the terminal DCM on the last foothold
+    (0.02), the CoM inside the footprint band."""
+    footholds = np.array([[0.0, -0.1], [0.2, 0.1]])
+    pj, pt = params_pair()
+    zmp_ref, dcm_ref = tlipm.dcm_reference_trajectory(pt, to_t(footholds), [0.8, 0.7], DT)
+    box = np.array([[1.0, 0], [-1.0, 0], [0, 1.0], [0, -1.0]])
+    z = zmp_ref.numpy()
+    poly_A = np.tile(box, (15, 1, 1))
+    poly_b = np.stack([z[:, 0] + 0.07, -(z[:, 0] - 0.07), z[:, 1] + 0.04, -(z[:, 1] - 0.04)], -1)
+    dcm0 = np.array([0.0, -0.05])
+    inputs = (dcm0, dcm0, dcm_ref.numpy(), z, poly_A, poly_b)
+    ref = run_reference(jdcm.solve_dcm_mpc, pj, DT, *(jnp.asarray(a, J_DTYPE) for a in inputs),
+                        iterations=400)
+    plan = tdcm.solve_dcm_mpc(pt, DT, *(to_t(a) for a in inputs), iterations=400)
+    for name in ("zmp", "dcm", "com"):
+        np.testing.assert_allclose(getattr(plan, name).numpy(), np.asarray(getattr(ref, name)),
+                                   atol=tol(1e-6, 5e-4), rtol=0, err_msg=name)
+    assert bool(plan.qp.converged) and bool(ref.qp.converged)
+    margins = np.einsum("kfa,ka->kf", poly_A, plan.zmp.numpy())
+    assert np.all(margins <= poly_b + 1e-6)
+    np.testing.assert_allclose(plan.dcm[-1].numpy(), [0.2, 0.1], atol=0.02)
+    com = plan.com.numpy()
+    assert com[:, 0].max() <= 0.28 and com[:, 0].min() >= -0.08 and np.isfinite(com).all()

@@ -52,6 +52,8 @@ def test_every_module_imports_without_jax_or_a_gpu_toolchain():
     assert {"blf_tpu_torch.ops.cuda.rollout", "blf_tpu_torch.models.foot",
             "blf_tpu_torch.models.systems", "blf_tpu_torch.estimators.rls_parallel",
             "blf_tpu_torch.utils.params"} <= set(modules)
+    assert {"blf_tpu_torch.planners.contacts", "blf_tpu_torch.planners.convex_hull",
+            "blf_tpu_torch.planners.gait", "blf_tpu_torch.native"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -59,7 +61,11 @@ def test_every_module_imports_without_jax_or_a_gpu_toolchain():
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "from blf_tpu_torch.ops.cuda import admm, admm_lane, linalg, rollout\n"
-        "assert not (admm._libs or admm_lane._libs or linalg._libs or rollout._libs)\n"
+        "assert not (admm._libs or admm._l2_libs or admm_lane._libs or linalg._libs\n"
+        "            or rollout._libs)\n"
+        "from blf_tpu_torch import native\n"
+        "assert native._LIB is None and native._REASON is None\n"
+        "assert 'scipy' not in sys.modules\n"
         "print('clean', len(sys.modules))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
@@ -153,6 +159,7 @@ def test_kernel_sources_name_what_they_replace():
 
     for source_name, replaces, function in (
             (admm.SOURCE, admm.REPLACES, "_stage_kernel_t"),
+            (admm.L2_SOURCE, admm.L2_REPLACES, "_stage_kernel_t"),
             (admm_lane.SOURCE, admm_lane.REPLACES, "_lane_kernel"),
             (linalg.SOURCE, linalg.REPLACES, "_inverse_kernel"),
             (linalg.SOLVE_SOURCE, linalg.SOLVE_REPLACES, "_solve_kernel"),
