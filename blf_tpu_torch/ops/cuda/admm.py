@@ -22,9 +22,17 @@ v-space recursion of :func:`blf_tpu_torch.mpc.qp.solve_qp_factored`::
   ``A_hi b_hi + A_hi b_lo + A_lo b_hi`` (``admm.py:93-135``, ``:234-255``).
 - ``"delta"``: 3-pass products in iteration 1, then 2-pass products of the
   bf16-rounded increments added into float32 carries (``admm.py:197-233``).
-  ``"split"`` and ``"delta"`` run on the kernel ``csrc/admm_stage_tc.cu``
-  (Hopper's tensor cores, ``wgmma``), float32 only. rho is folded into the
-  first operator before its split, ``(rho . G2)^T``, as the reference does.
+  ``"split"`` and ``"delta"`` run on Hopper's tensor cores (``wgmma``),
+  float32 only, by one of two kernels chosen by shape: ``csrc/admm_stage_tc.cu``
+  keeps both bf16 operator pairs in one block's shared memory
+  (:func:`tc_streams_operator` false: up to 227 KB, m <= 192, n <= m); past
+  that, ``csrc/admm_stage_tc_l2.cu`` streams them from L2 (the config-3
+  gait's (960, 384), for instance). rho is folded into the first operator
+  before its split, ``(rho . G2)^T``, as the reference does.
+
+The kernels of mode ``"f32"`` take n a multiple of 4; :func:`admm_stage`
+pads any other n at the call (:func:`pad_columns`: zero columns of G2 and
+gq, d = 1 there) and cuts tau back, which leaves v and tau as they were.
 
 Layout is lane-major, ``(B, .)``, at the public boundary and inside the
 kernels' device-memory traffic; the batch-minor transpose, the 128-lane
@@ -40,8 +48,8 @@ guard of the reference are TPU matters and have no counterpart here.
   or raises: nothing falls back.
 - Counts are kept per kernel: :func:`launch_count` / :func:`l2_launch_count`
   for the two f32 kernels and :func:`reference_count` for their plain version,
-  :func:`tc_launch_count` / :func:`tc_reference_count` for the tensor-core
-  kernel.
+  :func:`tc_launch_count` / :func:`tc_l2_launch_count` for the two tensor-core
+  kernels and :func:`tc_reference_count` for their plain version.
 """
 
 from __future__ import annotations
@@ -55,11 +63,13 @@ from blf_tpu_torch.ops.cuda import _build
 from blf_tpu_torch.ops.precision import f32_matmuls
 
 __all__ = ["admm_stage", "admm_stage_reference", "launch_count", "l2_launch_count",
-           "reference_count", "tc_launch_count", "tc_reference_count",
+           "reference_count", "tc_launch_count", "tc_l2_launch_count", "tc_reference_count",
            "reset_counts", "stage_shared_bytes", "stage_l2_shared_bytes", "streams_operator",
-           "stage_tc_shared_bytes", "tc_lanes", "build_admm_stage", "build_admm_stage_l2",
-           "build_admm_stage_tc", "MATMUL_MODES", "SOURCE", "REPLACES", "L2_SOURCE",
-           "L2_REPLACES", "TC_SOURCE", "TC_REPLACES"]
+           "stage_tc_shared_bytes", "tc_lanes", "tc_streams_operator", "tc_l2_plan",
+           "stage_tc_l2_shared_bytes", "tc_l2_operator_bytes", "pad_columns",
+           "build_admm_stage", "build_admm_stage_l2", "build_admm_stage_tc",
+           "build_admm_stage_tc_l2", "MATMUL_MODES", "SOURCE", "REPLACES", "L2_SOURCE",
+           "L2_REPLACES", "TC_SOURCE", "TC_REPLACES", "TC_L2_SOURCE", "TC_L2_REPLACES"]
 
 MATMUL_MODES = ("f32", "split", "delta")
 SOURCE = "admm_stage.cu"
@@ -71,20 +81,26 @@ L2_REPLACES = "blf_tpu/ops/pallas/admm.py:138"
 #: the tensor-core kernel of modes "split" and "delta", and what it replaces
 TC_SOURCE = "admm_stage_tc.cu"
 TC_REPLACES = "blf_tpu/ops/pallas/admm.py:138"
+#: the tensor-core kernel for operators past shared memory, and what it replaces
+TC_L2_SOURCE = "admm_stage_tc_l2.cu"
+TC_L2_REPLACES = "blf_tpu/ops/pallas/admm.py:138"
 
 _LANES = 32                 # lanes per block (csrc/admm_stage.cu, csrc/admm_stage_l2.cu)
 _L2_CHUNK = 32              # operator rows per chunk (csrc/admm_stage_l2.cu)
 _L2_SPLITS = 8              # ways its product G2 tau splits the contraction
 _MAX_SHARED = 232448        # bytes of shared memory a block may use on sm_90
+_TC_L2_WGS = 2              # warpgroups of a block (csrc/admm_stage_tc_l2.cu)
+_TC_L2_MAX_ACC = 128        # t's accumulators a thread may hold (its RT * lanes / 2)
 
-# Plain integers: how often each kernel was launched (the f32 one that streams
-# the operator apart, the tensor-core one by mode), and how often a plain
-# version ran because the tensors lie on the CPU.
+# Plain integers: how often each kernel was launched (the ones that stream the
+# operator apart, the tensor-core ones by mode), and how often a plain version
+# ran because the tensors lie on the CPU.
 _counts = {"launch": 0, "launch_l2": 0, "reference": 0, "tc_split": 0, "tc_delta": 0,
-           "tc_reference": 0}
+           "tc_l2_split": 0, "tc_l2_delta": 0, "tc_reference": 0}
 _libs: Dict[Tuple[int, int], ctypes.CDLL] = {}
 _l2_libs: Dict[Tuple[int, int], ctypes.CDLL] = {}
 _tc_libs: Dict[Tuple[int, int, str], ctypes.CDLL] = {}
+_tc_l2_libs: Dict[Tuple[int, int, str], ctypes.CDLL] = {}
 
 
 def launch_count() -> int:
@@ -104,10 +120,19 @@ def reference_count() -> int:
 
 
 def tc_launch_count(matmul: Optional[str] = None) -> int:
-    """Launches of the tensor-core kernel, in mode ``matmul`` or in both."""
+    """Launches of the resident tensor-core kernel, in mode ``matmul`` or in
+    both."""
     if matmul is None:
         return _counts["tc_split"] + _counts["tc_delta"]
     return _counts["tc_" + matmul]
+
+
+def tc_l2_launch_count(matmul: Optional[str] = None) -> int:
+    """Launches of the tensor-core kernel that streams the operators from L2,
+    in mode ``matmul`` or in both."""
+    if matmul is None:
+        return _counts["tc_l2_split"] + _counts["tc_l2_delta"]
+    return _counts["tc_l2_" + matmul]
 
 
 def tc_reference_count() -> int:
@@ -372,6 +397,108 @@ def tc_defines(m: int, n: int, matmul: str) -> Dict[str, int]:
             "ADMM_LANES": tc_lanes(m, n)}
 
 
+def tc_streams_operator(m: int, n: int) -> bool:
+    """Whether modes ``"split"``/``"delta"`` run the streaming tensor-core
+    kernel at ``(m, n)``: the resident one refuses the shape (its operator
+    pairs and operand buffers past shared memory, m > 192, or n > m)."""
+    return (stage_tc_shared_bytes(m, n, "delta") > _MAX_SHARED or m > 192 or n > m)
+
+
+def _tc_l2_shared(mt1: int, lanes: int, stages: int) -> int:
+    # the ring of tile pairs (one a warpgroup a slot), w's operand of a chunk
+    # and tau's operand, each a hi and a lo half
+    return (stages * _TC_L2_WGS * 4 * 64 * 64 + 2 * 2 * lanes * 64 * _TC_L2_WGS
+            + 2 * 2 * lanes * 64 * mt1)
+
+
+def tc_l2_plan(m: int, n: int) -> Tuple[int, int]:
+    """``(lanes, stages)`` of the streaming tensor-core kernel at ``(m, n)``
+    (csrc/admm_stage_tc_l2.cu): 32-lane tiles while a warpgroup's share of
+    t's 64-row tiles keeps its accumulators within 128 registers (n up to
+    1024), else 16; the deepest ring of 4, 3 or 2 slots that fits in shared
+    memory beside the operand buffers. Any m; n up to 2048."""
+    if m < 1 or n < 1:
+        raise ValueError(f"admm_stage_tc_l2 needs a non-empty operator, got ({m}, {n})")
+    mt1 = -(-n // 64)
+    rt = -(-mt1 // _TC_L2_WGS)
+    for lanes in (32, 16):
+        if rt * lanes // 2 > _TC_L2_MAX_ACC:
+            continue
+        for stages in (4, 3, 2):
+            if _tc_l2_shared(mt1, lanes, stages) <= _MAX_SHARED:
+                return lanes, stages
+    raise ValueError(
+        f"admm_stage_tc_l2 keeps tau's bf16 operand of a tile in shared memory and t's"
+        f" accumulators in registers: n = {n} is past what they hold (n <= 2048)")
+
+
+def stage_tc_l2_shared_bytes(m: int, n: int, matmul: str) -> int:
+    """Shared memory one block of the streaming tensor-core kernel needs at
+    ``(m, n)``, the same in both modes: the ring of operator tile pairs
+    (64 x 64, hi and lo: 16 KB a warpgroup a slot), w's operand of a
+    128-row chunk and tau's operand (n padded to 64), each hi and lo;
+    independent of m."""
+    lanes, stages = tc_l2_plan(m, n)
+    return _tc_l2_shared(-(-n // 64), lanes, stages)
+
+
+def tc_l2_operator_bytes(m: int, n: int) -> int:
+    """Bytes of the scratch buffer into which the streaming tensor-core
+    kernel splits both operators: 64 x 64 tiles, rows padded to whole
+    128-row chunks, a hi and a lo half each."""
+    chunks = -(-(-(-m // 64)) // _TC_L2_WGS)
+    return 2 * (chunks * _TC_L2_WGS) * (-(-n // 64)) * 4 * 64 * 64
+
+
+def tc_l2_defines(m: int, n: int, matmul: str) -> Dict[str, int]:
+    """Compile-time definitions of the streaming tensor-core kernel's library."""
+    lanes, stages = tc_l2_plan(m, n)
+    return {"ADMM_M": m, "ADMM_N": n, "ADMM_DELTA": int(matmul == "delta"),
+            "ADMM_LANES": lanes, "ADMM_STAGES": stages}
+
+
+def build_admm_stage_tc_l2(m: int, n: int, matmul: str) -> ctypes.CDLL:
+    """Build (at first use) and load the streaming tensor-core kernel for
+    ``(m, n)`` in mode ``"split"`` or ``"delta"``."""
+    if matmul not in ("split", "delta"):
+        raise ValueError(f"the tensor-core kernel runs modes 'split' and 'delta', not {matmul!r}")
+    lib = _tc_l2_libs.get((m, n, matmul))
+    if lib is not None:
+        return lib
+    defines = tc_l2_defines(m, n, matmul)
+    lib = _build.load_library(TC_L2_SOURCE, defines)
+    P = ctypes.c_void_p
+    lib.blf_admm_stage_tc_l2.argtypes = [P] * 12 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, P]
+    lib.blf_admm_stage_tc_l2.restype = ctypes.c_int
+    lib.blf_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.blf_cuda_error_string.restype = ctypes.c_char_p
+    lib.blf_admm_stage_tc_l2_smem_bytes.argtypes = []
+    lib.blf_admm_stage_tc_l2_smem_bytes.restype = ctypes.c_int
+    lib.blf_admm_stage_tc_l2_operator_bytes.argtypes = []
+    lib.blf_admm_stage_tc_l2_operator_bytes.restype = ctypes.c_longlong
+    if (lib.blf_admm_stage_tc_l2_smem_bytes() != stage_tc_l2_shared_bytes(m, n, matmul)
+            or lib.blf_admm_stage_tc_l2_operator_bytes() != tc_l2_operator_bytes(m, n)):
+        raise RuntimeError("admm_stage_tc_l2 library disagrees with its wrapper on"
+                           " the shared-memory layout or the split operators' size")
+    _tc_l2_libs[(m, n, matmul)] = lib
+    return lib
+
+
+def pad_columns(tau, gq, G2, d):
+    """``(tau, gq, G2, d)`` with n padded up to a multiple of 4, what the f32
+    kernels take: zero columns of G2, zero gq and tau, d = 1 there. The padded columns of
+    tau stay 0 through every iteration (t = w G2 there is 0, and so is gq), so
+    they add nothing to G2 tau: v and tau's first n columns are those of the
+    unpadded stage. Returns the inputs themselves when n needs no padding."""
+    extra = -G2.shape[-1] % 4
+    if extra == 0:
+        return tau, gq, G2, d
+    pad = lambda t: torch.nn.functional.pad(t, (0, extra))
+    return pad(tau), pad(gq), pad(G2), torch.cat([d, d.new_ones(extra)])
+
+
 def _require(t: torch.Tensor, name: str, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} lies on {t.device}, expected {device}")
@@ -391,8 +518,10 @@ def admm_stage(v, tau, s, gq, l, u, G2, d, base_rho, *, iters: int, alpha: float
     contiguous float32 of the documented shapes; the mode's kernel is launched
     on the current stream, its launch error is checked, and the call does not
     synchronise. Any ``B >= 1`` is taken (the kernels mask their last tile).
-    In mode ``"f32"`` the shape chooses the kernel (:func:`streams_operator`):
-    the resident one, or past shared memory the streaming one.
+    In every mode the shape chooses the kernel (:func:`streams_operator`,
+    :func:`tc_streams_operator`): the resident one, or past what it holds
+    the one that streams the operator from L2. Mode ``"f32"`` pads an n
+    that is not a multiple of 4 (:func:`pad_columns`).
     ``"split"`` and ``"delta"`` take float32 only, on either device.
     """
     if matmul not in MATMUL_MODES:
@@ -424,19 +553,38 @@ def admm_stage(v, tau, s, gq, l, u, G2, d, base_rho, *, iters: int, alpha: float
     _require(G2, "G2", (m, n), dev)
     _require(d, "d", (n,), dev)
     _require(base_rho, "base_rho", (m,), dev)
+    if not reduced and n % 4:
+        tau_p, gq_p, G2_p, d_p = pad_columns(tau, gq, G2, d)
+        v_out, tau_out = admm_stage(v, tau_p, s, gq_p, l, u, G2_p, d_p, base_rho,
+                                    iters=iters, alpha=alpha)
+        return v_out, tau_out[:, :n].contiguous()
     v_out = torch.empty_like(v)
     tau_out = torch.empty_like(tau)
     if reduced:
-        lib = build_admm_stage_tc(m, n, matmul)
+        streams = tc_streams_operator(m, n)
+        name = "admm_stage_tc_l2" if streams else "admm_stage_tc"
+        delta = int(matmul == "delta")
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            code = lib.blf_admm_stage_tc(
-                v.data_ptr(), s.data_ptr(), gq.data_ptr(), l.data_ptr(),
-                u.data_ptr(), G2.data_ptr(), d.data_ptr(), base_rho.data_ptr(),
-                v_out.data_ptr(), tau_out.data_ptr(), B, m, n, int(matmul == "delta"),
-                int(iters), float(alpha), stream)
-        _raise_on(code, lib, "admm_stage_tc")
-        _counts["tc_" + matmul] += 1
+            if streams:
+                lib = build_admm_stage_tc_l2(m, n, matmul)
+                ops = torch.empty(tc_l2_operator_bytes(m, n), dtype=torch.uint8, device=dev)
+                scratch = torch.empty(B * (2 * m + n) if delta else 1, dtype=torch.float32,
+                                      device=dev)
+                code = lib.blf_admm_stage_tc_l2(
+                    v.data_ptr(), s.data_ptr(), gq.data_ptr(), l.data_ptr(),
+                    u.data_ptr(), G2.data_ptr(), d.data_ptr(), base_rho.data_ptr(),
+                    v_out.data_ptr(), tau_out.data_ptr(), ops.data_ptr(), scratch.data_ptr(),
+                    B, m, n, delta, int(iters), float(alpha), stream)
+            else:
+                lib = build_admm_stage_tc(m, n, matmul)
+                code = lib.blf_admm_stage_tc(
+                    v.data_ptr(), s.data_ptr(), gq.data_ptr(), l.data_ptr(),
+                    u.data_ptr(), G2.data_ptr(), d.data_ptr(), base_rho.data_ptr(),
+                    v_out.data_ptr(), tau_out.data_ptr(), B, m, n, delta,
+                    int(iters), float(alpha), stream)
+        _raise_on(code, lib, name)
+        _counts[("tc_l2_" if streams else "tc_") + matmul] += 1
         return v_out, tau_out
     if G2.data_ptr() % 16:
         raise ValueError("G2 must be 16-byte aligned")
@@ -461,5 +609,6 @@ def _raise_on(code: int, lib: ctypes.CDLL, name: str) -> None:
     if code != 0:
         what = (lib.blf_cuda_error_string(code).decode() if code > 0
                 else {-1: "library compiled for another shape or mode",
-                      -2: "bad batch or iteration count"}.get(code, "?"))
+                      -2: "bad batch or iteration count",
+                      -3: "missing scratch buffer"}.get(code, "?"))
         raise RuntimeError(f"{name} launch failed ({code}): {what}")

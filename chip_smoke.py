@@ -33,6 +33,11 @@ paths through the entry points a user calls:
   identification of 65536 lanes, each with its own (k, b): the foot rolled
   out in 200 segments of 10 steps (one launch each), the wrench measured
   after each, and (k, b) identified by three forms of RLS.
+* BASELINE config 3: the 10-step gait planned for 4096 initial DCMs on one
+  shared QP of (960, 384), 100 iterations, float32: ``plan_gait(shared=True,
+  backend="cuda")`` (kernel ``admm_stage_l2``, exact f32) and in bench.py's
+  own mode, ``backend="cuda_delta"`` (kernel ``admm_stage_tc_l2``, the
+  tensor-core stage past shared memory), ``"cuda_split"`` beside it.
 
 It checks each result and shows that each path went through its kernels by
 their launch counts, set to 0 just before the path and read just after. Each
@@ -253,9 +258,26 @@ CROSS_DELTA_FIRST_MISMATCH = 0.10     # share of lanes of differing status on ti
 # (tests/test_pallas_admm.py:57-74: converged counts within 25 of 256, the plan within
 # 5e-4 where both converged)
 CROSS_F32_SHARE, CROSS_F32_TOL = 25 / 256, 5e-4
+# K1's streaming tensor-core kernel (csrc/admm_stage_tc_l2.cu), modes "split" and "delta"
+# at the shapes the resident one refuses: the 10-step gait's, the 6-step's and the 2-step's
+# on their plans' own stages, the fleet tick's transcription at horizon 40 on stage_inputs,
+# and two random shared QPs, one with n > m and one with m not a multiple of 16; held
+# with the resident tensor-core kernel's limits (TC_*_TOL), "delta" on a warm stage (the
+# gaits' last, the fleet tick's at TC_WARM_TICK, the last of a TC_SETTLE_ITERS-iteration
+# exact solve of the random QPs) to TC_WARM_TOL
+TC_L2_SHAPES = ((960, 384, "gait10"), (640, 256, "gait6"), (320, 128, "gait2"),
+                (240, 160, "tick_h40"), (100, 150, "qp_n_gt_m"), (250, 97, "qp_m_odd"))
+TC_SETTLE_ITERS = 400
+# K1's f32 kernels at an n that is not a multiple of 4 (padded at the wrapper): the
+# resident one and, past its shared memory, the streaming one; random shared QPs
+F32_ODD_SHAPES = ((150, 97), (400, 201))
+# config 3 in bench.py's own mode ("cuda_delta", the reference's "pallas") and in
+# "cuda_split": the converged count within GAIT_DELTA_SLACK of the lanes the same plan
+# converges with the stage's plain version on the card
+GAIT_DELTA_SLACK = 0.005
 DEVICE = torch.device("cuda")
 PHASES = ("device", "build", "kernels", "tick", "cross", "tick_delta", "cross_delta", "wbc",
-          "wbc_cross", "stack", "stack_cross", "foot", "identify", "gait")
+          "wbc_cross", "stack", "stack_cross", "foot", "identify", "gait", "gait_delta")
 
 
 START = time.perf_counter()
@@ -333,6 +355,13 @@ def phase_build() -> dict:
     jobs += [("foot_rollout", rollout_kernel.SOURCE, {})]
     jobs += [(f"admm_stage_l2_{name}", admm_kernel.L2_SOURCE, {"ADMM_M": m, "ADMM_N": n})
              for m, n, name in L2_SHAPES + ((M, N, "tick"),)]
+    jobs += [(f"admm_stage_tc_l2_{mode}_{name}", admm_kernel.TC_L2_SOURCE,
+              admm_kernel.tc_l2_defines(m, n, mode))
+             for m, n, name in TC_L2_SHAPES for mode in TC_MODES]
+    odd = [(m, n + (-n % 4)) for m, n in F32_ODD_SHAPES]
+    jobs += [(f"admm_stage{'_l2' if admm_kernel.streams_operator(m, n) else ''}_odd_{m}x{n}",
+              admm_kernel.L2_SOURCE if admm_kernel.streams_operator(m, n) else admm_kernel.SOURCE,
+              {"ADMM_M": m, "ADMM_N": n}) for m, n in odd]
 
     def build(job):
         t0 = time.perf_counter()
@@ -355,6 +384,12 @@ def phase_build() -> dict:
     rollout_kernel.build_foot_rollout()
     for m, n, _ in L2_SHAPES + ((M, N, "tick"),):
         admm_kernel.build_admm_stage_l2(m, n)
+    for m, n, _ in TC_L2_SHAPES:
+        for mode in TC_MODES:
+            admm_kernel.build_admm_stage_tc_l2(m, n, mode)
+    for m, n in odd:
+        (admm_kernel.build_admm_stage_l2 if admm_kernel.streams_operator(m, n)
+         else admm_kernel.build_admm_stage)(m, n)
     wall = time.perf_counter() - t0
     shared = {"admm_stage": admm_kernel.stage_shared_bytes(M, N),
               "admm_stage_stack": admm_kernel.stage_shared_bytes(STACK_M, STACK_N),
@@ -369,6 +404,12 @@ def phase_build() -> dict:
     shared["foot_rollout"] = 0
     shared.update({f"admm_stage_l2_{name}": admm_kernel.stage_l2_shared_bytes(m, n)
                    for m, n, name in L2_SHAPES + ((M, N, "tick"),)})
+    shared.update({f"admm_stage_tc_l2_{mode}_{name}":
+                   admm_kernel.stage_tc_l2_shared_bytes(m, n, mode)
+                   for m, n, name in TC_L2_SHAPES for mode in TC_MODES})
+    shared.update({f"admm_stage{'_l2' if admm_kernel.streams_operator(m, n) else ''}_odd_{m}x{n}":
+                   (admm_kernel.stage_l2_shared_bytes(m, n) if admm_kernel.streams_operator(m, n)
+                    else admm_kernel.stage_shared_bytes(m, n)) for m, n in odd})
     libraries = []
     for (name, source, defines), sec in zip(jobs, seconds):
         log = _build.last_build_log(source, defines)
@@ -1028,22 +1069,226 @@ def kernels_admm_stage_l2() -> dict:
     }
 
 
-def tc_compare(args, kw, matmul: str, tol: float, what: str, hold: bool = True) -> dict:
-    """The tensor-core kernel against its plain version on the same inputs."""
+def random_qp(m: int, n: int, B: int, seed: int):
+    """A random feasible shared QP at (m, n) over B lanes, factored as the
+    solver factors it: ``(factors, q, l, u)``. P = X X^T / n + 0.1 I, A ~
+    N(0, 1/n); each lane's bounds around A x0 of its own x0, an eighth of the
+    rows equalities and a quarter of the others free below (l = -inf); its
+    own q."""
+    rng = np.random.default_rng(seed)
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                                     device=DEVICE)
+    X, A = rng.normal(size=(n, n)), rng.normal(size=(m, n)) / np.sqrt(n)
+    eq = np.arange(m) < max(1, m // 8)
+    f = factor_shared_qp(as_t(X @ X.T / n + 0.1 * np.eye(n)), as_t(A),
+                         torch.as_tensor(eq, device=DEVICE))
+    c0 = rng.normal(0, 0.5, (B, n)) @ A.T
+    lo, hi = c0 - np.abs(rng.normal(0.2, 0.1, (B, m))), c0 + np.abs(rng.normal(0.2, 0.1, (B, m)))
+    lo[:, eq], hi[:, eq] = c0[:, eq], c0[:, eq]
+    lo[:, ~eq & (rng.random(m) < 0.25)] = -np.inf
+    return f, as_t(rng.normal(0, 1, (B, n))), as_t(lo), as_t(hi)
+
+
+def random_qp_stage(m: int, n: int, B: int, seed: int):
+    """Stage inputs of :func:`random_qp` (scaled bounds, gq as the solver
+    forms them), a random iterate and s spread over [1e-2, 1e2]; and the QP."""
+    rng = np.random.default_rng(seed + 1)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+    f, q, lo, hi = qp = random_qp(m, n, B, seed)
+    return (as_t(rng.normal(0, 0.1, (B, m))), torch.zeros((B, n), device=DEVICE),
+            as_t(10.0 ** rng.uniform(-2, 2, (B, 1))), ((f.c * (q * f.D)) @ f.W).contiguous(),
+            (f.E * lo).contiguous(), (f.E * hi).contiguous(), f.G2.contiguous(), f.d,
+            f.base_rho), qp
+
+
+def solve_stages(factors, q, l, u, iterations: int) -> list:
+    """The stage arguments ``solve_qp_factored(backend="cuda")`` hands K1 over
+    an exact solve of (q, l, u) against ``factors``, every stage, in order:
+    the last is warm, its lanes near their fixed points at their adapted s."""
+    seen = []
+
+    def record(*args, **kw):
+        seen.append(args)
+        return admm_kernel.admm_stage(*args, **kw)
+
+    with mock.patch.object(qp_module, "admm_stage", record):
+        qp_module.solve_qp_factored(factors, q, l, u, iterations=iterations, backend="cuda")
+    torch.cuda.synchronize()
+    return seen
+
+
+def tc_l2_traffic(m: int, n: int, B: int, iters: int, matmul: str) -> dict:
+    """What csrc/admm_stage_tc_l2.cu moves beside the stage's own bytes: each
+    tile of lanes reads both operators' bf16 pairs (the tiles within m) from
+    L2 once a pass, one product each in ``iters`` passes; and the per-lane
+    state through device memory (floats a lane an iteration: "split" v, l, u
+    read and v written over m, gq over n; "delta" also w_prev and u_acc over
+    m, t_acc over n, read and written)."""
+    lanes, _ = admm_kernel.tc_l2_plan(m, n)
+    tiles = -(-B // lanes)
+    operator = tiles * iters * 2 * (-(-m // 64)) * (-(-n // 64)) * 4 * 64 * 64
+    per_iter = 4 * m + n if matmul == "split" else 8 * m + 3 * n
+    state = 4 * B * iters * per_iter
+    return {"operator_l2_gb": operator / 1e9, "state_gb": state / 1e9}
+
+
+def kernels_admm_stage_tc_l2() -> dict:
+    """K1's streaming tensor-core kernel (csrc/admm_stage_tc_l2.cu) against its
+    plain version at TC_L2_SHAPES, both modes: "split" over 25 iterations,
+    "delta"'s 3-pass first iteration and its first increment from a cold
+    iterate on the gait plans' cold first stages (the tick's and the random
+    QPs' random iterates); "delta" and "split" over 25 iterations of a warm
+    stage: the gait plans' last, the fleet tick's (in "cuda_delta", on this
+    kernel) at tick TC_WARM_TICK, and the last of a TC_SETTLE_ITERS-iteration
+    exact solve of each random QP. B in (GAIT_LANES, 1000, 1) at
+    (960, 384), (GAIT_LANES, 1) elsewhere; the cases at GAIT_LANES also
+    against the plain version's math in float64. A NaN lane confined at
+    (960, 384) and at the random QPs' shapes. Both modes timed at every shape
+    on GAIT_LANES lanes, 25 iterations of the warm stage."""
+    cases, shapes = [], {}
+    kw = dict(iters=STAGE_ITERS, alpha=ALPHA)
+    for m, n, name in TC_L2_SHAPES:
+        check(admm_kernel.tc_streams_operator(m, n),
+              f"({m}, {n}) is past what the resident tensor-core kernel takes")
+        if name.startswith("gait"):
+            stages = gait_stages(GAIT_LANES, int(name[4:]))
+            check(all(a[0].shape[1] == m and a[6].shape[1] == n for a, _ in stages),
+                  f"the {name} plan runs K1 at ({m}, {n})")
+            cold = stages[0][0]
+            check(not bool(cold[0].any()), "the first stage starts cold (v = 0)")
+            sources = {f"{name}_stage1_cold": cold,
+                       f"{name}_stage{len(stages)}_warm": stages[-1][0]}
+            del stages
+        elif name == "tick_h40":
+            problem = stationary_push_recovery(GAIT_LANES, n // 4, seed=SEED, device=DEVICE,
+                                               dtype=torch.float32)
+            warm = capture_tick_stages(problem, TC_WARM_TICK, GAIT_LANES, n // 4)[-1][0]
+            sources = {f"{name}_random": stage_inputs(problem, stage_operators(problem)[3],
+                                                      GAIT_LANES, seed=m),
+                       f"{name}_tick{TC_WARM_TICK}_warm": warm}
+        else:
+            args, qp = random_qp_stage(m, n, GAIT_LANES, seed=m + n)
+            sources = {f"{name}_random": args,
+                       f"{name}_solve_warm": solve_stages(*qp, TC_SETTLE_ITERS)[-1]}
+        batches = (GAIT_LANES, 1000, 1) if name == "gait10" else (GAIT_LANES, 1)
+        for what, full in sources.items():
+            check(bool(torch.isinf(full[4]).any()), f"{what}: bounds include -inf rows")
+            for B in batches:
+                args = lanes_of(full[:6], B) + tuple(full[6:])
+                exact = B == GAIT_LANES
+                if what.endswith("_warm"):
+                    cases.append(tc_compare(args, kw, "delta", TC_WARM_TOL, what, exact=exact))
+                    cases.append(tc_compare(args, kw, "split", TC_SPLIT_TOL, what, exact=exact))
+                    continue
+                cases.append(tc_compare(args, kw, "split", TC_SPLIT_TOL, what, exact=exact))
+                cases.append(tc_compare(args, dict(kw, iters=1), "delta", TC_SPLIT_TOL, what))
+                cases.append(tc_compare(args, dict(kw, iters=2), "delta", TC_STEP_TOL, what))
+        first = next(iter(sources.values()))
+        if name in ("gait10", "qp_n_gt_m", "qp_m_odd"):
+            for matmul in TC_MODES:
+                nan_confined(lanes_of(first[:6], 1000) + tuple(first[6:]), kw, matmul,
+                             f"admm_stage_tc_l2 {matmul} on {name}")
+        timed = list(sources.values())[-1]
+        modes = {}
+        for matmul in TC_MODES:
+            defines = admm_kernel.tc_l2_defines(m, n, matmul)
+            residency = ptxas_residency(admm_kernel.TC_L2_SOURCE, defines)
+            check(residency["spill_bytes"] == 0,
+                  f"admm_stage_tc_l2 {matmul} at ({m}, {n}) spills nothing: {residency}")
+            kernel_ms = median_ms(
+                lambda: admm_kernel.admm_stage(*timed, **kw, matmul=matmul), 2, 7)
+            plain_ms = median_ms(
+                lambda: admm_kernel.admm_stage_reference(*timed, **kw, matmul=matmul), 1, 3)
+            bound = tc_bound(m, n, GAIT_LANES, STAGE_ITERS, matmul)
+            modes[matmul] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms, **residency,
+                             "lanes_a_tile": defines["ADMM_LANES"],
+                             "ring_slots": defines["ADMM_STAGES"], **bound,
+                             "fraction_of_bound": bound["bound_ms"] / kernel_ms,
+                             "tflops_tensor": bound["passes"] * 2 * m * n * GAIT_LANES
+                             / (kernel_ms * 1e-3) / 1e12,
+                             **tc_l2_traffic(m, n, GAIT_LANES, STAGE_ITERS, matmul)}
+        shapes[name] = {"shape": [m, n], "timed_on": list(sources)[-1],
+                        "shared_bytes": admm_kernel.stage_tc_l2_shared_bytes(m, n, "delta"),
+                        "operator_scratch_bytes": admm_kernel.tc_l2_operator_bytes(m, n),
+                        "modes": modes}
+        del sources, timed, first
+    main = shapes[TC_L2_SHAPES[0][2]]
+    delta = main["modes"]["delta"]
+    held = [c for c in cases if c["tolerance_rel"] is not None]
+    return {
+        "name": "admm_stage_tc_l2", "path": "gait_delta", "shape": main["shape"],
+        "iters": STAGE_ITERS, "batch_timed": GAIT_LANES, "cases": cases, "nan_lane": "confined",
+        "shapes": shapes, "modes": main["modes"],
+        "max_rel_err": max(max(c["rel_err_v"], c["rel_err_tau"]) for c in held),
+        "max_abs_err": max(c["max_abs_err"] for c in held),
+        "kernel_ms": delta["kernel_ms"], "plain_ms": delta["plain_ms"],
+        "bound_ms": delta["bound_ms"], "bound_by": delta["bound_by"],
+        "registers": delta["registers"], "spill_bytes": delta["spill_bytes"],
+        "shared_bytes": main["shared_bytes"],
+        "library_ms": None, "library": "none: no PyTorch call computes the stage",
+    }
+
+
+def f32_odd_n_cases() -> dict:
+    """Mode "f32" at an n that is not a multiple of 4 (F32_ODD_SHAPES, random
+    shared QPs, GAIT_LANES and 1 lanes): the wrapper pads n for the kernel the
+    padded shape picks, which is held to the plain version at the shape as
+    given; keyed by that kernel."""
+    out = {"admm_stage": [], "admm_stage_l2": []}
+    kw = dict(iters=STAGE_ITERS, alpha=ALPHA)
+    for m, n in F32_ODD_SHAPES:
+        check(n % 4 != 0, f"n = {n} is not a multiple of 4")
+        streams = admm_kernel.streams_operator(m, n + (-n % 4))
+        full = random_qp_stage(m, n, GAIT_LANES, seed=m * n)[0]
+        for B in (GAIT_LANES, 1):
+            args = lanes_of(full[:6], B) + tuple(full[6:])
+            admm_kernel.reset_counts()
+            v_k, tau_k = admm_kernel.admm_stage(*args, **kw)
+            launched = (admm_kernel.l2_launch_count() if streams else admm_kernel.launch_count(),
+                        admm_kernel.reference_count())
+            torch.cuda.synchronize()
+            v_p, tau_p = admm_kernel.admm_stage_reference(*args, **kw)
+            check(launched == (1, 0), f"({m}, {n}) ran its kernel once: {launched}")
+            check(tuple(tau_k.shape) == (B, n) and tau_k.is_contiguous(),
+                  f"tau cut back to ({B}, {n}): {tuple(tau_k.shape)}")
+            ev, et = rel_err(v_k, v_p), rel_err(tau_k, tau_p)
+            check(ev <= REL_TOL and et <= REL_TOL,
+                  f"f32 at the odd n of ({m}, {n}) agrees with the plain version to {REL_TOL}"
+                  f" at B={B}: v {ev}, tau {et}")
+            out["admm_stage_l2" if streams else "admm_stage"].append(
+                {"shape": [m, n], "padded_n": n + (-n % 4), "B": B, "rel_err_v": ev,
+                 "rel_err_tau": et,
+                 "max_abs_err": max(float((v_k - v_p).abs().max()),
+                                    float((tau_k - tau_p).abs().max()))})
+    return out
+
+
+def tc_compare(args, kw, matmul: str, tol: float, what: str, hold: bool = True,
+               exact: bool = False) -> dict:
+    """A tensor-core kernel (the shape picks which) against its plain version
+    on the same inputs; with ``exact``, both against the plain version's math
+    in float64."""
+    m, n = args[6].shape
+    name = "admm_stage_tc_l2" if admm_kernel.tc_streams_operator(m, n) else "admm_stage_tc"
     v_k, tau_k = admm_kernel.admm_stage(*args, **kw, matmul=matmul)
     torch.cuda.synchronize()
     v_p, tau_p = admm_kernel.admm_stage_reference(*args, **kw, matmul=matmul)
     check(bool(torch.isfinite(v_k).all() and torch.isfinite(tau_k).all()),
-          f"admm_stage_tc {matmul}: kernel output finite on {what}")
+          f"{name} {matmul}: kernel output finite on {what}")
     ev, et = rel_err(v_k, v_p), rel_err(tau_k, tau_p)
     ea = max(float((v_k - v_p).abs().max()), float((tau_k - tau_p).abs().max()))
     if hold:
         check(ev <= tol and et <= tol,
-              f"admm_stage_tc {matmul} agrees with its plain version to {tol} on {what}:"
+              f"{name} {matmul} agrees with its plain version to {tol} on {what} at ({m}, {n}):"
               f" v {ev}, tau {et}")
-    return {"matmul": matmul, "inputs": what, "B": args[0].shape[0], "iters": kw["iters"],
+    case = {"matmul": matmul, "inputs": what, "B": args[0].shape[0], "iters": kw["iters"],
             "rel_err_v": ev, "rel_err_tau": et, "max_abs_err": ea,
             "tolerance_rel": tol if hold else None}
+    if exact:
+        v_e, _ = admm_kernel.admm_stage_reference(*(a.double() for a in args), **kw,
+                                                  matmul=matmul)
+        case["rel_err_vs_float64"], case["plain_rel_err_vs_float64"] = f64_distance(v_k, v_p, v_e)
+    return case
 
 
 def tc_bound(m: int, n: int, B: int, iters: int, matmul: str) -> dict:
@@ -1071,16 +1316,17 @@ def tc_bound(m: int, n: int, B: int, iters: int, matmul: str) -> dict:
                             " 3.35 TB/s"}
 
 
-def capture_tick_stages(problem, ticks: int) -> list:
+def capture_tick_stages(problem, ticks: int, lanes: int = BATCH, horizon: int = HORIZON) -> list:
     """The stage arguments the fleet tick in mode "cuda_delta" hands the
-    kernel on its ``ticks``-th tick (both stages), at the full batch."""
+    kernel on its ``ticks``-th tick (both stages), at the full batch (or
+    ``lanes``) and the problem's horizon."""
     seen = []
 
     def record(*args, **kw):
         seen[:] = seen[-1:] + [(args, kw)]
         return admm_kernel.admm_stage(*args, **kw)
 
-    state = init_fleet(BATCH, HORIZON, problem.num_constraints, problem.dcm0, problem.com0,
+    state = init_fleet(lanes, horizon, problem.num_constraints, problem.dcm0, problem.com0,
                        device=DEVICE, dtype=torch.float32)
     step = make_fleet_step(problem.params, problem.dt, iterations=2 * STAGE_ITERS,
                            backend="cuda_delta", device=DEVICE)
@@ -1617,6 +1863,9 @@ def phase_kernels(problem, device: dict) -> dict:
     del stack_seen
     entries.append(kernels_foot_rollout())
     entries.append(kernels_admm_stage_l2())
+    entries.append(kernels_admm_stage_tc_l2())
+    for name, odd in f32_odd_n_cases().items():
+        next(e for e in entries if e["name"] == name and e.get("path") != "stack")["odd_n"] = odd
     emit("kernels", kernels=entries)
     return {e["name"] + ("@stack" if e.get("path") == "stack" else ""): e for e in entries}
 
@@ -1626,9 +1875,12 @@ def all_finite(state) -> bool:
 
 
 def stage_counts() -> dict:
-    """Launches of K1's two kernels (the tensor-core one by mode) and plain runs."""
+    """Launches of K1's resident kernels (the tensor-core one by mode), of its
+    streaming tensor-core one by mode, and plain runs."""
     return {"f32": admm_kernel.launch_count(), "tc_delta": admm_kernel.tc_launch_count("delta"),
             "tc_split": admm_kernel.tc_launch_count("split"),
+            "tc_l2_delta": admm_kernel.tc_l2_launch_count("delta"),
+            "tc_l2_split": admm_kernel.tc_l2_launch_count("split"),
             "plain": admm_kernel.reference_count() + admm_kernel.tc_reference_count()}
 
 
@@ -1930,7 +2182,8 @@ def phase_cross_delta(problem) -> dict:
     for rec in per_tick:
         k, cmp = rec["tick"], rec["plain"]
         check(rec["finite"], f"cross_delta tick {k}: every state finite")
-        check(rec["kernel_counts"] == {"f32": 0, "tc_delta": 2, "tc_split": 0, "plain": 0},
+        check(rec["kernel_counts"] == {"f32": 0, "tc_delta": 2, "tc_split": 0, "tc_l2_delta": 0,
+                                       "tc_l2_split": 0, "plain": 0},
               f"cross_delta tick {k}: the fleet's step is 2 tensor-core launches")
         for field, dv in cmp["max_abs_diff"].items():
             check(dv <= CROSS_DELTA_TOL,
@@ -2558,11 +2811,7 @@ def phase_gait() -> dict:
     is_eq = torch.arange(A.shape[0], device=DEVICE) < 2 * T
     factor_ms = median_ms(lambda: factor_shared_qp(P, A, is_eq), 1, 3)
 
-    cpu = plan_gait(lipm_params_from_numpy(0.9, 9.81, device="cpu", dtype=torch.float64),
-                    fleet.lists, fleet.dt, fleet.dcm0[:GAIT_CPU_LANES].cpu().double(),
-                    fleet.com0[:GAIT_CPU_LANES].cpu().double(), iterations=GAIT_ITERATIONS,
-                    shared=True, backend="torch")[0]
-    dcm_rmse = float((plan.dcm[:GAIT_CPU_LANES].cpu().double() - cpu.dcm).pow(2).mean().sqrt())
+    dcm_rmse = gait_rmse_vs_cpu(plan)
 
     natively = native_schedule_check(fleet.lists, fleet.dt)
 
@@ -2602,6 +2851,113 @@ def phase_gait() -> dict:
     check(bool(single.qp.converged) and single.zmp.shape[0] == 96,
           "examples/03_full_gait.py's plan converged over 96 knots")
     hold_gait(single_checks, "examples/03_full_gait.py's plan")
+    return record
+
+
+@functools.lru_cache(maxsize=None)
+def gait_cpu_plan():
+    """The first GAIT_CPU_LANES lanes of the gait fleet planned in float64 on
+    the CPU by the plain path (``backend="torch"``)."""
+    fleet = gait_fleet(GAIT_LANES, seed=SEED, device=DEVICE, dtype=torch.float32)
+    return plan_gait(lipm_params_from_numpy(0.9, 9.81, device="cpu", dtype=torch.float64),
+                     fleet.lists, fleet.dt, fleet.dcm0[:GAIT_CPU_LANES].cpu().double(),
+                     fleet.com0[:GAIT_CPU_LANES].cpu().double(), iterations=GAIT_ITERATIONS,
+                     shared=True, backend="torch")[0]
+
+
+def gait_rmse_vs_cpu(plan) -> float:
+    """DCM RMSE (m) of a fleet plan's first lanes against :func:`gait_cpu_plan`."""
+    cpu = gait_cpu_plan()
+    return float((plan.dcm[:GAIT_CPU_LANES].cpu().double() - cpu.dcm).pow(2).mean().sqrt())
+
+
+def phase_gait_delta() -> dict:
+    """BASELINE config 3 in bench.py's own mode: ``plan_gait`` of the 10-step
+    gait for GAIT_LANES initial DCMs in float32, ``shared=True,
+    backend="cuda_delta"`` (the reference's "pallas": K1's streaming
+    tensor-core kernel at (960, 384), one launch a stage); one warm-up plan,
+    then GAIT_RUNS timed in turns with the f32 plan (``"cuda"``, K1-L),
+    counted from the last. Held: the launches, TestFullGait's checks on every
+    lane, the DCM RMSE against the float64 CPU plan of GAIT_CPU_LANES lanes,
+    and the converged count against the same plan with the stage's plain
+    version on the card (at most GAIT_DELTA_SLACK of the lanes fewer). The
+    factorization timed apart; ``"cuda_split"`` planned once beside it."""
+    fleet = gait_fleet(GAIT_LANES, seed=SEED, device=DEVICE, dtype=torch.float32)
+    run = lambda backend: plan_gait(*fleet, iterations=GAIT_ITERATIONS, shared=True,
+                                    backend=backend)
+    for backend in ("cuda_delta", "cuda"):          # warm-up
+        run(backend)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {"cuda_delta": [], "cuda": []}
+    for _ in range(GAIT_RUNS):
+        for backend in ("cuda_delta", "cuda"):      # in turns
+            admm_kernel.reset_counts()              # counts of this path start here
+            t0 = time.perf_counter()
+            plan, schedule = run(backend)
+            torch.cuda.synchronize()
+            times[backend].append(1e3 * (time.perf_counter() - t0))
+            if backend == "cuda_delta":
+                counts = {"l2": admm_kernel.l2_launch_count(), **stage_counts()}   # just after
+                delta_plan = plan
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    poly_A, poly_b = support_polygons(schedule, device=DEVICE, dtype=torch.float32)
+    checks = gait_checks(delta_plan, poly_A, poly_b)
+    converged = int(delta_plan.qp.converged.sum())
+    dcm_rmse = gait_rmse_vs_cpu(delta_plan)
+
+    # the same plan with the stage's plain version on the card, same inputs
+    with mock.patch.object(qp_module, "admm_stage", admm_kernel.admm_stage_reference):
+        plain_plan = run("cuda_delta")[0]
+    converged_plain = int(plain_plan.qp.converged.sum())
+    dcm_vs_plain = float((delta_plan.dcm - plain_plan.dcm).abs().max())
+    del plain_plan
+
+    T = schedule.active.shape[1]
+    zmp_ref, dcm_ref = gait_references(fleet.params, schedule, fleet.dt)
+    P, _, A, _, _ = build_dcm_qp(fleet.params, fleet.dt, fleet.dcm0[:1], dcm_ref, zmp_ref,
+                                 poly_A, poly_b)
+    is_eq = torch.arange(A.shape[0], device=DEVICE) < 2 * T
+    factor_ms = median_ms(lambda: factor_shared_qp(P, A, is_eq), 1, 3)
+
+    admm_kernel.reset_counts()
+    t0 = time.perf_counter()
+    split_plan = run("cuda_split")[0]
+    torch.cuda.synchronize()
+    split_ms = 1e3 * (time.perf_counter() - t0)
+    split_counts = {"l2": admm_kernel.l2_launch_count(), **stage_counts()}
+    split_checks = gait_checks(split_plan, poly_A, poly_b)
+    split = {"plan_ms": split_ms, "converged": int(split_plan.qp.converged.sum()),
+             "launches": split_counts, **split_checks,
+             "dcm_rmse_vs_cpu_float64": gait_rmse_vs_cpu(split_plan)}
+
+    med = {k: statistics.median(v) for k, v in times.items()}
+    record = emit(
+        "gait_delta", lanes=GAIT_LANES, knots=T, shape=list(A.shape), iterations=GAIT_ITERATIONS,
+        dtype="float32", backend="cuda_delta", plan_ms=med["cuda_delta"],
+        plan_ms_min_max=[min(times["cuda_delta"]), max(times["cuda_delta"])],
+        plans_per_s=GAIT_LANES / (med["cuda_delta"] * 1e-3),
+        f32_plan_ms_in_turns=med["cuda"], f32_plan_ms_min_max=[min(times["cuda"]),
+                                                                max(times["cuda"])],
+        factor_ms=factor_ms, converged=converged, converged_with_plain_stage=converged_plain,
+        dcm_max_abs_vs_plain_stage=dcm_vs_plain,
+        max_primal_residual=float(delta_plan.qp.primal_residual.max()),
+        max_dual_residual=float(delta_plan.qp.dual_residual.max()), **checks,
+        cpu_lanes=GAIT_CPU_LANES, dcm_rmse_vs_cpu_float64=dcm_rmse, launches=counts,
+        peak_memory_gb=peak, split=split)
+    stages = GAIT_ITERATIONS // STAGE_ITERS
+    check(counts["tc_l2_delta"] == stages,
+          f"one streaming tensor-core launch a stage: {counts}")
+    check(sum(counts.values()) == stages, f"no other stage ran: {counts}")
+    check(converged >= converged_plain - GAIT_DELTA_SLACK * GAIT_LANES,
+          f"converged within {GAIT_DELTA_SLACK} of the lanes of the plan with the plain"
+          f" stage: {converged} against {converged_plain}")
+    hold_gait(checks, "the fleet in cuda_delta")
+    check(dcm_rmse <= GAIT_RMSE_TOL,
+          f"DCM within {GAIT_RMSE_TOL} RMSE of the float64 CPU plan: {dcm_rmse}")
+    check(split_counts["tc_l2_split"] == stages and sum(split_counts.values()) == stages,
+          f"cuda_split: one streaming tensor-core launch a stage: {split_counts}")
+    check(split_checks["finite"], f"cuda_split's plan is finite: {split_checks}")
     return record
 
 
@@ -2690,6 +3046,7 @@ def main() -> None:
     foot = phase_foot() if "foot" in phases else None
     ident = phase_identify() if "identify" in phases else None
     gait = phase_gait() if "gait" in phases else None
+    gait_delta = phase_gait_delta() if "gait_delta" in phases else None
     if opts.study_factorization:
         study_factorization(problem)
 
@@ -2716,10 +3073,15 @@ def main() -> None:
             "foot_rollout_fused": {"foot": foot["launches"] if foot else 0,
                                    "identify": ident["launches"] if ident else 0},
             "admm_stage_l2": {"gait": gait["launches"]["l2"] if gait else 0},
+            "admm_stage_tc_l2": {
+                "gait_delta": gait_delta["launches"]["tc_l2_delta"] if gait_delta else 0,
+                "gait_split": gait_delta["split"]["launches"]["tc_l2_split"]
+                if gait_delta else 0},
         }
         origin = {"admm_stage": (admm_kernel.SOURCE, admm_kernel.REPLACES),
                   "admm_stage_l2": (admm_kernel.L2_SOURCE, admm_kernel.L2_REPLACES),
                   "admm_stage_tc": (admm_kernel.TC_SOURCE, admm_kernel.TC_REPLACES),
+                  "admm_stage_tc_l2": (admm_kernel.TC_L2_SOURCE, admm_kernel.TC_L2_REPLACES),
                   "admm_lane_stage": (lane_kernel.SOURCE, lane_kernel.REPLACES),
                   "cholesky_inverse_lane": (chol_kernel.SOURCE, chol_kernel.REPLACES),
                   "cholesky_solve_lane": (chol_kernel.SOLVE_SOURCE, chol_kernel.SOLVE_REPLACES),

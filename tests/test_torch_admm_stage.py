@@ -164,6 +164,53 @@ def test_shapes_the_kernel_cannot_hold_are_rejected():
         port._check_shape(384, 256)
 
 
+def random_qp_stage(m, n, B, seed=0):
+    """Float32 stage inputs of a random shared QP at (m, n), factored by the
+    port's factor_shared_qp: P = X X^T / n + 0.1 I, A ~ N(0, 1/n), an eighth
+    of the rows equalities, a quarter of the others free below; a random
+    iterate, s over four decades."""
+    from blf_tpu_torch.mpc.qp import factor_shared_qp as t_factor
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32)
+    X = rng.normal(size=(n, n))
+    eq = np.arange(m) < max(1, m // 8)
+    f = t_factor(t(X @ X.T / n + 0.1 * np.eye(n)), t(rng.normal(size=(m, n)) / np.sqrt(n)),
+                 torch.as_tensor(eq))
+    c0 = rng.normal(0, 0.1, (B, m))
+    lo, hi = c0 - np.abs(rng.normal(0.2, 0.1, (B, m))), c0 + np.abs(rng.normal(0.2, 0.1, (B, m)))
+    lo[:, eq], hi[:, eq] = c0[:, eq], c0[:, eq]
+    lo[:, ~eq & (rng.random(m) < 0.25)] = -np.inf
+    gq = ((f.c * (t(rng.normal(0, 1, (B, n))) * f.D)) @ f.W).contiguous()
+    return (t(rng.normal(0, 0.1, (B, m))), torch.zeros(B, n), t(10.0 ** rng.uniform(-2, 2, (B, 1))),
+            gq, (f.E * t(lo)).contiguous(), (f.E * t(hi)).contiguous(), f.G2.contiguous(),
+            f.d.contiguous(), f.base_rho.contiguous())
+
+
+@pytest.mark.parametrize("m,n", [(30, 13), (250, 97)])
+def test_f32_at_an_n_not_a_multiple_of_4_pads_to_the_same_stage(m, n):
+    """The f32 kernels take n a multiple of 4; admm_stage pads any other n
+    with pad_columns (zero columns of G2, gq and tau, d = 1) and cuts tau
+    back. The plain version on the padded inputs gives the unpadded stage to
+    rounding (measured: bit for bit at both shapes), and the padded columns of
+    tau stay exactly 0."""
+    args = random_qp_stage(m, n, 33, seed=m + n)
+    tau, gq, G2, d = args[1], args[3], args[6], args[7]
+    tp, gp, Gp, dp = port.pad_columns(tau, gq, G2, d)
+    k = n + (-n % 4)
+    assert Gp.shape == (m, k) and gp.shape == (33, k) and tp.shape == (33, k) and dp.shape == (k,)
+    assert bool((Gp[:, n:] == 0).all() and (gp[:, n:] == 0).all() and (dp[n:] == 1).all())
+    assert torch.equal(Gp[:, :n], G2) and torch.equal(dp[:n], d)
+    padded = (args[0], tp, args[2], gp, args[4], args[5], Gp, dp, args[8])
+    v_p, tau_p = port.admm_stage_reference(*padded, iters=25, alpha=ALPHA)
+    v, tau = port.admm_stage_reference(*args, iters=25, alpha=ALPHA)
+    assert bool(torch.isfinite(v).all()) and bool((tau_p[:, n:] == 0).all())
+    assert float((v_p - v).abs().max()) <= 1e-6 * float(v.abs().max())
+    assert float((tau_p[:, :n] - tau).abs().max()) <= 1e-6 * float(tau.abs().max())
+    whole = (tau[:, :12], gq[:, :12], G2[:, :12], d[:12])    # a multiple of 4: unchanged
+    assert all(a is b for a, b in zip(port.pad_columns(*whole), whole))
+
+
 def test_kernel_source_is_self_contained_cuda():
     """The kernel computes both products in its own body, on the FMA units
     (round-to-nearest sums): no library GEMM, no tensor-core product."""

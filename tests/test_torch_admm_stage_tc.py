@@ -21,6 +21,8 @@ pass into one accumulator, 16 contraction terms at a time) on the card's
 inputs, computed on the CPU.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,6 +113,48 @@ def test_nan_lane_stays_confined(matmul, where):
     others = np.arange(16) != 5
     assert np.array_equal(v[others], clean_v[others])
     assert np.array_equal(tau[others], clean_tau[others])
+
+
+@functools.lru_cache(maxsize=None)
+def _gait_stage(num_steps, B):
+    """The first stage ``plan_gait(shared=True, backend="cuda")`` hands K1 on
+    the port's ``gait_fleet(B, num_steps)`` (CPU, float32): the gait's own
+    operator, scaled bounds and gq, with a random iterate and s spread over
+    four decades, as numpy. A caller that changes an array copies it."""
+    from unittest import mock
+
+    from blf_tpu_torch.planners.gait import plan_gait
+    from blf_tpu_torch.problems import gait_fleet
+
+    seen = []
+
+    def record(*args, **kw):
+        seen.append(args)
+        return port.admm_stage(*args, **kw)
+
+    with mock.patch.object(tqp, "admm_stage", record):
+        plan_gait(*gait_fleet(B, num_steps=num_steps, device="cpu", dtype=torch.float32),
+                  iterations=25, shared=True, backend="cuda")
+    rng = np.random.default_rng(B)
+    a = {k: t.numpy().copy() for k, t in zip(ORDER, seen[0])}
+    a["v"] = rng.normal(0, 0.1, a["v"].shape).astype(np.float32)
+    a["s"] = (10.0 ** rng.uniform(-2, 2, a["s"].shape)).astype(np.float32)
+    return a
+
+
+@pytest.mark.parametrize("matmul", ["split", "delta"])
+@pytest.mark.parametrize("iters", [1, 4])
+def test_plain_version_past_shared_memory_matches_pallas_interpret(matmul, iters):
+    """(m, n) = (320, 128), the 2-step gait's own operator, past what the
+    resident tensor-core kernel holds (m > 192: on the card the streaming
+    kernel runs it), B 256, a random iterate; the file's limits."""
+    a = _gait_stage(2, 256)
+    assert a["G2"].shape == (320, 128) and port.tc_streams_operator(320, 128)
+    assert np.isinf(a["l"]).any()
+    ref_v, ref_tau = run_pallas(a, iters, matmul)
+    v, tau = run_port(a, iters, matmul)
+    tol = DELTA_COLD_TOL if (matmul == "delta" and iters > 1) else SPLIT_TOL
+    assert rel(v, ref_v) <= tol and rel(tau, ref_tau) <= tol
 
 
 def test_reduced_modes_take_float32_only_and_known_names():
@@ -217,6 +261,57 @@ def test_shapes_and_shared_memory_of_the_tensor_core_kernel():
     assert port.tc_defines(192, 128, "split")["ADMM_LANES"] == 32
 
 
+@pytest.mark.parametrize("m,n", [(960, 384), (640, 256), (320, 128), (240, 160), (64, 96),
+                                 (250, 97), (193, 8)])
+def test_shapes_the_resident_kernel_refuses_take_the_streaming_one(m, n):
+    """Past shared memory, past m = 192, or n > m: the shapes _check_tc_shape
+    refuses are exactly those tc_streams_operator sends to
+    csrc/admm_stage_tc_l2.cu."""
+    assert port.tc_streams_operator(m, n)
+    with pytest.raises(ValueError):
+        port._check_tc_shape(m, n, "delta")
+    lanes, stages = port.tc_l2_plan(m, n)
+    assert port.stage_tc_l2_shared_bytes(m, n, "delta") <= 232448
+    assert port.tc_l2_defines(m, n, "split") == {"ADMM_M": m, "ADMM_N": n, "ADMM_DELTA": 0,
+                                                  "ADMM_LANES": lanes, "ADMM_STAGES": stages}
+
+
+@pytest.mark.parametrize("m,n", [(192, 128), (96, 64), (48, 32), (128, 128)])
+def test_shapes_the_resident_kernel_holds_stay_with_it(m, n):
+    assert not port.tc_streams_operator(m, n)
+    port._check_tc_shape(m, n, "delta")
+
+
+def test_streaming_kernel_plan_and_shared_memory():
+    """A ring of 16 KB tile pairs a warpgroup a slot (two warpgroups), w's
+    operand of a 128-row chunk and tau's operand (n padded to 64), hi and lo
+    each: 196608 bytes at (960, 384), the same in both modes and at any m;
+    32-lane tiles up to n = 1024, 16 past it, the ring as deep as fits, n up
+    to 2048. The split operators: 64 x 64 tiles, rows padded to whole
+    chunks, a hi and a lo half each."""
+    sizes = {(960, 384): 196608, (640, 256): 180224, (320, 128): 163840, (240, 160): 172032}
+    for (m, n), size in sizes.items():
+        for matmul in ("split", "delta"):
+            assert port.stage_tc_l2_shared_bytes(m, n, matmul) == size
+    assert port.stage_tc_l2_shared_bytes(10 ** 5, 384, "delta") == 196608
+    assert [port.tc_l2_plan(100, n) for n in (384, 704, 1024, 1025, 2048)] == \
+        [(32, 4), (32, 3), (32, 2), (16, 4), (16, 2)]
+    with pytest.raises(ValueError, match="n <= 2048"):
+        port.tc_l2_plan(10, 2049)
+    assert port.tc_l2_operator_bytes(960, 384) == 2 * 16 * 6 * 16384
+    assert port.tc_l2_operator_bytes(250, 97) == 2 * 4 * 2 * 16384
+
+
+def test_cpu_tensors_past_shared_memory_take_the_plain_version_in_both_modes():
+    a = _gait_stage(2, 256)
+    port.reset_counts()
+    for matmul in ("split", "delta"):
+        run_port({k: x[:5] if x.ndim == 2 and x.shape[0] == 256 else x for k, x in a.items()},
+                 2, matmul)
+    assert port.tc_reference_count() == 2
+    assert port.tc_launch_count() == port.tc_l2_launch_count() == port.reference_count() == 0
+
+
 def test_kernel_source_is_self_contained_tensor_core_cuda():
     """Both products in the kernel's own body, on wgmma: no library GEMM."""
     src = (_build.CSRC_DIR / port.TC_SOURCE).read_text()
@@ -226,6 +321,18 @@ def test_kernel_source_is_self_contained_tensor_core_cuda():
     assert "-use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert port.TC_REPLACES == "blf_tpu/ops/pallas/admm.py:138"
+
+
+def test_streaming_kernel_source_is_self_contained_tensor_core_cuda():
+    """Both products in its own body on wgmma, the operator tiles copied into
+    shared memory with cp.async: no library GEMM, no warp-level mma."""
+    files = _build.source_files(port.TC_L2_SOURCE)
+    assert [f.name for f in files] == ["admm_stage_tc_l2.cu"]
+    src = files[0].read_text()
+    assert "__global__" in src and "wgmma.mma_async" in src and "cp.async" in src
+    for banned in ("cublas", "cutlass", "torch/", "ATen", "mma.sync"):
+        assert banned not in src
+    assert port.TC_L2_REPLACES == "blf_tpu/ops/pallas/admm.py:138"
 
 
 # --------------------------------------------------------------------------

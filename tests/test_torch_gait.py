@@ -8,6 +8,8 @@ held on the port alone; parity with ``blf_tpu``'s whole plan uses a 2-step
 gait, whose reference compiles in seconds.
 """
 
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +18,10 @@ import torch
 from blf_tpu.models.lipm import LIPMParams as JLIPMParams
 from blf_tpu.mpc import dcm as jdcm
 from blf_tpu.planners import gait as jg
+from blf_tpu.mpc.qp import factor_shared_qp as j_factor
 from blf_tpu.planners.contacts import lower_contact_schedule as j_lower
-from blf_tpu_torch.convert import lipm_params_from_numpy
+from blf_tpu_torch.convert import factors_from_numpy, lipm_params_from_numpy
+from blf_tpu_torch.mpc import dcm as tdcm
 from blf_tpu_torch.mpc.dcm import solve_dcm_mpc
 from blf_tpu_torch.ops.cuda import admm as stage
 from blf_tpu_torch.planners import gait as tg
@@ -156,3 +160,58 @@ def test_gait_fleet_on_the_kernel_backend_matches_pallas_f32():
     assert theirs.zmp.dtype == jnp.float32
     assert int(ours.qp.converged.sum()) == int(theirs.qp.converged.sum()) == 256
     np.testing.assert_allclose(ours.zmp.numpy(), np.asarray(theirs.zmp), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("backend,jax_backend", [("cuda_delta", "pallas"),
+                                                 ("cuda_split", "pallas_split")])
+def test_two_step_gait_fleet_in_the_reduced_modes_matches_pallas(backend, jax_backend):
+    """The 2-step gait's shared QP at (320, 128), past what the resident
+    tensor-core kernel holds (on the card the streaming one runs it): 256
+    lanes, float32, 100 iterations, ``solve_dcm_mpc(shared=True,
+    backend=...)`` on CPU tensors (the stage's plain version, 4 stages)
+    against the reference's ``"pallas"`` / ``"pallas_split"`` in interpret
+    mode, called eagerly (jitted on the CPU, its delta MPC is not its eager
+    self: ROADMAP.md section 3).
+
+    The reference factors the float32 operator in float32 and there leaves
+    every lane's dual residual near 3.8e-4, above eps: it converges none of
+    the 256 in either mode (so does the reference under ``jax.disable_jit``).
+    Handed those factors, the port does the same: the same converged count
+    and zmp within 1e-5 m (measured 2.7e-6 delta, 1.0e-6 split). With its own
+    factorization (float64, cast: ``factor_shared_qp``) the port converges
+    every lane, and its plan stays within 5e-5 m of the reference's (measured
+    1.4e-5 in both modes)."""
+    fleet = gait_fleet(256, num_steps=2, device="cpu", dtype=torch.float32)
+    schedule = lower_contact_schedule(fleet.lists, dt=fleet.dt,
+                                      horizon=tg.gait_horizon(fleet.lists, fleet.dt))
+    poly_A, poly_b = tg.support_polygons(schedule, device="cpu", dtype=torch.float32)
+    zmp_ref, dcm_ref = tg.gait_references(fleet.params, schedule, fleet.dt)
+    inputs = (fleet.dcm0, fleet.com0, dcm_ref, zmp_ref, poly_A, poly_b)
+    pj, _ = params(np.float32)
+    seen = []
+
+    def record(*args, **kw):
+        seen.append(j_factor(*args, **kw))
+        return seen[-1]
+
+    with mock.patch.object(jdcm, "factor_shared_qp", record):
+        theirs = jdcm.solve_dcm_mpc(pj, fleet.dt, *(jnp.asarray(t.numpy()) for t in inputs),
+                                    iterations=100, shared=True, backend=jax_backend)
+    assert theirs.zmp.dtype == jnp.float32 and len(seen) == 1
+    their_factors = factors_from_numpy(seen[0], device="cpu", dtype=torch.float32)
+
+    stage.reset_counts()
+    ours = solve_dcm_mpc(fleet.params, fleet.dt, *inputs, iterations=100, shared=True,
+                         backend=backend)
+    assert stage.tc_reference_count() == 4 and stage.reference_count() == 0
+    assert stage.tc_launch_count() == stage.tc_l2_launch_count() == 0
+    assert (ours.qp.y.shape[-1], ours.qp.x.shape[-1]) == (320, 128)
+    assert stage.tc_streams_operator(320, 128)
+    assert int(ours.qp.converged.sum()) == 256
+    np.testing.assert_allclose(ours.zmp.numpy(), np.asarray(theirs.zmp), atol=5e-5, rtol=0)
+
+    with mock.patch.object(tdcm, "factor_shared_qp", lambda *a, **kw: their_factors):
+        alike = solve_dcm_mpc(fleet.params, fleet.dt, *inputs, iterations=100, shared=True,
+                              backend=backend)
+    assert int(alike.qp.converged.sum()) == int(np.asarray(theirs.qp.converged).sum())
+    np.testing.assert_allclose(alike.zmp.numpy(), np.asarray(theirs.zmp), atol=1e-5, rtol=0)
