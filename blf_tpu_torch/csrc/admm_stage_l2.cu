@@ -31,6 +31,16 @@
 // operator's panels, so v lives in device memory (v_out, read and written by
 // its owner thread once an iteration), l and u are read from there too.
 //
+// What bound the previous design (4 x 4 tiles of t in two rounds; the gait's last
+// iterations; NVIDIA H100 80GB HBM3, 700.00 W): 5.88-6.12 ms, some 38 % of
+// the FMA bound, and 0.93 of that with half the lanes, so each SM's own work
+// binds, not L2. Its second product cut to the 512 tiles one round gives
+// (wrong on purpose) took 5.13 ms: the 768 tiles of 4 x 4 at n = 384 ran in
+// two rounds on 512 threads, the second on half the warps. Without the
+// partial sums' round trip through shared memory it took 5.86, without the
+// two barriers that are not the copy's 5.81: neither binds. What is left is
+// the shared-memory traffic a FMA costs: 4 x 4 tiles load 2 bytes a FMA.
+//
 // Design (each choice with its reason):
 //  * One block of 512 threads (16 warps, one block an SM) works on a tile of
 //    32 lanes through the whole stage.
@@ -42,16 +52,29 @@
 //    at 32 lanes), only tau (n x 32) and the chunk's w; a stage is iters + 1
 //    passes (the first has no second product, the last no first product).
 //  * The chunks stream through two buffers with cp.async: the next chunk's
-//    copy is in flight while this one is used. Rows past m are zeros.
-//  * G2[c] tau: 4 x 4 register micro-tiles (rows r + 8 i, 4 lanes), the
-//    contraction over n split 8 ways across the block and the 8 partial
-//    sums added in a fixed order by the element's owner, who then updates
-//    v, forms z and w, and writes w to shared memory.
-//  * G2[c]^T w[c]: each thread accumulates 4 x 4 tiles of t (4 columns of
-//    G2 x 4 lanes) over every row of every chunk, in registers; at the end of
-//    a pass it forms tau (IEEE divisions, as the plain version) into shared
-//    memory. At n = 384 there are 768 such tiles for 512 threads, so a
-//    quarter of this product's slots idle.
+//    copy is in flight while this one is used. Rows past m are zeros. (A
+//    producer warp and an mbarrier ring, as csrc/admm_stage_tc_l2.cu has,
+//    would save at most the 0.06 ms the barriers cost.)
+//  * G2[c] tau: register tiles of R1 = 4 rows (rows rt + 8 i) x 4 lanes, the
+//    contraction over n split KS = 8 ways across the block and the partial
+//    sums added in a fixed order by the element's owner, who then updates v,
+//    forms z and w, and writes w to shared memory. Tiles of 8 rows split 16
+//    ways load a quarter fewer bytes a FMA but took longer (5.56 against 5.21
+//    ms at (960, 384); 2.80 against 2.61 at (640, 256)): twice the partial
+//    sums, and each split half as long.
+//  * From n = 256 a chunk's state (v, l, u and rho of its rows) is loaded
+//    into registers before G2[c] tau, the loads pinned there (asm volatile),
+//    so that their latency runs under that product (8-10 % at (960, 384) and
+//    (640, 256)); at (240, 160) the product is too short to cover them and
+//    the early loads cost 2-5 %, so there it is loaded where it is used.
+//  * G2[c]^T w[c]: each thread accumulates one tile of t, TC columns of G2 x
+//    4 lanes, over every row of every chunk, in registers; TC = ceil(n / 64)
+//    rounded up to an even number, at least 4, so that the tiles take one
+//    round of the 512 threads and load 8 or 16 bytes at a time (at n = 384
+//    exactly 512 tiles of 6 x 4, 1.67 bytes a FMA). At the end of a pass it forms tau
+//    (IEEE divisions, as the plain version) into shared memory. Columns past
+//    n of the last tile read the row's padding or the next row and are never
+//    stored.
 //  * Strides padded so that a warp's shared-memory accesses fall on distinct
 //    banks: chunk rows by n + 4, the partial sums by 34, w's rows by 36.
 //  * clip is written with comparisons and passes on a NaN of v, l or u, as
@@ -59,10 +82,19 @@
 //  * The last tile is masked: lanes past B compute on zeros and are never
 //    stored, so any B >= 1 is taken.
 //
-// The shape (m, n) is a compile-time constant (-DADMM_M=.. -DADMM_N=..):
-// ops/cuda/_build.py compiles one library per shape at first use. n must be a
-// multiple of 4 and the buffers must fit in 227 KB of shared memory (n up to
-// about 500, any m).
+// Measured (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W): at (960,
+// 384), B 4096, 25 iterations, 5.29 ms, 43 % of the FMA bound (the previous design: 6.14
+// ms, 37 %); in turns 5.24-5.34 against the previous design's 6.13-6.16, and 2.68-2.72
+// against 2.96-2.98 at (640, 256); at (240, 160), where the tiles are PR
+// 10's, 0.813-0.850 against 0.806-0.817: not faster. Half the lanes take the
+// same time: each SM's shared-memory loads (2 bytes a FMA in G2[c] tau, 1.67
+// in G2[c]^T w) still bind.
+//
+// The shape (m, n) is a compile-time constant (-DADMM_M=.. -DADMM_N=..), and
+// so are the tiles it picks (ops/cuda/admm.py::l2_plan mirrors them, checked
+// at load through blf_admm_stage_l2_plan): ops/cuda/_build.py compiles one
+// library per shape at first use. n must be a multiple of 4 and the buffers
+// must fit in 227 KB of shared memory (n up to about 500, any m).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (no -use_fast_math).
@@ -88,18 +120,30 @@ constexpr int NCH = (M + MC - 1) / MC;    // chunks per pass
 constexpr int NP = N + 4;          // padded row stride of a chunk
 constexpr int LW = L + 4;          // padded row stride of the chunk's w
 constexpr int MCP = MC + 2;        // padded stride of the partial sums
-constexpr int TILES2 = (MC / 4) * (L / 4);     // 4 x 4 tiles of G2[c] tau
-constexpr int KS = THREADS / TILES2;           // ways the contraction over n is split
-constexpr int KSL = 4 * ((N / 4 + KS - 1) / KS);   // columns of a split, a multiple of 4
-constexpr int TILES1 = (N / 4) * (L / 4);      // 4 x 4 tiles of t
-constexpr int TQ = (TILES1 + THREADS - 1) / THREADS;   // tiles of t a thread
 constexpr int EW = MC * L / THREADS;           // chunk elements a thread updates
+// G2[c] tau: tiles of R1 rows x 4 lanes, RG row groups, KS splits of n
+constexpr int R1 = 4;
+constexpr int RG = MC / R1;
+constexpr int TILES2 = RG * (L / 4);
+constexpr int KS = THREADS / TILES2;
+constexpr int KSL = 4 * ((N / 4 + KS - 1) / KS);   // columns of a split, a multiple of 4
+// G2[c]^T w[c]: tiles of TC columns x 4 lanes, NG column groups, one round;
+// TC even, for 8-byte loads, and at least 4
+constexpr int TC_MIN = ((N + 63) / 64 + 1) / 2 * 2;
+constexpr int TC = TC_MIN < 4 ? 4 : TC_MIN;
+constexpr int NG = (N + TC - 1) / TC;
+constexpr int TILES1 = NG * (L / 4);
 constexpr int SMEM_FLOATS = 2 * MC * NP + N * L + MC * LW + KS * L * MCP;
+// a chunk's state loaded ahead of G2[c] tau where that product is long
+// enough to cover the loads (each split 32 columns or more); where it is not,
+// where the state is used
+constexpr bool STATE_AHEAD = N >= 256;
 constexpr size_t SMEM_BYTES = sizeof(float) * (size_t)SMEM_FLOATS;
 
 static_assert(N % 4 == 0, "n must be a multiple of 4");
 static_assert(M >= 1 && N >= 4, "empty operator");
 static_assert(THREADS % TILES2 == 0 && (MC * L) % THREADS == 0, "tile plan");
+static_assert(TILES1 <= THREADS, "one round of t's tiles");
 static_assert(SMEM_BYTES <= 232448, "buffers do not fit in shared memory");
 
 // min(max(v, l), u) in which a NaN in any operand gives NaN.
@@ -109,8 +153,41 @@ __device__ __forceinline__ float clip_nan(float v, float l, float u) {
     return (l != l || u != u) ? (l + u) : z;
 }
 
+// A load of device memory made here, not where its value is first used:
+// the compiler keeps it ahead of the shared-memory accesses that follow.
+// Through the read-only path for the stage's inputs, not for v_out, which
+// this kernel writes.
+template <bool READ_ONLY>
+__device__ __forceinline__ float ld_now(const float* p) {
+    float x;
+    if constexpr (READ_ONLY)
+        asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(x) : "l"(p) : "memory");
+    else
+        asm volatile("ld.global.f32 %0, [%1];\n" : "=f"(x) : "l"(p) : "memory");
+    return x;
+}
+
 __device__ __forceinline__ float4 ld4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
+}
+
+// TC consecutive floats at p (TC even, p 8-byte aligned), 16 bytes at a time
+// where TC is a multiple of 4, else 8.
+__device__ __forceinline__ void ld_cols(const float* p, float (&g)[TC]) {
+    static_assert(TC % 2 == 0, "even column tiles");
+    if constexpr (TC % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < TC; i += 4) {
+            const float4 x = ld4(p + i);
+            g[i] = x.x; g[i + 1] = x.y; g[i + 2] = x.z; g[i + 3] = x.w;
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < TC; i += 2) {
+            const float2 x = *reinterpret_cast<const float2*>(p + i);
+            g[i] = x.x; g[i + 1] = x.y;
+        }
+    }
 }
 
 // Start copying chunk `c` of the operator into `dst` ([MC][NP]), 16 bytes a
@@ -145,19 +222,20 @@ admm_stage_l2_kernel(const float* __restrict__ v_in, const float* __restrict__ s
     const long long lane0 = (long long)blockIdx.x * L;
     const int nl = (int)((B - lane0 < L) ? (B - lane0) : L);
 
-    // G2[c] tau: rows rt + 8 i (i < 4) of the chunk, lanes 4 lt + c, columns
-    // [k0, k1) of the contraction
+    // G2[c] tau: rows rt + RG i (i < R1) of the chunk, lanes 4 lt + c,
+    // columns [k0, k1) of the contraction
     const int tile2 = tid % TILES2, ks = tid / TILES2;
-    const int rt = tile2 % (MC / 4), lt = tile2 / (MC / 4);
+    const int rt = tile2 % RG, lt = tile2 / RG;
     const int k0 = ks * KSL, k1 = (k0 + KSL < N) ? k0 + KSL : N;
+    // G2[c]^T w[c]: columns TC nq + i (i < TC) of G2, lanes 4 lq + c
+    const int nq = tid / (L / 4), lq = tid % (L / 4);
+    const bool has_t = tid < TILES1;
 
-    float t[TQ][4][4];
+    float t[TC][4];
 #pragma unroll
-    for (int q = 0; q < TQ; ++q)
+    for (int i = 0; i < TC; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) t[q][i][c] = 0.0f;
+        for (int c = 0; c < 4; ++c) t[i][c] = 0.0f;
 
     const int steps = (iters + 1) * NCH;
     issue_chunk(sG, G2, 0);
@@ -168,11 +246,27 @@ admm_stage_l2_kernel(const float* __restrict__ v_in, const float* __restrict__ s
         __syncthreads();   // chunk g has landed; every thread is done with chunk g - 1
         if (g + 1 < steps) issue_chunk(sG + ((g + 1) & 1) * MC * NP, G2, (g + 1) % NCH);
 
+        // the chunk's state (element e of the chunk: row e % MC, lane e / MC),
+        // loaded now so that it lands while G2[c] tau runs
+        float sv[EW], sl[EW], su[EW], srho[EW];
+#pragma unroll
+        for (int q = 0; q < EW && STATE_AHEAD; ++q) {
+            const int e = tid + THREADS * q;
+            const int r = e % MC, j = e / MC;
+            const int row = ch * MC + r;
+            const bool ok = row < M && j < nl;
+            const size_t at = (size_t)(lane0 + j) * M + row;
+            sl[q] = ok ? ld_now<true>(l_in + at) : 0.0f;
+            su[q] = ok ? ld_now<true>(u_in + at) : 0.0f;
+            sv[q] = ok ? (pass <= 1 ? ld_now<true>(v_in + at) : ld_now<false>(v_out + at)) : 0.0f;
+            srho[q] = row < M ? ld_now<true>(rho_in + row) : 0.0f;
+        }
+
         if (pass > 0) {
             // partial sums of G2[c] tau over this thread's columns
-            float acc[4][4];
+            float acc[R1][4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < R1; ++i)
 #pragma unroll
                 for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
 #pragma unroll 2
@@ -182,8 +276,8 @@ admm_stage_l2_kernel(const float* __restrict__ v_in, const float* __restrict__ s
                 const float4 t2 = ld4(sTau + (k + 2) * L + 4 * lt);
                 const float4 t3 = ld4(sTau + (k + 3) * L + 4 * lt);
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const float4 gr = ld4(cG + (rt + 8 * i) * NP + k);
+                for (int i = 0; i < R1; ++i) {
+                    const float4 gr = ld4(cG + (rt + RG * i) * NP + k);
                     acc[i][0] = fmaf(gr.x, t0.x, acc[i][0]);
                     acc[i][1] = fmaf(gr.x, t0.y, acc[i][1]);
                     acc[i][2] = fmaf(gr.x, t0.z, acc[i][2]);
@@ -203,10 +297,10 @@ admm_stage_l2_kernel(const float* __restrict__ v_in, const float* __restrict__ s
                 }
             }
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < R1; ++i)
 #pragma unroll
                 for (int c = 0; c < 4; ++c)
-                    sP[(ks * L + 4 * lt + c) * MCP + rt + 8 * i] = acc[i][c];
+                    sP[(ks * L + 4 * lt + c) * MCP + rt + RG * i] = acc[i][c];
             __syncthreads();
         }
 
@@ -220,8 +314,9 @@ admm_stage_l2_kernel(const float* __restrict__ v_in, const float* __restrict__ s
             float w = 0.0f;
             if (row < M && j < nl) {
                 const size_t at = (size_t)(lane0 + j) * M + row;
-                const float lo = l_in[at], hi = u_in[at];
-                float v = (pass <= 1) ? v_in[at] : v_out[at];
+                const float lo = STATE_AHEAD ? sl[q] : l_in[at];
+                const float hi = STATE_AHEAD ? su[q] : u_in[at];
+                float v = STATE_AHEAD ? sv[q] : ((pass <= 1) ? v_in[at] : v_out[at]);
                 if (pass > 0) {
                     float sum = sP[j * MCP + r];
 #pragma unroll
@@ -229,7 +324,7 @@ admm_stage_l2_kernel(const float* __restrict__ v_in, const float* __restrict__ s
                     v = v + alpha * (sum - clip_nan(v, lo, hi));
                     v_out[at] = v;
                 }
-                w = rho_in[row] * (2.0f * clip_nan(v, lo, hi) - v);
+                w = (STATE_AHEAD ? srho[q] : rho_in[row]) * (2.0f * clip_nan(v, lo, hi) - v);
             }
             if (pass < iters) sW[r * LW + j] = w;
         }
@@ -237,61 +332,72 @@ admm_stage_l2_kernel(const float* __restrict__ v_in, const float* __restrict__ s
         __syncthreads();
 
         // t += G2[c]^T w[c]
-#pragma unroll
-        for (int q = 0; q < TQ; ++q) {
-            const int it = tid + THREADS * q;
-            if (it < TILES1) {
-                const int nq = it / (L / 4), lq = it - nq * (L / 4);
+        if (has_t) {
 #pragma unroll 4
-                for (int r = 0; r < MC; ++r) {
-                    const float4 w4 = ld4(sW + r * LW + 4 * lq);
-                    const float4 g4 = ld4(cG + r * NP + 4 * nq);
-                    const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+            for (int r = 0; r < MC; ++r) {
+                const float4 w4 = ld4(sW + r * LW + 4 * lq);
+                float gv[TC];
+                ld_cols(cG + r * NP + TC * nq, gv);
 #pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        t[q][i][0] = fmaf(gv[i], w4.x, t[q][i][0]);
-                        t[q][i][1] = fmaf(gv[i], w4.y, t[q][i][1]);
-                        t[q][i][2] = fmaf(gv[i], w4.z, t[q][i][2]);
-                        t[q][i][3] = fmaf(gv[i], w4.w, t[q][i][3]);
-                    }
+                for (int i = 0; i < TC; ++i) {
+                    t[i][0] = fmaf(gv[i], w4.x, t[i][0]);
+                    t[i][1] = fmaf(gv[i], w4.y, t[i][1]);
+                    t[i][2] = fmaf(gv[i], w4.z, t[i][2]);
+                    t[i][3] = fmaf(gv[i], w4.w, t[i][3]);
                 }
             }
         }
         if (ch != NCH - 1) continue;
 
         // end of a pass: tau = (t - gq / s) * s / (1 + s d), into shared
-        // memory (and out, after the last iteration); t starts again
+        // memory (and out, after the last iteration); t starts again. A
+        // tile's columns are read and written TC at a time where all lie
+        // within n.
+        if (has_t) {
+            const bool whole = TC * nq + TC <= N;
+            float tau[TC][4];
 #pragma unroll
-        for (int q = 0; q < TQ; ++q) {
-            const int it = tid + THREADS * q;
-            if (it < TILES1) {
-                const int nq = it / (L / 4), lq = it - nq * (L / 4);
-                float tau[4][4];
+            for (int c = 0; c < 4; ++c) {
+                const int j = 4 * lq + c;
+                const bool ok = j < nl;
+                const float s = ok ? s_in[lane0 + j] : 1.0f;
+                const size_t row = (size_t)(lane0 + j) * N + TC * nq;
+                float gq[TC];
+                if (ok && whole) {
+                    ld_cols(gq_in + row, gq);
+                } else {
 #pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    const int j = 4 * lq + c;
-                    const bool ok = j < nl;
-                    const float s = ok ? s_in[lane0 + j] : 1.0f;
-                    const float4 gq = ok ? ld4(gq_in + (size_t)(lane0 + j) * N + 4 * nq)
-                                         : make_float4(0.f, 0.f, 0.f, 0.f);
-                    const float gv[4] = {gq.x, gq.y, gq.z, gq.w};
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        const float dn = d_in[4 * nq + i];
-                        tau[i][c] = (t[q][i][c] - gv[i] / s) * (s / (1.0f + s * dn));
-                    }
-                    if (ok && pass == iters - 1)
-                        *reinterpret_cast<float4*>(tau_out + (size_t)(lane0 + j) * N + 4 * nq) =
-                            make_float4(tau[0][c], tau[1][c], tau[2][c], tau[3][c]);
+                    for (int i = 0; i < TC; ++i)
+                        gq[i] = (ok && TC * nq + i < N) ? gq_in[row + i] : 0.0f;
                 }
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    *reinterpret_cast<float4*>(sTau + (4 * nq + i) * L + 4 * lq) =
-                        make_float4(tau[i][0], tau[i][1], tau[i][2], tau[i][3]);
+                for (int i = 0; i < TC; ++i) {
+                    const int col = TC * nq + i;
+                    const float dn = col < N ? d_in[col] : 1.0f;
+                    tau[i][c] = (t[i][c] - gq[i] / s) * (s / (1.0f + s * dn));
+                }
+                if (ok && pass == iters - 1) {
+                    if (whole) {
 #pragma unroll
-                    for (int c = 0; c < 4; ++c) t[q][i][c] = 0.0f;
+                        for (int i = 0; i < TC; i += 2)
+                            *reinterpret_cast<float2*>(tau_out + row + i) =
+                                make_float2(tau[i][c], tau[i + 1][c]);
+                    } else {
+#pragma unroll
+                        for (int i = 0; i < TC; ++i)
+                            if (TC * nq + i < N) tau_out[row + i] = tau[i][c];
+                    }
                 }
             }
+#pragma unroll
+            for (int i = 0; i < TC; ++i)
+                if (TC * nq + i < N)
+                    *reinterpret_cast<float4*>(sTau + (TC * nq + i) * L + 4 * lq) =
+                        make_float4(tau[i][0], tau[i][1], tau[i][2], tau[i][3]);
+#pragma unroll
+            for (int i = 0; i < TC; ++i)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) t[i][c] = 0.0f;
         }
     }
 }
@@ -301,6 +407,15 @@ admm_stage_l2_kernel(const float* __restrict__ v_in, const float* __restrict__ s
 extern "C" {
 
 int blf_admm_stage_l2_smem_bytes() { return (int)SMEM_BYTES; }
+
+// The compiled plan: rows of a tile of G2[c] tau, ways its contraction is
+// split, columns of a tile of G2[c]^T w[c] (ops/cuda/admm.py::l2_plan
+// mirrors it).
+void blf_admm_stage_l2_plan(int* out) {
+    out[0] = R1;
+    out[1] = KS;
+    out[2] = TC;
+}
 
 const char* blf_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);

@@ -64,7 +64,8 @@ from blf_tpu_torch.ops.precision import f32_matmuls
 
 __all__ = ["admm_stage", "admm_stage_reference", "launch_count", "l2_launch_count",
            "reference_count", "tc_launch_count", "tc_l2_launch_count", "tc_reference_count",
-           "reset_counts", "stage_shared_bytes", "stage_l2_shared_bytes", "streams_operator",
+           "reset_counts", "stage_shared_bytes", "stage_l2_shared_bytes", "l2_plan",
+           "streams_operator",
            "stage_tc_shared_bytes", "tc_lanes", "tc_streams_operator", "tc_l2_plan",
            "stage_tc_l2_shared_bytes", "tc_l2_operator_bytes", "pad_columns",
            "build_admm_stage", "build_admm_stage_l2", "build_admm_stage_tc",
@@ -87,10 +88,11 @@ TC_L2_REPLACES = "blf_tpu/ops/pallas/admm.py:138"
 
 _LANES = 32                 # lanes per block (csrc/admm_stage.cu, csrc/admm_stage_l2.cu)
 _L2_CHUNK = 32              # operator rows per chunk (csrc/admm_stage_l2.cu)
-_L2_SPLITS = 8              # ways its product G2 tau splits the contraction
+_L2_ROWS = 4                # rows of its register tiles of G2 tau
+_L2_SPLITS = 8              # ways that product splits the contraction
 _MAX_SHARED = 232448        # bytes of shared memory a block may use on sm_90
-_TC_L2_WGS = 2              # warpgroups of a block (csrc/admm_stage_tc_l2.cu)
-_TC_L2_MAX_ACC = 128        # t's accumulators a thread may hold (its RT * lanes / 2)
+_TC_L2_WGS = 2              # consumer warpgroups of a block (csrc/admm_stage_tc_l2.cu)
+_TC_L2_MAX_HELD = 168       # floats a thread may hold: t's, u's accumulators, a chunk's state
 
 # Plain integers: how often each kernel was launched (the ones that stream the
 # operator apart, the tensor-core ones by mode), and how often a plain version
@@ -265,6 +267,15 @@ def streams_operator(m: int, n: int) -> bool:
     return stage_shared_bytes(m, n) > _MAX_SHARED
 
 
+def l2_plan(m: int, n: int) -> Tuple[int, int, int]:
+    """``(rows, splits, columns)`` of the streaming f32 kernel's register
+    tiles at ``(m, n)`` (csrc/admm_stage_l2.cu): G2[c] tau in tiles of 4 rows
+    x 4 lanes, its contraction split 8 ways; G2[c]^T w[c] in tiles of
+    ceil(n / 64) columns (rounded up to an even number, at least 4) x 4 lanes,
+    one round of the block's 512 threads. Independent of m."""
+    return _L2_ROWS, _L2_SPLITS, max(4, -(-(-(-n // 64)) // 2) * 2)
+
+
 def stage_l2_shared_bytes(m: int, n: int) -> int:
     """Shared memory one block of the streaming f32 kernel needs at ``(m, n)``
     (csrc/admm_stage_l2.cu): two chunks of operator rows (stride n + 4), tau
@@ -282,9 +293,9 @@ def _check_l2_shape(m: int, n: int) -> None:
     need = stage_l2_shared_bytes(m, n)
     if need > _MAX_SHARED:
         raise ValueError(
-            f"admm_stage_l2 kernel keeps two {_L2_CHUNK}-row chunks of G2 and a"
-            f" {_LANES}-lane tile's tau in shared memory: (m, n) = ({m}, {n}) needs"
-            f" {need} bytes, the card offers {_MAX_SHARED}")
+            f"admm_stage_l2 kernel keeps two {_L2_CHUNK}-row chunks of G2, a"
+            f" {_LANES}-lane tile's tau and its partial sums in shared memory:"
+            f" (m, n) = ({m}, {n}) needs {need} bytes, the card offers {_MAX_SHARED}")
 
 
 def build_admm_stage_l2(m: int, n: int) -> ctypes.CDLL:
@@ -303,9 +314,14 @@ def build_admm_stage_l2(m: int, n: int) -> ctypes.CDLL:
     lib.blf_cuda_error_string.restype = ctypes.c_char_p
     lib.blf_admm_stage_l2_smem_bytes.argtypes = []
     lib.blf_admm_stage_l2_smem_bytes.restype = ctypes.c_int
-    if lib.blf_admm_stage_l2_smem_bytes() != stage_l2_shared_bytes(m, n):
-        raise RuntimeError("admm_stage_l2 library disagrees with its wrapper on"
-                           " the shared-memory layout")
+    lib.blf_admm_stage_l2_plan.argtypes = [P]
+    lib.blf_admm_stage_l2_plan.restype = None
+    plan = (ctypes.c_int * 3)()
+    lib.blf_admm_stage_l2_plan(ctypes.addressof(plan))
+    if (lib.blf_admm_stage_l2_smem_bytes() != stage_l2_shared_bytes(m, n)
+            or tuple(plan) != l2_plan(m, n)):
+        raise RuntimeError(f"admm_stage_l2 library disagrees with its wrapper on the plan"
+                           f" {list(plan)} or the shared-memory layout")
     _l2_libs[(m, n)] = lib
     return lib
 
@@ -406,23 +422,25 @@ def tc_streams_operator(m: int, n: int) -> bool:
 
 def _tc_l2_shared(mt1: int, lanes: int, stages: int) -> int:
     # the ring of tile pairs (one a warpgroup a slot), w's operand of a chunk
-    # and tau's operand, each a hi and a lo half
-    return (stages * _TC_L2_WGS * 4 * 64 * 64 + 2 * 2 * lanes * 64 * _TC_L2_WGS
-            + 2 * 2 * lanes * 64 * mt1)
+    # twice (by chunk parity) and tau's operand, each a hi and a lo half; a
+    # full and an empty mbarrier a slot
+    return (stages * _TC_L2_WGS * 4 * 64 * 64 + 2 * 2 * 2 * lanes * 64 * _TC_L2_WGS
+            + 2 * 2 * lanes * 64 * mt1 + 16 * stages)
 
 
 def tc_l2_plan(m: int, n: int) -> Tuple[int, int]:
     """``(lanes, stages)`` of the streaming tensor-core kernel at ``(m, n)``
-    (csrc/admm_stage_tc_l2.cu): 32-lane tiles while a warpgroup's share of
-    t's 64-row tiles keeps its accumulators within 128 registers (n up to
-    1024), else 16; the deepest ring of 4, 3 or 2 slots that fits in shared
-    memory beside the operand buffers. Any m; n up to 2048."""
+    (csrc/admm_stage_tc_l2.cu): 32-lane tiles while a consumer thread's share
+    of t's 64-row tiles, u's tile and a chunk's state (v, l, u and u_acc)
+    stay within 168 floats of registers (n up to 640), else 16 (n up to
+    2048); the deepest ring of 4, 3 or 2 slots that fits in shared memory
+    beside the operand buffers. Any m."""
     if m < 1 or n < 1:
         raise ValueError(f"admm_stage_tc_l2 needs a non-empty operator, got ({m}, {n})")
     mt1 = -(-n // 64)
     rt = -(-mt1 // _TC_L2_WGS)
     for lanes in (32, 16):
-        if rt * lanes // 2 > _TC_L2_MAX_ACC:
+        if (rt + 5) * lanes // 2 > _TC_L2_MAX_HELD:
             continue
         for stages in (4, 3, 2):
             if _tc_l2_shared(mt1, lanes, stages) <= _MAX_SHARED:
@@ -435,9 +453,9 @@ def tc_l2_plan(m: int, n: int) -> Tuple[int, int]:
 def stage_tc_l2_shared_bytes(m: int, n: int, matmul: str) -> int:
     """Shared memory one block of the streaming tensor-core kernel needs at
     ``(m, n)``, the same in both modes: the ring of operator tile pairs
-    (64 x 64, hi and lo: 16 KB a warpgroup a slot), w's operand of a
-    128-row chunk and tau's operand (n padded to 64), each hi and lo;
-    independent of m."""
+    (64 x 64, hi and lo: 16 KB a warpgroup a slot) and its mbarriers, w's
+    operand of a 128-row chunk twice and tau's operand (n padded to 64),
+    each hi and lo; independent of m."""
     lanes, stages = tc_l2_plan(m, n)
     return _tc_l2_shared(-(-n // 64), lanes, stages)
 
@@ -478,10 +496,16 @@ def build_admm_stage_tc_l2(m: int, n: int, matmul: str) -> ctypes.CDLL:
     lib.blf_admm_stage_tc_l2_smem_bytes.restype = ctypes.c_int
     lib.blf_admm_stage_tc_l2_operator_bytes.argtypes = []
     lib.blf_admm_stage_tc_l2_operator_bytes.restype = ctypes.c_longlong
+    lib.blf_admm_stage_tc_l2_plan.argtypes = [P]
+    lib.blf_admm_stage_tc_l2_plan.restype = None
+    plan = (ctypes.c_int * 3)()
+    lib.blf_admm_stage_tc_l2_plan(ctypes.addressof(plan))
     if (lib.blf_admm_stage_tc_l2_smem_bytes() != stage_tc_l2_shared_bytes(m, n, matmul)
-            or lib.blf_admm_stage_tc_l2_operator_bytes() != tc_l2_operator_bytes(m, n)):
-        raise RuntimeError("admm_stage_tc_l2 library disagrees with its wrapper on"
-                           " the shared-memory layout or the split operators' size")
+            or lib.blf_admm_stage_tc_l2_operator_bytes() != tc_l2_operator_bytes(m, n)
+            or tuple(plan[:2]) != tc_l2_plan(m, n)):
+        raise RuntimeError("admm_stage_tc_l2 library disagrees with its wrapper on the plan"
+                           f" {list(plan)}, the shared-memory layout or the split operators'"
+                           " size")
     _tc_l2_libs[(m, n, matmul)] = lib
     return lib
 
@@ -569,8 +593,8 @@ def admm_stage(v, tau, s, gq, l, u, G2, d, base_rho, *, iters: int, alpha: float
             if streams:
                 lib = build_admm_stage_tc_l2(m, n, matmul)
                 ops = torch.empty(tc_l2_operator_bytes(m, n), dtype=torch.uint8, device=dev)
-                scratch = torch.empty(B * (2 * m + n) if delta else 1, dtype=torch.float32,
-                                      device=dev)
+                scratch = torch.empty(B * (m + 3 * n) if delta else 2 * B * n,
+                                      dtype=torch.float32, device=dev)
                 code = lib.blf_admm_stage_tc_l2(
                     v.data_ptr(), s.data_ptr(), gq.data_ptr(), l.data_ptr(),
                     u.data_ptr(), G2.data_ptr(), d.data_ptr(), base_rho.data_ptr(),
@@ -610,5 +634,7 @@ def _raise_on(code: int, lib: ctypes.CDLL, name: str) -> None:
         what = (lib.blf_cuda_error_string(code).decode() if code > 0
                 else {-1: "library compiled for another shape or mode",
                       -2: "bad batch or iteration count",
-                      -3: "missing scratch buffer"}.get(code, "?"))
+                      -3: "missing scratch buffer",
+                      -4: "library compiled with fewer registers than its consumers take"}
+                .get(code, "?"))
         raise RuntimeError(f"{name} launch failed ({code}): {what}")

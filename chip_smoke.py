@@ -1048,11 +1048,18 @@ def kernels_admm_stage_l2() -> dict:
         bound = f32_stage_bound(m, n, GAIT_LANES, STAGE_ITERS)
         # the operator, re-read from L2 by each 32-lane block once a pass, iters + 1 passes
         operator_gb = (STAGE_ITERS + 1) * m * n * 4 * -(-GAIT_LANES // 32) / 1e9
+        rows, splits, columns = admm_kernel.l2_plan(m, n)
         shapes[name] = {"shape": [m, n], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                        "plan": {"lanes_a_tile": 32, "chunk_rows": 32, "u_tile": [rows, 4],
+                                 "u_splits": splits, "t_tile": [columns, 4]},
                         **residency, "shared_bytes": admm_kernel.stage_l2_shared_bytes(m, n),
                         **bound, "fraction_of_bound": bound["bound_ms"] / kernel_ms,
                         "tflops": STAGE_ITERS * 4 * m * n * GAIT_LANES / (kernel_ms * 1e-3) / 1e12,
                         "operator_reads_gb": operator_gb,
+                        # v, l, u read and v written over m, gq read over n, a lane an
+                        # iteration, through device memory: the design's floor by bytes
+                        "bytes_floor_ms": 1e3 * 4 * GAIT_LANES * STAGE_ITERS * (4 * m + n)
+                        / PEAK_BYTES_PER_S,
                         "operator_read_gb_per_s": operator_gb / (kernel_ms * 1e-3),
                         "kernel_ms_half_lanes": half_ms, "half_lanes_ratio": half_ms / kernel_ms}
         del sources, timed
@@ -1063,8 +1070,9 @@ def kernels_admm_stage_l2() -> dict:
         "max_rel_err": max(max(c["rel_err_v"], c["rel_err_tau"]) for c in cases),
         "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance_rel": REL_TOL,
         **{k: main[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                                "registers", "spill_bytes", "shared_bytes",
-                                "fraction_of_bound", "tflops")},
+                                "registers", "spill_bytes", "shared_bytes", "plan",
+                                "operator_reads_gb", "bytes_floor_ms", "fraction_of_bound",
+                                "tflops")},
         "library_ms": None,
     }
 
@@ -1122,14 +1130,16 @@ def tc_l2_traffic(m: int, n: int, B: int, iters: int, matmul: str) -> dict:
     tile of lanes reads both operators' bf16 pairs (the tiles within m) from
     L2 once a pass, one product each in ``iters`` passes; and the per-lane
     state through device memory (floats a lane an iteration: "split" v, l, u
-    read and v written over m, gq over n; "delta" also w_prev and u_acc over
-    m, t_acc over n, read and written)."""
+    read and v written over m, the stage's two gains read over n; "delta"
+    also u_acc and t_acc read and written). The state's bytes at the memory
+    rate are this design's floor (``bytes_floor_ms``)."""
     lanes, _ = admm_kernel.tc_l2_plan(m, n)
     tiles = -(-B // lanes)
     operator = tiles * iters * 2 * (-(-m // 64)) * (-(-n // 64)) * 4 * 64 * 64
-    per_iter = 4 * m + n if matmul == "split" else 8 * m + 3 * n
+    per_iter = 4 * m + 2 * n if matmul == "split" else 6 * m + 4 * n
     state = 4 * B * iters * per_iter
-    return {"operator_l2_gb": operator / 1e9, "state_gb": state / 1e9}
+    return {"operator_l2_gb": operator / 1e9, "state_gb": state / 1e9,
+            "bytes_floor_ms": 1e3 * state / PEAK_BYTES_PER_S}
 
 
 def kernels_admm_stage_tc_l2() -> dict:
@@ -1201,8 +1211,10 @@ def kernels_admm_stage_tc_l2() -> dict:
                 lambda: admm_kernel.admm_stage_reference(*timed, **kw, matmul=matmul), 1, 3)
             bound = tc_bound(m, n, GAIT_LANES, STAGE_ITERS, matmul)
             modes[matmul] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms, **residency,
-                             "lanes_a_tile": defines["ADMM_LANES"],
-                             "ring_slots": defines["ADMM_STAGES"], **bound,
+                             # one block a cluster: two sharing each tile measured no faster
+                             "plan": {"cluster": 1, "lanes_a_tile": defines["ADMM_LANES"],
+                                      "ring_slots": defines["ADMM_STAGES"],
+                                      "operator_tile": [64, 64]}, **bound,
                              "fraction_of_bound": bound["bound_ms"] / kernel_ms,
                              "tflops_tensor": bound["passes"] * 2 * m * n * GAIT_LANES
                              / (kernel_ms * 1e-3) / 1e12,
@@ -1224,7 +1236,8 @@ def kernels_admm_stage_tc_l2() -> dict:
         "kernel_ms": delta["kernel_ms"], "plain_ms": delta["plain_ms"],
         "bound_ms": delta["bound_ms"], "bound_by": delta["bound_by"],
         "registers": delta["registers"], "spill_bytes": delta["spill_bytes"],
-        "shared_bytes": main["shared_bytes"],
+        "shared_bytes": main["shared_bytes"], "plan": delta["plan"],
+        "operator_l2_gb": delta["operator_l2_gb"], "bytes_floor_ms": delta["bytes_floor_ms"],
         "library_ms": None, "library": "none: no PyTorch call computes the stage",
     }
 

@@ -254,10 +254,26 @@ def test_streaming_kernel_layout_and_the_shapes_it_cannot_take():
     assert port.stage_l2_shared_bytes(240, 160) == 101888
     assert port.stage_l2_shared_bytes(10 ** 5, 384) == 187904
     port._check_l2_shape(10 ** 5, 496)
+    port._check_l2_shape(960, 500)
     with pytest.raises(ValueError, match="multiple of 4"):
         port._check_l2_shape(960, 382)
     with pytest.raises(ValueError, match="shared memory"):
-        port._check_l2_shape(960, 512)
+        port._check_l2_shape(960, 504)
+
+
+@pytest.mark.parametrize("n,plan", [(4, (4, 8, 4)), (64, (4, 8, 4)), (160, (4, 8, 4)),
+                                    (256, (4, 8, 4)), (260, (4, 8, 6)), (384, (4, 8, 6)),
+                                    (388, (4, 8, 8)), (496, (4, 8, 8)), (500, (4, 8, 8))])
+def test_streaming_kernel_tiles_take_one_round_of_the_block(n, plan):
+    """G2[c] tau in 4-row tiles split 8 ways; G2[c]^T w[c] in tiles of
+    ceil(n / 64) columns, rounded up to an even number and at least 4, x 4
+    lanes, at most 64 x 8 = 512 of them, one a thread of the block (at n = 384
+    exactly 512 of 6 x 4, where 4 x 4 tiles would take two rounds)."""
+    rows, splits, columns = port.l2_plan(960, n)
+    assert (rows, splits, columns) == plan
+    assert (32 // rows) * 8 * splits == 512
+    assert -(-n // columns) * 8 <= 512
+    assert port.stage_l2_shared_bytes(960, n) <= 232448
 
 
 def test_cpu_tensors_past_shared_memory_take_the_plain_version():

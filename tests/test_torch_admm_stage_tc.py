@@ -283,23 +283,42 @@ def test_shapes_the_resident_kernel_holds_stay_with_it(m, n):
 
 
 def test_streaming_kernel_plan_and_shared_memory():
-    """A ring of 16 KB tile pairs a warpgroup a slot (two warpgroups), w's
-    operand of a 128-row chunk and tau's operand (n padded to 64), hi and lo
-    each: 196608 bytes at (960, 384), the same in both modes and at any m;
-    32-lane tiles up to n = 1024, 16 past it, the ring as deep as fits, n up
-    to 2048. The split operators: 64 x 64 tiles, rows padded to whole
+    """A ring of 16 KB tile pairs a warpgroup a slot (two consumer
+    warpgroups) with a full and an empty mbarrier each, w's operand of a
+    128-row chunk twice (by chunk parity) and tau's operand (n padded to 64),
+    hi and lo each: 213056 bytes at (960, 384), the same in both modes and at
+    any m; 32-lane tiles up to n = 640, 16 past it, the ring as deep as fits,
+    n up to 2048. The split operators: 64 x 64 tiles, rows padded to whole
     chunks, a hi and a lo half each."""
-    sizes = {(960, 384): 196608, (640, 256): 180224, (320, 128): 163840, (240, 160): 172032}
+    sizes = {(960, 384): 213056, (640, 256): 196672, (320, 128): 180288, (240, 160): 188480}
     for (m, n), size in sizes.items():
         for matmul in ("split", "delta"):
             assert port.stage_tc_l2_shared_bytes(m, n, matmul) == size
-    assert port.stage_tc_l2_shared_bytes(10 ** 5, 384, "delta") == 196608
-    assert [port.tc_l2_plan(100, n) for n in (384, 704, 1024, 1025, 2048)] == \
-        [(32, 4), (32, 3), (32, 2), (16, 4), (16, 2)]
+    assert port.stage_tc_l2_shared_bytes(10 ** 5, 384, "delta") == 213056
+    assert [port.tc_l2_plan(100, n) for n in (384, 640, 704, 1024, 1025, 2048)] == \
+        [(32, 4), (32, 3), (16, 4), (16, 4), (16, 4), (16, 2)]
     with pytest.raises(ValueError, match="n <= 2048"):
         port.tc_l2_plan(10, 2049)
     assert port.tc_l2_operator_bytes(960, 384) == 2 * 16 * 6 * 16384
     assert port.tc_l2_operator_bytes(250, 97) == 2 * 4 * 2 * 16384
+
+
+@pytest.mark.parametrize("m,n,plan,shared", [
+    (1, 1, (32, 4), 172096), (63, 64, (32, 4), 172096), (65, 384, (32, 4), 213056),
+    (100, 1024, (16, 4), 213056), (129, 1025, (16, 4), 217152), (1000, 2048, (16, 2), 213024)])
+def test_streaming_kernel_plan_at_edge_shapes(m, n, plan, shared):
+    """The plan at n = 1, 64, 384, 1024, 1025 and 2048 and m off a multiple
+    of 64: every plan within shared memory and within the registers of a
+    consumer thread (t's, u's accumulators and a chunk's state of four values
+    an element, at most 168 floats); m changes nothing but the operator's
+    tiles."""
+    assert port.tc_l2_plan(m, n) == plan
+    lanes, stages = plan
+    assert port.stage_tc_l2_shared_bytes(m, n, "delta") == shared <= 232448
+    mt1 = -(-n // 64)
+    assert (-(-mt1 // 2) + 5) * lanes // 2 <= 168
+    assert port.tc_l2_operator_bytes(m, n) == 2 * (2 * -(-m // 128)) * mt1 * 16384
+    assert port.tc_l2_defines(m, n, "delta")["ADMM_STAGES"] == stages
 
 
 def test_cpu_tensors_past_shared_memory_take_the_plain_version_in_both_modes():
@@ -325,11 +344,16 @@ def test_kernel_source_is_self_contained_tensor_core_cuda():
 
 def test_streaming_kernel_source_is_self_contained_tensor_core_cuda():
     """Both products in its own body on wgmma, the operator tiles copied into
-    shared memory with cp.async: no library GEMM, no warp-level mma."""
+    shared memory by a producer warpgroup's bulk copies completing on
+    mbarriers: no library GEMM, no warp-level mma, no block barrier in the
+    ring."""
     files = _build.source_files(port.TC_L2_SOURCE)
     assert [f.name for f in files] == ["admm_stage_tc_l2.cu"]
     src = files[0].read_text()
-    assert "__global__" in src and "wgmma.mma_async" in src and "cp.async" in src
+    assert "__global__" in src and "wgmma.mma_async" in src
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in src
+    assert "mbarrier.try_wait.parity" in src and "setmaxnreg" in src
+    assert "cp.async.cg" not in src and "cp.async.wait_group" not in src
     for banned in ("cublas", "cutlass", "torch/", "ATen", "mma.sync"):
         assert banned not in src
     assert port.TC_L2_REPLACES == "blf_tpu/ops/pallas/admm.py:138"
