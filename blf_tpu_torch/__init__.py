@@ -37,6 +37,14 @@ from L2 (``csrc/admm_stage_l2.cu``). Beside it, not called by it, the native
 host runtime :mod:`blf_tpu_torch.native`: a standalone batch API (schedule
 lowering and support polygons in C++) for sweeps set up on the host.
 
+Slice 4 (second part): the time-varying DCM planner,
+:func:`blf_tpu_torch.mpc.dcm_planner.plan_time_varying_dcm_batch`, on the
+batched SQP (:mod:`blf_tpu_torch.mpc.sqp`) and the Riccati solvers
+(:mod:`blf_tpu_torch.mpc.riccati`), over a fleet of scenarios on torch ops
+(no Pallas kernel carries it in the reference); and the host utilities:
+URDF loading, the ``Advanceable`` step protocol, container trees and
+checkpoints that either package reads.
+
 Rules that hold everywhere in the package:
 
 - **Device.** ``device=None`` means ``torch.device("cuda")``; without CUDA the

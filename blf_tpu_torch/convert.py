@@ -3,8 +3,9 @@
 No counterpart in ``blf_tpu``. The system has no weights; what both sides
 share is the problem, the solver state, the rigid-body state, the whole-body
 task, the control stack's state (with its momentum observer), the contact
-parameters, the foot's parameters and state, and an RLS filter's state (a
-kinematic tree is plain numpy on both sides already). Every converter takes or returns
+parameters, the foot's parameters and state, an RLS filter's state, an LQ
+problem and the LQR, SQP and DCM-planner solutions (a kinematic tree is plain
+numpy on both sides already). Every converter takes or returns
 plain numpy arrays (``np.asarray`` of a JAX array on the other side), so this
 module needs nothing of the JAX package.
 
@@ -30,7 +31,10 @@ from blf_tpu_torch.models.contact import ContactParams
 from blf_tpu_torch.models.foot import FootParams, FootState
 from blf_tpu_torch.models.lipm import LIPMParams
 from blf_tpu_torch.models.rigid_body import FloatingBaseState
+from blf_tpu_torch.mpc.dcm_planner import DCMPlannerSolution
 from blf_tpu_torch.mpc.qp import QPSolution, SharedQPFactors
+from blf_tpu_torch.mpc.riccati import LQRSolution
+from blf_tpu_torch.mpc.sqp import SQPSolution
 from blf_tpu_torch.mpc.stack import StackState
 from blf_tpu_torch.mpc.wholebody import WholeBodyTask
 from blf_tpu_torch.parallel.sweep import FleetState
@@ -44,7 +48,8 @@ __all__ = ["lipm_params_from_numpy", "factors_from_numpy",
            "stack_state_from_numpy", "stack_state_to_numpy",
            "contact_params_from_numpy", "contact_params_to_numpy",
            "foot_params_from_numpy", "foot_state_from_numpy", "foot_state_to_numpy",
-           "rls_state_from_numpy", "rls_state_to_numpy"]
+           "rls_state_from_numpy", "rls_state_to_numpy", "lqr_problem_from_numpy",
+           "lqr_solution_to_numpy", "sqp_solution_to_numpy", "dcm_planner_solution_to_numpy"]
 
 
 def _fields(obj: Union[Mapping[str, Any], Any], names) -> Dict[str, Any]:
@@ -216,3 +221,25 @@ def rls_state_from_numpy(state, *, device=None,
 
 def rls_state_to_numpy(state: RLSState) -> Dict[str, np.ndarray]:
     return {k: _to_numpy(v) for k, v in state._asdict().items()}
+
+
+def lqr_problem_from_numpy(Fs, cs, Ls, Qs, Rs, QT, x0, *, device=None,
+                           dtype: Optional[torch.dtype] = None):
+    """The arguments of ``solve_lqr`` (``(Fs, cs, Ls, Qs, Rs, QT, x0)``) as
+    tensors, from array-likes (the JAX package's arrays, for instance)."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    return tuple(torch.as_tensor(np.array(a), dtype=dtype, device=device)
+                 for a in (Fs, cs, Ls, Qs, Rs, QT, x0))
+
+
+def lqr_solution_to_numpy(sol: LQRSolution) -> Dict[str, np.ndarray]:
+    return {k: _to_numpy(v) for k, v in sol._asdict().items()}
+
+
+def sqp_solution_to_numpy(sol: SQPSolution) -> Dict[str, np.ndarray]:
+    return {k: _to_numpy(v) for k, v in sol._asdict().items()}
+
+
+def dcm_planner_solution_to_numpy(sol: DCMPlannerSolution) -> Dict[str, np.ndarray]:
+    return {k: _to_numpy(v) for k, v in sol._asdict().items()}

@@ -4,7 +4,7 @@ associative scan.
 Counterpart of ``blf_tpu/estimators/rls_parallel.py``. Ported:
 ``rls_leaf_elements``, ``rls_combine``, ``rls_parallel`` and ``rls_fit``.
 Not yet ported: ``rls_parallel_sharded`` (a stream sharded over devices),
-which waits for the multi-device slice (ROADMAP.md 4.3) and raises
+which waits for the multi-device slice (ROADMAP.md 4.5) and raises
 ``NotImplementedError`` until then.
 
 Math. With forgetting factor lam, prior (theta0, P0), regressors A_t and
@@ -18,22 +18,22 @@ and the weighted prefix sums compose associatively (not commutatively):
 
     (Lam_l, b_l, w_l) + (Lam_r, b_r, w_r) = (w_r Lam_l + Lam_r, w_r b_l + b_r, w_l w_r)
 
-with leaf elements (A_t' R^-1 A_t, A_t' R^-1 y_t, lam). ``jax.lax.associative_scan``
-has no torch counterpart: :func:`associative_scan` is the same log-depth
-recursion (pairs combined, the odd prefixes scanned, the even ones fixed up)
-in torch ops. All functions broadcast over leading batch axes of
+with leaf elements (A_t' R^-1 A_t, A_t' R^-1 y_t, lam), scanned in log depth by
+:func:`blf_tpu_torch.ops.scan.associative_scan` (the recursion of
+``jax.lax.associative_scan`` in torch ops). All functions broadcast over leading batch axes of
 ``regressors`` / ``measurements`` after the time axis, so a fleet of
 estimators runs as one batched program.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Tuple
 
 import torch
 
 from blf_tpu_torch.estimators.rls import RLSParams, RLSState
 from blf_tpu_torch.ops.linalg import solve_psd
+from blf_tpu_torch.ops.scan import associative_scan
 from blf_tpu_torch.ops.precision import f32_matmuls
 
 __all__ = ["rls_leaf_elements", "rls_combine", "associative_scan", "rls_parallel",
@@ -67,33 +67,6 @@ def rls_combine(left: Aggregate, right: Aggregate) -> Aggregate:
     return (w_r[..., None, None] * Lam_l + Lam_r,
             w_r[..., None] * b_l + b_r,
             w_l * w_r)
-
-
-def associative_scan(fn: Callable[[Sequence[torch.Tensor], Sequence[torch.Tensor]],
-                                  Sequence[torch.Tensor]],
-                     elems: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-    """Inclusive scan along axis 0 of every tensor of ``elems`` with the
-    associative ``fn(earlier, later)``, in O(log T) depth: the recursion of
-    ``jax.lax.associative_scan`` (adjacent pairs combined, the scan of those
-    gives the odd prefixes, one more combine the even ones)."""
-    elems = tuple(elems)
-    n = elems[0].shape[0]
-    if n < 2:
-        return elems
-    reduced = fn(tuple(e[0:-1:2] for e in elems), tuple(e[1::2] for e in elems))
-    odd = associative_scan(fn, reduced)
-    if n % 2 == 0:
-        even = fn(tuple(e[:-1] for e in odd), tuple(e[2::2] for e in elems))
-    else:
-        even = fn(odd, tuple(e[2::2] for e in elems))
-    out = []
-    for e, ev, od in zip(elems, even, odd):
-        full = torch.empty((n,) + tuple(ev.shape[1:]), dtype=ev.dtype, device=ev.device)
-        full[0] = e[0]
-        full[2::2] = ev
-        full[1::2] = od
-        out.append(full)
-    return tuple(out)
 
 
 @f32_matmuls
@@ -136,7 +109,7 @@ def rls_fit(params: RLSParams, state0: RLSState, regressors: torch.Tensor,
 
 def rls_parallel_sharded(*args, **kwargs):
     """The stream sharded over devices: not ported yet; it waits for the
-    multi-device slice (ROADMAP.md 4.3)."""
+    multi-device slice (ROADMAP.md 4.5)."""
     raise NotImplementedError(
         "rls_parallel_sharded is not ported yet: it waits for the multi-device slice"
-        " (ROADMAP.md 4.3); rls_parallel runs the same filter on one device")
+        " (ROADMAP.md 4.5); rls_parallel runs the same filter on one device")

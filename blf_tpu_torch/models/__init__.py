@@ -1,5 +1,5 @@
 """Models (counterpart of ``blf_tpu/models``).
 
 Ported: ``lipm``, ``kinematics``, ``robots``, ``rigid_body``, ``contact``,
-``systems``, ``foot``. Not yet ported: ``urdf``.
+``systems``, ``foot``, ``urdf``.
 """

@@ -3,6 +3,7 @@
 Ported: ``precision``, ``linalg`` (the unrolled small-PSD solves), ``lie``,
 ``integrators`` (the explicit steps and the stiff ROS2-W integrator),
 ``cuda/`` (the Hopper kernels that replace ``blf_tpu/ops/pallas``: ``admm``,
-``admm_lane``, ``linalg``'s batched inverse and solve). Not yet ported:
-``advanceable`` and the Pallas kernel ``rollout``.
+``admm_lane``, ``linalg``'s batched inverse and solve, ``rollout``),
+``advanceable``; new: ``scan`` (the log-depth associative scan that JAX has
+built in).
 """

@@ -13,8 +13,8 @@ of ``K`` push realizations per scenario. The ensemble axis stays in the
 shapes here (``disturbance`` is ``(B, K, 2)``); with one device the
 ``pmean``/``pmax`` over it are identities, and only ``K == 1`` is accepted.
 
-Not yet ported: ``K > 1`` ensembles and the data-parallel mesh (ROADMAP.md,
-"K1 follow-ups: K>1 ensemble and multi-device").
+Not yet ported: ``K > 1`` ensembles and the data-parallel mesh (ROADMAP.md
+4.5, multi-device).
 """
 
 from __future__ import annotations
@@ -104,7 +104,7 @@ def make_fleet_step(
                 "the fleet tick takes disturbance of shape (B, 1, 2), got"
                 f" {tuple(disturbance.shape)}: an ensemble of K > 1 push"
                 " realizations needs the model axis of a device mesh; see"
-                " ROADMAP.md, 'K1 follow-ups: K>1 ensemble and multi-device'")
+                " ROADMAP.md 4.5, multi-device")
         if state.dcm.device.type != device.type:
             raise ValueError(
                 f"fleet state lies on {state.dcm.device}, the step was built"

@@ -15,7 +15,10 @@ contact identification of ``examples/02_contact_identification.py`` over a
 fleet (:func:`contact_identification_fleet`, :func:`identify_contacts`).
 BASELINE config 3: the 10-step gait of ``examples/03_full_gait.py`` over a
 fleet of initial DCMs, the sweep of ``tests/test_gait.py``'s
-``test_batched_gait_scenarios`` widened (:func:`gait_fleet`).
+``test_batched_gait_scenarios`` widened (:func:`gait_fleet`). The
+time-varying DCM planner of BASELINE's north star over a fleet of pushed
+initial DCMs, on ``tests/test_sqp.py``'s push-recovery problem
+(:func:`dcm_planner_fleet`).
 Inputs are drawn with ``numpy.random.default_rng(seed)``, so the JAX package
 and the port can be fed the same numbers.
 """
@@ -53,7 +56,8 @@ __all__ = ["example_problem", "PushRecoveryProblem", "stationary_push_recovery",
            "push_recovery_stack", "stack_fleet_step", "FootDropFleet", "foot_drop_fleet",
            "ContactIdentificationFleet", "contact_identification_fleet",
            "Identification", "identify_contacts", "IDENTIFY_PARTS",
-           "IDENTIFY_STEPS_PER_SAMPLE", "GaitFleet", "gait_fleet", "GAIT_ITERATIONS"]
+           "IDENTIFY_STEPS_PER_SAMPLE", "GaitFleet", "gait_fleet", "GAIT_ITERATIONS",
+           "DCMPlannerFleet", "dcm_planner_fleet", "random_lqr_batch"]
 
 _BOX = [[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]]
 
@@ -551,3 +555,76 @@ def gait_fleet(batch: int, *, num_steps: int = 10, step_length: float = 0.15,
     return GaitFleet(params=_lipm(device, dtype),
                      lists=footstep_plan(num_steps=num_steps, step_length=step_length),
                      dt=0.1, dcm0=dcm0, com0=dcm0.clone())
+
+
+# ---------------------------------------------------------------------------
+# The time-varying DCM planner over a fleet of pushed initial DCMs
+# ---------------------------------------------------------------------------
+
+class DCMPlannerFleet(NamedTuple):
+    """The positional arguments of ``plan_time_varying_dcm_batch`` for a
+    fleet of lanes on one plan."""
+
+    params: LIPMParams
+    dt: float
+    dcm0: torch.Tensor         # (B, 3) initial DCM of each lane
+    omega0: torch.Tensor       # (B,) initial omega of each lane (nominal)
+    zmp_ref: torch.Tensor      # (T, 2)
+    poly_A: torch.Tensor       # (T, 4, 2)
+    poly_b: torch.Tensor       # (T, 4)
+    dcm_goal: torch.Tensor     # (3,)
+
+
+def dcm_planner_fleet(batch: int, horizon: int, *, seed: int = 0, device=None,
+                      dtype: Optional[torch.dtype] = None) -> DCMPlannerFleet:
+    """``tests/test_sqp.py::_planner_problem(horizon, dt=0.1, z_nom=0.9,
+    margin=0.08)``, the push-recovery variant, for ``batch`` lanes: four
+    footholds repeated ``horizon // 4`` knots each (so 28 knots for a
+    horizon of 30), square support polygons of half-width 0.08 m around each
+    reference point, and the goal at the end of the DCM backward recursion
+    (z = 0.9). Each lane starts at the recursion's first DCM plus a push
+    drawn from U(-0.05, 0.05) per axis (inside the test's own push of
+    (+0.06, -0.05)), at z = 0.9 and the nominal omega."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    dt, z_nom, margin = 0.1, 0.9, 0.08
+    steps = np.array([[0.0, 0.0], [0.15, 0.1], [0.3, -0.1], [0.45, 0.0]])
+    zmp_ref = np.repeat(steps, horizon // len(steps), axis=0)
+    exact = LIPMParams(torch.tensor(z_nom, dtype=torch.float64),
+                       torch.tensor(9.81, dtype=torch.float64))
+    zmp64 = torch.as_tensor(zmp_ref)
+    xy_ref = dcm_backward_recursion(exact, zmp64, zmp64[-1], dt).numpy()
+    poly_b = np.stack([zmp_ref[:, 0] + margin, -(zmp_ref[:, 0] - margin),
+                       zmp_ref[:, 1] + margin, -(zmp_ref[:, 1] - margin)], -1)
+    rng = np.random.default_rng(seed)
+    push = rng.uniform(-0.05, 0.05, (batch, 2))
+    dcm0 = np.concatenate([xy_ref[0] + push, np.full((batch, 1), z_nom)], -1)
+    params = _lipm(device, dtype)
+    return DCMPlannerFleet(
+        params=params, dt=dt, dcm0=as_t(dcm0),
+        omega0=torch.sqrt(params.gravity / params.com_height).expand(batch).clone(),
+        zmp_ref=as_t(zmp_ref), poly_A=as_t(_BOX).repeat(zmp_ref.shape[0], 1, 1),
+        poly_b=as_t(poly_b), dcm_goal=as_t(np.append(xy_ref[-1], z_nom)))
+
+
+def random_lqr_batch(batch: int, horizon: int, *, nx: int = 4, nu: int = 2, seed: int = 0,
+                     device=None, dtype: Optional[torch.dtype] = None):
+    """``(Fs, cs, Ls, Qs, Rs, QT, x0)`` of ``batch`` random stable LQ problems
+    with the distributions of ``tests/test_riccati.py::random_lqr``: F = I +
+    N(0, 0.05^2), c ~ N(0, 0.1^2), L ~ N(0, 0.3^2), Q = q I with q ~ U(0.5,
+    2) and R = r I with r ~ U(0.1, 1) at each knot, Q_T = 5 I, x0 ~ N(0, 1);
+    the arguments of ``solve_lqr`` with a leading batch axis."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    rng = np.random.default_rng(seed)
+    shape = (batch, horizon)
+    Fs = np.eye(nx) + 0.05 * rng.normal(size=shape + (nx, nx))
+    cs = 0.1 * rng.normal(size=shape + (nx,))
+    Ls = 0.3 * rng.normal(size=shape + (nx, nu))
+    Qs = rng.uniform(0.5, 2.0, shape)[..., None, None] * np.eye(nx)
+    Rs = rng.uniform(0.1, 1.0, shape)[..., None, None] * np.eye(nu)
+    QT = np.tile(5.0 * np.eye(nx), (batch, 1, 1))
+    x0 = rng.normal(size=(batch, nx))
+    return tuple(as_t(a) for a in (Fs, cs, Ls, Qs, Rs, QT, x0))

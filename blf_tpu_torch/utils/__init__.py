@@ -1,5 +1,6 @@
 """Utilities (counterpart of ``blf_tpu/utils``).
 
-Ported: ``status``, ``telemetry``, ``params`` (a copy); new: ``device``.
-Not yet ported: ``containers``, ``checkpoint``, ``profiling``.
+Ported: ``status``, ``telemetry``, ``params`` (a copy), ``containers``
+(with a tree flatten of its own), ``checkpoint``; new: ``device``. Not
+ported on purpose: ``profiling`` (TPU rooflines; ROADMAP.md, "Do not port").
 """

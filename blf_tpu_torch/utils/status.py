@@ -12,6 +12,8 @@ from typing import Dict
 
 import torch
 
+from blf_tpu_torch.utils.containers import tree_map
+
 __all__ = ["SolverStatus", "classify_qp", "nan_quarantine", "status_counts"]
 
 
@@ -37,17 +39,6 @@ def classify_qp(qp_solution) -> torch.Tensor:
     return status.to(torch.int32)
 
 
-def _tree_map2(fn, a, b):
-    """Map ``fn`` over two trees of tensors of the same structure (nested
-    NamedTuples and tuples, as the port's state types are)."""
-    if isinstance(a, torch.Tensor):
-        return fn(a, b)
-    if isinstance(a, tuple):
-        mapped = (_tree_map2(fn, x, y) for x, y in zip(a, b))
-        return type(a)(*mapped) if hasattr(a, "_fields") else tuple(mapped)
-    raise TypeError(f"unsupported tree node {type(a).__name__}")
-
-
 def nan_quarantine(state_tree, status: torch.Tensor, reset_tree):
     """Replace the lanes flagged NUMERICAL_ERROR by their reset values.
 
@@ -64,7 +55,7 @@ def nan_quarantine(state_tree, status: torch.Tensor, reset_tree):
             rst = torch.where(torch.isfinite(rst), rst, torch.zeros_like(rst))
         return torch.where(mask, rst.to(cur.dtype), cur)
 
-    return _tree_map2(fix, state_tree, reset_tree)
+    return tree_map(fix, state_tree, reset_tree)
 
 
 def status_counts(status: torch.Tensor) -> Dict[str, int]:

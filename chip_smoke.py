@@ -38,6 +38,13 @@ paths through the entry points a user calls:
   backend="cuda")`` (kernel ``admm_stage_l2``, exact f32) and in bench.py's
   own mode, ``backend="cuda_delta"`` (kernel ``admm_stage_tc_l2``, the
   tensor-core stage past shared memory), ``"cuda_split"`` beside it.
+* the time-varying DCM planner (BASELINE's north star): 4096 pushed initial
+  DCMs planned over 28 knots by the batched SQP in float32 (no kernel of
+  its own: the reference computes it with plain operations too), held to
+  the reference tests' limits on every lane and to a float64 plan on the
+  CPU; its parallel backward pass and ``solve_lqr`` in both forms beside it.
+* checkpoint and resume of the fleet tick at full width
+  (examples/05_fleet_sweep.py's check, bitwise).
 
 It checks each result and shows that each path went through its kernels by
 their launch counts, set to 0 just before the path and read just after. Each
@@ -61,10 +68,12 @@ import argparse
 import contextlib
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -77,6 +86,7 @@ if not torch.cuda.is_available():
 
 import blf_tpu_torch.mpc.dcm as dcm_module
 import blf_tpu_torch.mpc.qp as qp_module
+import blf_tpu_torch.mpc.sqp as sqp_module
 import blf_tpu_torch.mpc.stack as stack_module
 import blf_tpu_torch.problems as problems_module
 from blf_tpu_torch.models import rigid_body as rb
@@ -84,6 +94,9 @@ from blf_tpu_torch.models.contact import ContactState, contact_wrench
 from blf_tpu_torch.models.foot import foot_rollout
 from blf_tpu_torch.models.kinematics import forward_kinematics
 from blf_tpu_torch.mpc.dcm import build_dcm_qp
+from blf_tpu_torch.mpc.dcm_planner import DCMPlannerLimits, plan_time_varying_dcm_batch
+from blf_tpu_torch.mpc.riccati import solve_lqr
+from blf_tpu_torch.mpc.sqp import SQPConfig
 from blf_tpu_torch.mpc.qp import SharedQPFactors, factor_shared_qp, solve_qp, solve_qp_lanes
 from blf_tpu_torch.mpc.wholebody import build_wholebody_qp
 from blf_tpu_torch.ops.cuda import _build
@@ -101,9 +114,12 @@ from blf_tpu_torch.planners.gait import (footstep_plan, gait_horizon, gait_refer
                                          plan_gait, support_polygons)
 from blf_tpu_torch.problems import (GAIT_ITERATIONS, IDENTIFY_PARTS, IDENTIFY_STEPS_PER_SAMPLE,
                                     STACK_R05, apply_solution, balance_task,
-                                    contact_identification_fleet, foot_drop_fleet, gait_fleet,
-                                    identify_contacts, push_recovery_stack, stack_fleet_step,
+                                    contact_identification_fleet, dcm_planner_fleet,
+                                    foot_drop_fleet, gait_fleet, identify_contacts,
+                                    push_recovery_stack, random_lqr_batch, stack_fleet_step,
                                     standing_fleet, stationary_push_recovery, wbc_balance_step)
+from blf_tpu_torch.utils.checkpoint import checkpoint_step, load_checkpoint, save_checkpoint
+from blf_tpu_torch.utils.containers import tree_leaves
 from blf_tpu_torch.utils.status import status_counts
 from blf_tpu_torch.utils.telemetry import TelemetryStream
 
@@ -275,9 +291,33 @@ F32_ODD_SHAPES = ((150, 97), (400, 201))
 # "cuda_split": the converged count within GAIT_DELTA_SLACK of the lanes the same plan
 # converges with the stage's plain version on the card
 GAIT_DELTA_SLACK = 0.005
+# the time-varying DCM planner over a fleet (problems.dcm_planner_fleet: tests/test_sqp.py's
+# push-recovery problem, 28 knots), float32, the planner's default SQPConfig(10, 5); held
+# on every lane to tests/test_sqp.py's float32 limits (test_push_recovery_respects_polygons_
+# and_terminal), to config 1's DCM RMSE against the port's own float64 plan of
+# PLAN_CPU_LANES lanes on the CPU, and, at PLAN_PARALLEL_HORIZON, the parallel backward
+# pass to the sequential one (TestParallelBackward's float32 limits and budget)
+PLAN_LANES = 4096
+PLAN_HORIZON = 30
+PLAN_RUNS = 3                  # timed plans, after one warm-up
+PLAN_CPU_LANES = 64
+PLAN_VIOLATION_TOL = 2e-4      # max_violation and every ZMP's polygon margin
+PLAN_FINAL_TOL = 2e-3          # final DCM against the goal, every component
+PLAN_OMEGA_TOL = 5e-2          # |omega_T - omega_nom|
+PLAN_PARALLEL_HORIZON = 16
+PLAN_PARALLEL_SQP = dict(iterations=8, al_iterations=3, penalty_init=10.0)
+PLAN_PARALLEL_TOL, PLAN_PARALLEL_VIOLATION_TOL = 5e-3, 5e-4
+PLAN_SECONDS = 90              # the whole phase
+# solve_lqr on random stable LQ problems of tests/test_riccati.py's shape (nx 4, nu 2),
+# float32: sequential against parallel within that file's float32 tolerance
+LQR_LANES, LQR_HORIZON, LQR_TOL = 4096, 32, 3e-4
+# resume: examples/05_fleet_sweep.py's check on the card: 3 ticks, a checkpoint, 2 more;
+# the checkpoint loaded onto the card and the same 2 ticks again, every leaf bitwise equal
+RESUME_TICKS = (3, 2)
 DEVICE = torch.device("cuda")
 PHASES = ("device", "build", "kernels", "tick", "cross", "tick_delta", "cross_delta", "wbc",
-          "wbc_cross", "stack", "stack_cross", "foot", "identify", "gait", "gait_delta")
+          "wbc_cross", "stack", "stack_cross", "foot", "identify", "gait", "gait_delta",
+          "dcm_planner", "resume")
 
 
 START = time.perf_counter()
@@ -2974,6 +3014,248 @@ def phase_gait_delta() -> dict:
     return record
 
 
+KERNEL_MODULES = (admm_kernel, lane_kernel, chol_kernel, rollout_kernel)
+
+
+def reset_all_counts() -> None:
+    for module in KERNEL_MODULES:
+        module.reset_counts()
+
+
+def all_launches() -> int:
+    """Launches of every hand-written kernel, and their plain runs, since the
+    counts were last set to 0."""
+    return (sum(stage_counts().values()) + admm_kernel.l2_launch_count()
+            + lane_kernel.launch_count() + lane_kernel.reference_count()
+            + chol_kernel.launch_count() + chol_kernel.reference_count()
+            + chol_kernel.solve_launch_count() + chol_kernel.solve_reference_count()
+            + rollout_kernel.launch_count() + rollout_kernel.reference_count())
+
+
+def plan_checks(plan, fleet) -> dict:
+    """What tests/test_sqp.py's push-recovery case asks of a plan, on every
+    lane: finite, max_violation, every ZMP inside its polygon, the final DCM
+    at the goal, omega settled and within its bounds."""
+    margins = torch.einsum("tmi,bti->btm", fleet.poly_A, plan.zmp) - fleet.poly_b
+    omega_nom = torch.sqrt(fleet.params.gravity / fleet.params.com_height)
+    return {
+        "finite": bool(all(torch.isfinite(t).all() for t in plan if t.dtype.is_floating_point)),
+        "max_violation": float(plan.max_violation.max()),
+        "worst_zmp_margin": float(margins.max()),
+        "final_dcm_max_dev": float((plan.dcm[:, -1] - fleet.dcm_goal).abs().max()),
+        "final_omega_max_dev": float((plan.omega[:, -1] - omega_nom).abs().max()),
+        "omega_min_max": [float(plan.omega.min()), float(plan.omega.max())],
+        "converged": int(plan.converged.sum())}
+
+
+def profile_plan(run) -> dict:
+    """Device work of one plan by ``torch.profiler`` (device activity only,
+    read from the raw trace: parsing some 10^5 events into the profiler's
+    event tree takes a minute): device operations launched (kernels, copies,
+    fills), device-busy time and the idle share of the profiled plan. A
+    record, not a check."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    device = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in device) / 1e6
+    by_name = Counter(e.name()[:60] for e in device)
+    return {"device_ops": len(device), "device_busy_ms": busy, "wall_ms_profiled": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms,
+            "top_by_count": [{"name": k, "count": c} for k, c in by_name.most_common(8)]}
+
+
+def phase_dcm_planner() -> dict:
+    """The time-varying DCM planner over PLAN_LANES lanes in float32
+    (``plan_time_varying_dcm_batch`` on ``dcm_planner_fleet``): one warm-up
+    plan, PLAN_RUNS timed; one more under CUDA events by part of the SQP
+    (``sqp.PARTS``), one under ``torch.profiler`` (the launch count), one
+    under ``set_sync_debug_mode("error")`` (no host sync may happen). Held on
+    every lane to the reference tests' float32 limits, and to the port's
+    float64 plan of PLAN_CPU_LANES lanes on the CPU (DCM RMSE). Beside it:
+    the parallel backward pass against the sequential one at
+    PLAN_PARALLEL_HORIZON, and ``solve_lqr`` in both forms on LQR_LANES
+    random LQ problems. No kernel of its own: it launches no hand-written
+    kernel (counted: 0)."""
+    start = time.perf_counter()
+    seconds = {}                                    # of each step of the phase
+
+    def lap(name):
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - start - sum(seconds.values())
+
+    fleet = dcm_planner_fleet(PLAN_LANES, PLAN_HORIZON, seed=SEED, device=DEVICE,
+                              dtype=torch.float32)
+    run = lambda: plan_time_varying_dcm_batch(*fleet)
+    run()                                           # warm-up
+    lap("warm_up")
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    times = []
+    for _ in range(PLAN_RUNS):
+        t0 = time.perf_counter()
+        plan = run()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    kernels_launched = all_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    checks = plan_checks(plan, fleet)
+    lap("timed")
+
+    timer = PartTimer(sqp_module.PARTS)
+    with mock.patch.object(sqp_module, "part_timer", timer):
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+    split = {"plan_ms": begin.elapsed_time(end), "parts_ms": timer.ms()}
+    lap("split")
+    profiled = profile_plan(run)
+    lap("profile")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        synced = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sync_vs_timed = float((synced.dcm - plan.dcm).abs().max())
+    lap("sync_debug")
+
+    cpu = plan_time_varying_dcm_batch(
+        lipm_params_from_numpy(0.9, 9.81, device="cpu", dtype=torch.float64), fleet.dt,
+        fleet.dcm0[:PLAN_CPU_LANES].cpu().double(), fleet.omega0[:PLAN_CPU_LANES].cpu().double(),
+        *(t.cpu().double() for t in fleet[4:]))
+    lanes = plan.dcm[:PLAN_CPU_LANES].cpu().double()
+    rmse = float((lanes - cpu.dcm).pow(2).mean().sqrt())
+    card_flags, cpu_flags = plan.converged[:PLAN_CPU_LANES].cpu(), cpu.converged
+    converged_cpu = {"card": int(card_flags.sum()), "cpu_float64": int(cpu_flags.sum()),
+                     "same_flag": int((card_flags == cpu_flags).sum())}
+    lap("cpu_float64")
+
+    short = dcm_planner_fleet(PLAN_LANES, PLAN_PARALLEL_HORIZON, seed=SEED, device=DEVICE,
+                              dtype=torch.float32)
+    seq = plan_time_varying_dcm_batch(*short, sqp=SQPConfig(**PLAN_PARALLEL_SQP))
+    par = plan_time_varying_dcm_batch(*short, sqp=SQPConfig(parallel_backward=True,
+                                                             **PLAN_PARALLEL_SQP))
+    parallel = {"knots": short.zmp_ref.shape[0],
+                "dcm_max_abs": float((par.dcm - seq.dcm).abs().max()),
+                "zmp_max_abs": float((par.zmp - seq.zmp).abs().max()),
+                "max_violation_max_abs": float((par.max_violation - seq.max_violation).abs().max()),
+                "converged": [int(seq.converged.sum()), int(par.converged.sum())]}
+    lap("parallel_backward")
+
+    problems = random_lqr_batch(LQR_LANES, LQR_HORIZON, seed=SEED, device=DEVICE,
+                                dtype=torch.float32)
+    lqr = {}
+    for form in (False, True):
+        solve_lqr(*problems, parallel=form)         # warm-up
+        t0 = time.perf_counter()
+        lqr[form] = solve_lqr(*problems, parallel=form)
+        torch.cuda.synchronize()
+        lqr[f"ms_{'parallel' if form else 'sequential'}"] = 1e3 * (time.perf_counter() - t0)
+    lqr_err = {f: float((getattr(lqr[True], f) - getattr(lqr[False], f)).abs().max())
+               for f in ("value_matrices", "value_vectors", "gains", "controls")}
+    lqr_finite = all(bool(torch.isfinite(t).all()) for t in lqr[True] + lqr[False])
+    lap("lqr")
+    total = time.perf_counter() - start
+
+    med = statistics.median(times)
+    record = emit(
+        "dcm_planner", lanes=PLAN_LANES, knots=fleet.zmp_ref.shape[0], dtype="float32",
+        sqp=dict(SQPConfig(iterations=10, al_iterations=5)._asdict()),
+        plan_ms=med, plan_ms_min_max=[min(times), max(times)], plans_per_s=PLAN_LANES / (
+            med * 1e-3), peak_memory_gb=peak, **checks, split=split, profile=profiled,
+        sync_debug_error_mode="no host sync", dcm_max_abs_sync_run_vs_timed=sync_vs_timed,
+        kernels_launched=kernels_launched,
+        cpu_lanes=PLAN_CPU_LANES, dcm_rmse_vs_cpu_float64=rmse, converged_vs_cpu=converged_cpu,
+        parallel_backward=parallel,
+        lqr={"lanes": LQR_LANES, "horizon": LQR_HORIZON, "dtype": "float32",
+             "ms_sequential": lqr["ms_sequential"], "ms_parallel": lqr["ms_parallel"],
+             "parallel_vs_sequential_max_abs": lqr_err, "finite": lqr_finite},
+        phase_seconds=total, seconds_by_step=seconds)
+    check(checks["finite"], f"every output of every lane is finite: {checks}")
+    check(checks["max_violation"] <= PLAN_VIOLATION_TOL,
+          f"max_violation within {PLAN_VIOLATION_TOL} on every lane: {checks}")
+    check(checks["worst_zmp_margin"] <= PLAN_VIOLATION_TOL,
+          f"every ZMP inside its polygon within {PLAN_VIOLATION_TOL}: {checks}")
+    check(checks["final_dcm_max_dev"] <= PLAN_FINAL_TOL,
+          f"the final DCM within {PLAN_FINAL_TOL} of the goal on every lane: {checks}")
+    check(checks["final_omega_max_dev"] < PLAN_OMEGA_TOL,
+          f"omega_T within {PLAN_OMEGA_TOL} of nominal on every lane: {checks}")
+    limits = DCMPlannerLimits()
+    check(limits.omega_min - 1e-6 <= checks["omega_min_max"][0]
+          and checks["omega_min_max"][1] <= limits.omega_max + 1e-6,
+          f"omega within its bounds: {checks}")
+    check(rmse <= GAIT_RMSE_TOL, f"DCM within {GAIT_RMSE_TOL} RMSE of the float64 CPU plan: {rmse}")
+    check(kernels_launched == 0,
+          f"the planner runs no hand-written kernel nor its plain version: {kernels_launched}")
+    check(parallel["dcm_max_abs"] <= PLAN_PARALLEL_TOL
+          and parallel["zmp_max_abs"] <= PLAN_PARALLEL_TOL
+          and parallel["max_violation_max_abs"] <= PLAN_PARALLEL_VIOLATION_TOL,
+          f"the parallel backward pass agrees with the sequential one: {parallel}")
+    check(lqr_finite and max(lqr_err.values()) <= LQR_TOL,
+          f"solve_lqr: parallel within {LQR_TOL} of sequential: {lqr_err}")
+    check(total < PLAN_SECONDS, f"the phase took {total:.1f} s, over {PLAN_SECONDS}: {seconds}")
+    return record
+
+
+def phase_resume(problem) -> dict:
+    """examples/05_fleet_sweep.py's checkpoint check on the card: the fleet
+    tick at full width (BATCH, HORIZON, ``backend="cuda"``) for RESUME_TICKS[0]
+    ticks, ``save_checkpoint``, RESUME_TICKS[1] more; then
+    ``load_checkpoint`` onto the card and the same ticks again: every leaf of
+    the state must be bitwise equal."""
+    state = init_fleet(BATCH, HORIZON, problem.num_constraints, problem.dcm0, problem.com0,
+                       device=DEVICE, dtype=torch.float32)
+    step = make_fleet_step(problem.params, problem.dt, iterations=2 * STAGE_ITERS,
+                           backend="cuda", device=DEVICE)
+    refs = (problem.dcm_ref, problem.zmp_ref, problem.poly_A, problem.poly_b)
+
+    def run(state, ticks):
+        for _ in range(ticks):
+            state, _ = step(state, problem.disturbance, *refs)
+        return state
+
+    admm_kernel.reset_counts()                      # counts of this path start here
+    before, after = RESUME_TICKS
+    state = run(state, before)
+    with tempfile.TemporaryDirectory(prefix="blf_ckpt_") as tmp:
+        path = os.path.join(tmp, "fleet.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(path, state, step=before)
+        save_s = time.perf_counter() - t0
+        final = run(state, after)
+        t0 = time.perf_counter()
+        resumed = load_checkpoint(path, state)
+        load_s = time.perf_counter() - t0
+        saved_step = checkpoint_step(path)
+        size_mb = os.path.getsize(path) / 1e6
+    refinal = run(resumed, after)
+    launches = stage_counts()["f32"]                # read just after
+    pairs = list(zip(tree_leaves(final), tree_leaves(refinal)))
+    same = [bool(torch.equal(a, b)) for a, b in pairs]
+    on_card = all(t.device.type == "cuda" for t in tree_leaves(resumed))
+    record = emit("resume", lanes=BATCH, horizon=HORIZON, backend="cuda", ticks=list(RESUME_TICKS),
+                  leaves=len(pairs), bitwise_equal_leaves=sum(same), step=saved_step,
+                  checkpoint_mb=size_mb, save_s=save_s, load_s=load_s, launches=launches,
+                  deterministic_algorithms=torch.are_deterministic_algorithms_enabled())
+    check(all(same), f"the resumed fleet is bitwise equal, leaf by leaf: {same}")
+    check(on_card and saved_step == before, "loaded onto the card, with the step recorded")
+    check(launches == (before + 2 * after) * 2, f"two K1 launches a tick: {launches}")
+    return record
+
+
 def study_factorization(problem, lanes: int = STUDY_LANES, ticks: int = 8) -> dict:
     """Diagnostic, off by default: where the factorization is computed, and in
     which precision, against the fleet's convergence over the first ticks.
@@ -3060,6 +3342,9 @@ def main() -> None:
     ident = phase_identify() if "identify" in phases else None
     gait = phase_gait() if "gait" in phases else None
     gait_delta = phase_gait_delta() if "gait_delta" in phases else None
+    if "dcm_planner" in phases:
+        phase_dcm_planner()
+    resume = phase_resume(problem) if "resume" in phases else None
     if opts.study_factorization:
         study_factorization(problem)
 
@@ -3070,7 +3355,8 @@ def main() -> None:
         wbc_l = wbc["kernel_launches"] if wbc else none
         stack_l = stack["launches"] if stack else none
         by_path = {
-            "admm_stage": {"tick": tick["kernel_launches"] if tick else 0},
+            "admm_stage": {"tick": tick["kernel_launches"] if tick else 0,
+                           "resume": resume["launches"] if resume else 0},
             "admm_stage_tc": {"tick_delta": tick_delta["kernel_launches"] if tick_delta else 0},
             "admm_stage@stack": {"stack": stack_l.get("admm_stage", 0),
                                  "stack_cross": stack_cross["admm_stage_launches"]

@@ -101,5 +101,5 @@ def test_associative_scan_is_the_inclusive_prefix_in_order(T):
 
 def test_sharded_stream_waits_for_the_multi_device_slice():
     _, t, _ = make_problem(6, T=8)
-    with pytest.raises(NotImplementedError, match="4.3"):
+    with pytest.raises(NotImplementedError, match="4.5"):
         tpar.rls_parallel_sharded(*t, None, "stream")
