@@ -1,5 +1,5 @@
 """Estimators (counterpart of ``blf_tpu/estimators``).
 
-Ported: ``rls``, ``wrench_observer``, ``rls_parallel`` (all but
-``rls_parallel_sharded``, which waits for the multi-device slice).
+Everything of it is ported: ``rls``, ``wrench_observer``, ``rls_parallel``
+(with the stream sharded over a mesh axis, ``rls_parallel_sharded``).
 """

@@ -1,11 +1,10 @@
 """Parallel-in-time RLS: the exponentially weighted information filter as an
 associative scan.
 
-Counterpart of ``blf_tpu/estimators/rls_parallel.py``. Ported:
-``rls_leaf_elements``, ``rls_combine``, ``rls_parallel`` and ``rls_fit``.
-Not yet ported: ``rls_parallel_sharded`` (a stream sharded over devices),
-which waits for the multi-device slice (ROADMAP.md 4.5) and raises
-``NotImplementedError`` until then.
+Counterpart of ``blf_tpu/estimators/rls_parallel.py``; everything of it is
+ported: ``rls_leaf_elements``, ``rls_combine``, ``rls_parallel``,
+``rls_fit`` and ``rls_parallel_sharded`` (the stream sharded over the ranks
+of a mesh axis, on ``torch.distributed``).
 
 Math. With forgetting factor lam, prior (theta0, P0), regressors A_t and
 measurements y_t, the sequential RLS estimate after t steps is
@@ -35,6 +34,8 @@ from blf_tpu_torch.estimators.rls import RLSParams, RLSState
 from blf_tpu_torch.ops.linalg import solve_psd
 from blf_tpu_torch.ops.scan import associative_scan
 from blf_tpu_torch.ops.precision import f32_matmuls
+from blf_tpu_torch.parallel.collectives import all_gather_tree
+from blf_tpu_torch.parallel.mesh import axis_index, axis_size, gather_batch
 
 __all__ = ["rls_leaf_elements", "rls_combine", "associative_scan", "rls_parallel",
            "rls_fit", "rls_parallel_sharded"]
@@ -107,9 +108,34 @@ def rls_fit(params: RLSParams, state0: RLSState, regressors: torch.Tensor,
     return _states_from_aggregates(state0, Lam_T, b_T, torch.prod(w, 0))
 
 
-def rls_parallel_sharded(*args, **kwargs):
-    """The stream sharded over devices: not ported yet; it waits for the
-    multi-device slice (ROADMAP.md 4.5)."""
-    raise NotImplementedError(
-        "rls_parallel_sharded is not ported yet: it waits for the multi-device slice"
-        " (ROADMAP.md 4.5); rls_parallel runs the same filter on one device")
+def rls_parallel_sharded(params: RLSParams, state0: RLSState, regressors: torch.Tensor,
+                         measurements: torch.Tensor, mesh, axis_name: str
+                         ) -> Tuple[RLSState, torch.Tensor]:
+    """The stream sharded over the ranks of ``mesh``'s axis ``axis_name``.
+
+    Called by every rank of the axis with the whole stream (``T``, divisible
+    by the axis size, leading): each rank scans its own contiguous block,
+    one all-gather hands every rank each block's aggregate (p^2 + p + 1
+    numbers a lane), and each rank folds the blocks before its own into its
+    local results (an exclusive prefix over the blocks). Each rank turns its
+    block into states; one more all-gather returns the whole trajectory, so
+    every rank returns ``(final_state, thetas)`` as :func:`rls_parallel`
+    does. The traffic does not grow with the block's length.
+    """
+    T = regressors.shape[0]
+    n_shards = axis_size(mesh, axis_name)
+    if T % n_shards:
+        raise ValueError(f"stream length {T} not divisible by {n_shards}")
+    idx, block = axis_index(mesh, axis_name), T // n_shards
+    group = mesh.get_group(axis_name)
+    own = slice(idx * block, (idx + 1) * block)
+    Lam, b, w = associative_scan(
+        rls_combine, rls_leaf_elements(params, regressors[own], measurements[own]))
+    # every rank sees every block's aggregate and folds in those before its own
+    gathered = all_gather_tree((Lam[-1], b[-1], w[-1]), group)   # (n_shards, ...) each
+    prefix = tuple(torch.zeros_like(g[0]) for g in gathered[:2]) + (torch.ones_like(w[-1]),)
+    for j in range(idx):
+        prefix = rls_combine(prefix, tuple(g[j] for g in gathered))
+    states = _states_from_aggregates(state0, *rls_combine(prefix, (Lam, b, w)))
+    theta, cov = gather_batch((states.theta, states.covariance), mesh, axis_name)
+    return RLSState(theta[-1], cov[-1]), theta

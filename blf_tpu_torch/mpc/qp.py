@@ -2,7 +2,9 @@
 
 Counterpart of ``blf_tpu/mpc/qp.py``, of which the port holds ``QPSolution``,
 ``SharedQPFactors``, ``factor_shared_qp``, ``solve_qp_factored``,
-``solve_qp_shared`` (the shared-operator fleet path) and ``solve_qp``,
+``solve_qp_shared`` (the shared-operator fleet path), ``shard_factors_rows``
+and ``solve_qp_factored_rowsharded`` (one shared-operator solve's constraint
+rows split over the ranks of a mesh axis) and ``solve_qp``,
 ``solve_qp_lanes`` (per-lane operators).
 
 Problem form (OSQP):  ``min 1/2 x'Px + q'x  s.t.  l <= Ax <= u``. There is no
@@ -45,8 +47,6 @@ Backends of :func:`solve_qp_factored`:
 The kernel backends take any batch size: the kernels mask their own ragged
 edge, and none of these backends ever gives way to another (the reference's
 ``batch % 256`` fall-back to XLA is a TPU matter).
-
-Not yet ported: ``shard_factors_rows`` and ``solve_qp_factored_rowsharded``.
 """
 
 from __future__ import annotations
@@ -61,10 +61,11 @@ from blf_tpu_torch.ops.cuda.admm_lane import admm_lane_stage
 from blf_tpu_torch.ops.cuda.linalg import cholesky_inverse_lane
 from blf_tpu_torch.ops.linalg import cholesky_nan
 from blf_tpu_torch.ops.precision import f32_matmuls
+from blf_tpu_torch.parallel.collectives import pmax_tree, psum_tree
 
 __all__ = ["QPSolution", "SharedQPFactors", "factor_shared_qp",
-           "solve_qp_factored", "solve_qp_shared", "solve_qp",
-           "solve_qp_lanes", "BACKENDS"]
+           "solve_qp_factored", "solve_qp_shared", "shard_factors_rows",
+           "solve_qp_factored_rowsharded", "solve_qp", "solve_qp_lanes", "BACKENDS"]
 
 BACKENDS = ("torch", "cuda", "cuda_split", "cuda_delta")
 #: the stage kernel's matmul mode of each kernel backend of solve_qp_factored
@@ -449,6 +450,122 @@ def solve_qp_shared(
         scaling_iters=scaling_iters,
     )
     return solve_qp_factored(factors, q, l, u, **solve_kwargs)
+
+
+def shard_factors_rows(f: SharedQPFactors, index: int, num_shards: int) -> SharedQPFactors:
+    """Row block ``index`` of ``num_shards`` of a :class:`SharedQPFactors`.
+
+    Every member indexed by the constraint rows (``A_s``, ``A_orig``, ``E``,
+    ``base_rho``, ``G2``) is cut to the block; the n-indexed members are
+    kept whole. ``m`` must divide evenly: pad the transcription with vacuous
+    rows (+-inf bounds, a zero row of A) if it does not.
+    """
+    m = f.A_s.shape[-2]
+    if m % num_shards:
+        raise ValueError(f"m={m} not divisible by {num_shards} row shards")
+    rows = slice(index * (m // num_shards), (index + 1) * (m // num_shards))
+    G2 = f.G2 if f.G2 is not None else f.A_s @ f.W
+    return f._replace(A_s=f.A_s[rows], A_orig=f.A_orig[rows], E=f.E[rows],
+                      base_rho=f.base_rho[rows], G2=G2[rows])
+
+
+@torch.no_grad()
+@f32_matmuls
+def solve_qp_factored_rowsharded(
+    factors: SharedQPFactors,
+    q: torch.Tensor,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    group,
+    iterations: int = 200,
+    alpha: float = 1.6,
+    eps_abs: float = 1e-5,
+    eps_rel: float = 1e-5,
+    check_every: int = 25,
+    s0: Optional[torch.Tensor] = None,
+) -> QPSolution:
+    """One shared-operator ADMM solve with its constraint rows split over the
+    ranks of ``group`` (tensor/model parallelism within a solve).
+
+    Called by every rank of ``group`` (the reference's ``shard_map`` body):
+    ``factors`` is the rank's row block (:func:`shard_factors_rows`), ``l``
+    and ``u`` the matching ``(..., m_local)`` bounds, ``q`` the whole
+    ``(..., n)``. An iteration's only traffic is one sum over the group of
+    the ``(..., n)`` partial contraction ``w G2_local``; the constraint-space
+    iterates (v, z, y) never leave their rank. At each check the residuals
+    add a sum of ``A' y`` and maxima over the group. Cold start, the
+    v-space iteration and per-lane penalty rule of
+    :func:`solve_qp_factored`, without refinement or polish.
+
+    Returns a :class:`QPSolution` whose ``x``, residuals, ``converged``,
+    ``objective`` and ``rho_scale`` are the same on every rank and whose
+    ``y``/``z`` are the rank's rows. The contractions are plain products, as
+    in the reference (no kernel).
+    """
+    f = factors
+    n, m_loc = f.P_s.shape[-1], f.A_s.shape[-2]
+    dtype, device = f.P_s.dtype, f.P_s.device
+    q_orig = q
+    batch = torch.broadcast_shapes(q.shape[:-1], l.shape[:-1], u.shape[:-1])
+    A, P, G2 = f.A_s, f.P_s, f.G2
+    qb = (f.c * (q * f.D)).broadcast_to(batch + (n,))
+    lb = (f.E * l).broadcast_to(batch + (m_loc,))
+    ub = (f.E * u).broadcast_to(batch + (m_loc,))
+    s = (torch.ones((1,), dtype=dtype, device=device) if s0 is None
+         else torch.as_tensor(s0, dtype=dtype, device=device)).broadcast_to(batch + (1,))
+    gq = qb @ f.W
+
+    # cold start in v-space (x = 0 => z = 0, y = 0 => v = 0)
+    v = torch.zeros(batch + (m_loc,), dtype=dtype, device=device)
+    tau = torch.zeros(batch + (n,), dtype=dtype, device=device)
+
+    def run_stage(v, tau, s, iters):
+        rho_lane = s * f.base_rho                          # (..., m_local)
+        dinv = 1.0 / (1.0 + s * f.d)                       # (..., n)
+        for _ in range(iters):
+            z = _clip(v, lb, ub)
+            w = rho_lane * (2.0 * z - v)
+            t = psum_tree(w @ G2, group) - gq              # the one collective
+            tau = t * dinv
+            v = v + alpha * (tau @ G2.T - z)
+        return v, tau
+
+    check_every = max(1, min(check_every, iterations))
+    for _ in range(max(1, -(-iterations // check_every))):
+        v, tau = run_stage(v, tau, s, check_every)
+        z = _clip(v, lb, ub)
+        y = (s * f.base_rho) * (v - z)
+        x = tau @ f.W.T
+        Ax = tau @ G2.T
+        Px_ = x @ P.T
+        Aty_ = psum_tree(y @ A, group)
+        prim, scale = pmax_tree((_amax(Ax - z), torch.maximum(_amax(Ax), _amax(z))), group)
+        rp = prim / torch.clamp(scale, min=1e-12)
+        rd = _amax(Px_ + qb + Aty_) / torch.clamp(
+            torch.maximum(torch.maximum(_amax(Px_), _amax(Aty_)), _amax(qb)), min=1e-12)
+        ratio = torch.sqrt(rp / torch.clamp(rd, min=1e-12))[..., None]
+        move = (ratio > 5.0) | (ratio < 0.2)
+        s_new = torch.where(move, torch.clamp(ratio * s, 1e-4, 1e4), s)
+        v = z + (s / s_new) * (v - z)
+        s = s_new
+
+    x = f.D * (tau @ f.W.T)
+    z = _clip(v, lb, ub)
+    y = f.E * ((s * f.base_rho) * (v - z)) / f.c
+    z = z / f.E
+    Ax = x @ f.A_orig.T
+    r_prim, scale = pmax_tree((_amax(Ax - z), torch.maximum(_amax(Ax), _amax(z))), group)
+    Px = x @ f.P_orig.T
+    Aty = psum_tree(y @ f.A_orig, group)
+    r_dual = _amax(Px + q_orig + Aty)
+    prim_tol = eps_abs + eps_rel * scale
+    dual_tol = eps_abs + eps_rel * torch.maximum(torch.maximum(_amax(Px), _amax(Aty)),
+                                                 _amax(q_orig))
+    converged = (r_prim < prim_tol) & (r_dual < dual_tol)
+    objective = 0.5 * (x * Px).sum(-1) + (q_orig * x).sum(-1)
+    return QPSolution(x, y, z, r_prim, r_dual, converged, objective, rho_scale=s,
+                      refined=torch.zeros((), dtype=torch.bool, device=device))
 
 
 # ---------------------------------------------------------------------------

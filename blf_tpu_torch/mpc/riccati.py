@@ -6,9 +6,8 @@ Counterpart of ``blf_tpu/mpc/riccati.py``. Ported: :class:`LQRSolution`,
 recursion, O(T) depth; ``parallel=True``: the Saerkkae & Garcia-Fernandez
 elements composed by a log-depth suffix scan) and
 :func:`parallel_value_general` (the SQP's subproblem, with cross and linear
-terms). Not yet ported: ``solve_lqr_sharded`` (the horizon sharded over
-devices), which waits for the multi-device slice (ROADMAP.md 4.5) and raises
-``NotImplementedError`` until then.
+terms) and :func:`solve_lqr_sharded` (the horizon sharded over the ranks of
+a mesh axis, on ``torch.distributed``).
 
 Problem: ``min sum_k 1/2 x_k' Q_k x_k + 1/2 u_k' R_k u_k + 1/2 x_T' Q_T x_T``
 subject to ``x_{k+1} = F_k x_k + L_k u_k + c_k``.
@@ -28,8 +27,12 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+import torch.distributed as dist
+
 from blf_tpu_torch.ops.precision import f32_matmuls
 from blf_tpu_torch.ops.scan import associative_scan
+from blf_tpu_torch.parallel.collectives import all_gather_tree
+from blf_tpu_torch.parallel.mesh import axis_index, axis_size, gather_batch, global_ranks
 
 __all__ = ["LQRSolution", "solve_lqr", "solve_lqr_sharded", "parallel_value_general"]
 
@@ -182,12 +185,86 @@ def solve_lqr(Fs, cs, Ls, Qs, Rs, QT, x0, *, parallel: bool = False) -> LQRSolut
                        value_vectors=grow(ps, 2), states=xs, controls=grow(us, 2))
 
 
-def solve_lqr_sharded(*args, **kwargs):
-    """The horizon sharded over devices: not ported yet; it waits for the
-    multi-device slice (ROADMAP.md 4.5)."""
-    raise NotImplementedError(
-        "solve_lqr_sharded is not ported yet: it waits for the multi-device slice"
-        " (ROADMAP.md 4.5); solve_lqr(parallel=True) runs the same scan on one device")
+def _combine_affine(e1, e2):
+    """Compose affine maps x -> M x + d, earlier first: e2 after e1."""
+    M1, d1 = e1
+    M2, d2 = e2
+    return M2 @ M1, _mv(M2, d1) + d2
+
+
+@f32_matmuls
+def solve_lqr_sharded(Fs, cs, Ls, Qs, Rs, QT, x0, mesh, axis_name: str) -> LQRSolution:
+    """The horizon sharded over the ranks of ``mesh``'s axis ``axis_name``.
+
+    Called by every rank of the axis with the whole problem (unbatched:
+    ``Fs`` (T, nx, nx), ..., ``QT`` (nx, nx), ``x0`` (nx,); T divisible by
+    the axis size). Each rank works on its own contiguous block of knots;
+    the traffic of a solve, as in the reference, is
+
+    1. one all-gather of each block's composed value element;
+    2. a one-element halo: each block's first value (P_k, p_k) to the rank
+       before it (``batch_isend_irecv``), the next-knot values of the gains;
+    3. one all-gather of each block's composed closed-loop affine map, for
+       the forward rollout;
+
+    and, to return the whole solution on every rank, one all-gather of the
+    blocks' results. The terminal knot is computed after the sharded part.
+    The result is :func:`solve_lqr`'s to rounding.
+    """
+    T = Fs.shape[0]
+    n_shards = axis_size(mesh, axis_name)
+    if T % n_shards:
+        raise ValueError(f"horizon {T} not divisible by {n_shards} shards")
+    idx, B = axis_index(mesh, axis_name), T // n_shards
+    group, peers = mesh.get_group(axis_name), global_ranks(mesh, axis_name)
+    own = slice(idx * B, (idx + 1) * B)
+    Fs_b, cs_b, Ls_b, Qs_b, Rs_b = Fs[own], cs[own], Ls[own], Qs[own], Rs[own]
+
+    # --- backward value pass ----------------------------------------------
+    S = _suffix_scan(_value_elements(Fs_b, cs_b, Ls_b, Qs_b, Rs_b))  # S[i] = e_i . ... . e_{B-1}
+    gathered = all_gather_tree(tuple(e[0] for e in S), group)
+    allb = tuple(torch.cat([g, t[None]], 0) for g, t in zip(gathered, _terminal_element(QT)))
+    Rsel = tuple(r[idx + 1] for r in _suffix_scan(allb))    # block_{idx+1} . ... . terminal
+    Rb = tuple(r.expand((B,) + r.shape) for r in Rsel)
+    _, _, _, etas, Js = _combine_value(S, Rb)
+    P_loc, p_loc = Js, -etas                                 # values at the block's knots
+
+    # next-knot values: the local shift and a one-element halo from rank idx + 1
+    lastP, lastp = QT, torch.zeros_like(QT[..., 0])
+    ops = []
+    if idx > 0:
+        ops += [dist.P2POp(dist.isend, t.contiguous(), peers[idx - 1], group)
+                for t in (P_loc[0], p_loc[0])]
+    if idx < n_shards - 1:
+        lastP, lastp = torch.empty_like(lastP), torch.empty_like(lastp)
+        ops += [dist.P2POp(dist.irecv, t, peers[idx + 1], group) for t in (lastP, lastp)]
+    for work in (dist.batch_isend_irecv(ops) if ops else []):
+        work.wait()
+    P_next = torch.cat([P_loc[1:], lastP[None]], 0)
+    p_next = torch.cat([p_loc[1:], lastp[None]], 0)
+    Ks, kffs = _gains(Fs_b, cs_b, Ls_b, Rs_b, P_next, p_next)
+
+    # --- forward rollout (closed-loop affine prefix) ------------------------
+    M = Fs_b - Ls_b @ Ks
+    dv = cs_b - _mv(Ls_b, kffs)
+    Pinc = associative_scan(_combine_affine, (M, dv))
+    gmaps = all_gather_tree((Pinc[0][-1], Pinc[1][-1]), group)
+    if idx == 0:
+        x_b = x0
+    else:
+        EM, Ed = (g[idx - 1] for g in associative_scan(_combine_affine, gmaps))
+        x_b = _mv(EM, x0) + Ed                               # the state at the block's start
+    xs = torch.cat([x_b[None], _mv(Pinc[0][:-1], x_b) + Pinc[1][:-1]], 0)
+    us = -(_mv(Ks, xs) + kffs)
+
+    # the blocks of every rank, in order
+    Ks, kffs, Ps, ps, xs, us = gather_batch((Ks, kffs, P_loc, p_loc, xs, us), mesh, axis_name)
+    # the terminal knot, after the sharded part
+    xT = _mv(Fs[-1], xs[-1]) + _mv(Ls[-1], us[-1]) + cs[-1]
+    return LQRSolution(gains=Ks, feedforward=kffs,
+                       value_matrices=torch.cat([Ps, QT[None]], 0),
+                       value_vectors=torch.cat([ps, torch.zeros_like(ps[:1])], 0),
+                       states=torch.cat([xs, xT[None]], 0), controls=us)
 
 
 @f32_matmuls

@@ -1,20 +1,23 @@
 """The MPC fleet tick: the framework's "training step" equivalent.
 
 Counterpart of ``blf_tpu/parallel/sweep.py``. One control tick for a fleet
-of push-recovery scenarios, as a plain batched function on one device:
+of push-recovery scenarios:
 
     warm-started batched DCM-MPC solve -> fleet statistics -> state advance
     under the consensus plan + disturbance -> per-lane RLS update of a
     ZMP-offset disturbance estimate -> per-lane status + NaN quarantine.
 
-The reference expresses the tick as a ``shard_map`` program over a
-``(data, model)`` mesh, where the model axis carries a disturbance ensemble
-of ``K`` push realizations per scenario. The ensemble axis stays in the
-shapes here (``disturbance`` is ``(B, K, 2)``); with one device the
-``pmean``/``pmax`` over it are identities, and only ``K == 1`` is accepted.
-
-Not yet ported: ``K > 1`` ensembles and the data-parallel mesh (ROADMAP.md
-4.5, multi-device).
+The reference writes the tick as a ``shard_map`` program over a ``(data,
+model)`` mesh: ``data`` splits the fleet, and ``model`` carries a
+disturbance ensemble, ``K`` push realizations a scenario, combined by
+``pmean``/``pmax`` over the axis. The port runs the same program as
+explicit SPMD on a :func:`blf_tpu_torch.parallel.mesh.make_mesh` mesh (one
+rank a device), or on one device with ``mesh=None``. A rank's
+``disturbance`` is ``(B_local, K_local, 2)``: its ``K_local`` members are
+folded into the lane axis of one solve (``B_local * K_local`` lanes, one
+kernel launch a stage), and the ensemble's means and maxima run over the
+local members, then over the ``model`` group: ``K = K_local x`` the model
+axis size. With ``mesh=None`` the whole ensemble is local.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ import torch
 from blf_tpu_torch.estimators.rls import RLSParams, RLSState, rls_step
 from blf_tpu_torch.models.lipm import LIPMParams, com_discrete_step, lipm_omega
 from blf_tpu_torch.mpc.dcm import DCMWeights, solve_dcm_mpc
-from blf_tpu_torch.parallel.collectives import FleetStats, reduce_fleet_stats
+from blf_tpu_torch.parallel.collectives import (FleetStats, pmax_tree, psum_tree,
+                                                reduce_fleet_stats)
+from blf_tpu_torch.parallel.mesh import axis_size
 from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
 from blf_tpu_torch.utils.status import SolverStatus, classify_qp, nan_quarantine
 
@@ -81,35 +86,72 @@ def make_fleet_step(
     meas_noise: float = 1e-4,
     *,
     device=None,
+    mesh=None,
     **qp_kwargs,
 ):
     """Build the tick function.
 
     Returns ``step(state, disturbance, dcm_ref, zmp_ref, poly_A, poly_b)
-    -> (FleetState, TickResult)`` where ``disturbance`` is ``(B, K, 2)`` with
-    ``K == 1`` (one push realization per scenario). Extra ``qp_kwargs`` (e.g.
-    ``backend="cuda"``, ``"cuda_split"`` or ``"cuda_delta"`` (``bench.py``'s
-    mode, the reference's ``"pallas"``), ``check_every``, ``polish_iters``)
-    pass through to
+    -> (FleetState, TickResult)`` where ``disturbance`` is ``(B, K_local, 2)``:
+    ``K_local`` push realizations of each of the ``B`` scenarios. Extra
+    ``qp_kwargs`` (e.g. ``backend="cuda"``, ``"cuda_split"`` or
+    ``"cuda_delta"`` (``bench.py``'s mode, the reference's ``"pallas"``),
+    ``check_every``, ``polish_iters``) pass through to
     :func:`blf_tpu_torch.mpc.qp.solve_qp_factored`. ``device`` is where the
     fleet lives; every tensor handed to ``step`` must lie there.
+
+    ``mesh``: a ``(data, model)`` mesh of
+    :func:`blf_tpu_torch.parallel.mesh.make_mesh`, on the same device type.
+    Every rank of the mesh calls ``step`` with its own shard of the fleet
+    (:func:`blf_tpu_torch.parallel.mesh.shard_batch` over ``data``) and its
+    own ``K_local`` members of the ensemble; the statistics, the worst
+    margin and the quarantine count come back the same on every rank, the
+    state and the per-lane results as the rank's shard, identical across a
+    model group. ``mesh=None``: one device, the whole ensemble local.
     """
     device = resolve_device(device)
     params = LIPMParams(*(torch.as_tensor(p).to(device) for p in params))
+    if mesh is None:
+        data_group = model_group = None
+        model_size = 1
+    else:
+        if mesh.device_type != device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the step was built for {device}")
+        if mesh.get_coordinate() is None:
+            raise ValueError("this rank is not in the mesh: only its ranks run the tick")
+        data_axis, model_axis = mesh.mesh_dim_names
+        data_group, model_group = mesh.get_group(data_axis), mesh.get_group(model_axis)
+        model_size = axis_size(mesh, model_axis)
+    over_model = lambda reduce, tree: tree if model_group is None else reduce(tree, model_group)
+    over_data = lambda reduce, tree: tree if data_group is None else reduce(tree, data_group)
 
     @torch.no_grad()
     def step(state: FleetState, disturbance, dcm_ref, zmp_ref, poly_A, poly_b):
-        if disturbance.dim() != 3 or disturbance.shape[1] != 1:
-            raise NotImplementedError(
-                "the fleet tick takes disturbance of shape (B, 1, 2), got"
-                f" {tuple(disturbance.shape)}: an ensemble of K > 1 push"
-                " realizations needs the model axis of a device mesh; see"
-                " ROADMAP.md 4.5, multi-device")
+        B = state.dcm.shape[0]
+        if disturbance.dim() != 3 or disturbance.shape[0] != B or disturbance.shape[2] != 2:
+            raise ValueError(
+                f"the fleet tick takes disturbance of shape (B, K_local, 2) with B = {B},"
+                f" got {tuple(disturbance.shape)}")
         if state.dcm.device.type != device.type:
             raise ValueError(
                 f"fleet state lies on {state.dcm.device}, the step was built"
                 f" for {device}")
-        dist = disturbance[:, 0, :]
+        K_local = disturbance.shape[1]
+        K = K_local * model_size                    # the whole ensemble
+        # the K_local members of a scenario ride the lane axis of one solve,
+        # member index minor: lane b * K_local + k
+        lanes = lambda t: t if K_local == 1 else t.repeat_interleave(K_local, 0)
+        members = lambda t: t.reshape((B, K_local) + t.shape[1:])
+
+        def ensemble_mean(tree, axis):
+            """The mean over all K members, held on ``axis`` of each tensor: the
+            local sum, summed over the model group, divided once (the same on
+            every rank of the group)."""
+            return tuple(t / K for t in over_model(psum_tree, tuple(t.sum(axis) for t in tree)))
+
+        def ensemble_max(tree, axis):
+            return over_model(pmax_tree, tuple(t.amax(axis) for t in tree))
+
         # the carry's dtype is authoritative: cast every closed-over
         # parameter before mixing, or f64 params would promote an f32 fleet
         dtype = state.dcm.dtype
@@ -117,38 +159,54 @@ def make_fleet_step(
         omega_dt = lipm_omega(p) * torch.as_tensor(dt, dtype=dtype, device=device)
         a = torch.exp(omega_dt)
 
-        # perturbed initial DCM: the lane solves under its own draw
-        dcm0 = state.dcm + dist + state.offset_theta
+        # ensemble-perturbed initial DCM: each member solves its own draw
+        dcm0 = (state.dcm[:, None] + disturbance + state.offset_theta[:, None]).reshape(
+            B * K_local, 2)
 
         # fleet fast path: shared (P, A), batch rides on dcm0/warm starts
         plans = solve_dcm_mpc(
-            p, dt, dcm0, state.com, dcm_ref, zmp_ref, poly_A, poly_b,
+            p, dt, dcm0, lanes(state.com), dcm_ref, zmp_ref, poly_A, poly_b,
             weights, iterations=iterations,
-            warm_start=state.warm_zmp, warm_start_dual=state.warm_y,
-            s0=state.warm_s, shared=True, **qp_kwargs,
+            warm_start=lanes(state.warm_zmp), warm_start_dual=lanes(state.warm_y),
+            s0=lanes(state.warm_s), shared=True, **qp_kwargs,
         )
 
-        # fleet statistics; the ensemble mean/max over K == 1 are identities
-        stats = reduce_fleet_stats(plans.qp)
+        # collective QP reduce over the whole fleet: each member's statistics
+        # over the data axis, then the ensemble's (mean counts, worst residuals)
+        qp = plans.qp
+        # each member's lanes contiguous, as a fleet of K = 1 holds them: the
+        # same sums in the same order (identical draws give the K = 1 stats)
+        member = lambda t, k: members(t)[:, k].contiguous()
+        per_member = [reduce_fleet_stats(qp._replace(
+            converged=member(qp.converged, k),
+            primal_residual=member(qp.primal_residual, k),
+            dual_residual=member(qp.dual_residual, k),
+            objective=member(qp.objective, k)), data_group) for k in range(K_local)]
+        member_stats = FleetStats(*(torch.stack(f) for f in zip(*per_member)))   # (K_local,)
+        n, conv, obj = ensemble_mean((member_stats.num_scenarios, member_stats.num_converged,
+                                      member_stats.mean_objective), 0)
+        rp, rd = ensemble_max((member_stats.max_primal_residual,
+                               member_stats.max_dual_residual), 0)
+        stats = FleetStats(n, conv, rp, rd, obj)
 
-        # worst-case constraint margin
+        # worst-case constraint margin across the ensemble and the fleet
         margins = torch.einsum("kfa,...ka->...kf", poly_A, plans.zmp) - poly_b
-        worst = margins.max()
+        worst = over_data(pmax_tree, over_model(pmax_tree, margins.max()))
 
-        # consensus plan: the average over the ensemble (K == 1: the plan)
-        zmp_consensus = plans.zmp
-        y_consensus = plans.qp.y
-        s_consensus = plans.qp.rho_scale
+        # consensus plan: certainty-equivalent average over the ensemble, and
+        # the fleet's actual push realization
+        zmp_consensus, y_consensus, s_consensus, true_dist = ensemble_mean(
+            (members(plans.zmp), members(plans.qp.y), members(plans.qp.rho_scale),
+             disturbance), 1)
 
         # advance the TRUE scenario state one knot under the consensus plan
         # and the fleet's actual push realization
         z0 = zmp_consensus[:, 0, :]
-        true_dist = dist
         dcm_next = a * state.dcm + (1 - a) * z0 + true_dist
         com_next = com_discrete_step(p, state.com, state.dcm, z0, dt)
 
         # RLS: identify the UNMODELED additive DCM disturbance, the observed
-        # transition residual minus the push the solve already anticipated
+        # transition residual minus the push the ensemble already anticipated
         # (otherwise the planner would double-compensate a modeled push).
         regressor = torch.eye(2, dtype=dtype, device=device).broadcast_to(
             (z0.shape[0], 2, 2))
@@ -175,8 +233,11 @@ def make_fleet_step(
         # batch, and NaN quarantine: a lane whose solve went non-finite
         # restarts from its last-good (pre-tick) scenario state with cleared
         # warm starts and a fresh estimator prior, instead of poisoning every
-        # subsequent warm-started tick.
-        status = classify_qp(plans.qp)
+        # subsequent warm-started tick. The worst status across the ensemble
+        # (the codes are ordered by severity: any member failed, the scenario
+        # failed), so the status is the same on every rank of a model group,
+        # like the consensus state it guards.
+        status, = ensemble_max((members(classify_qp(plans.qp)),), 1)
         reset = FleetState(
             dcm=state.dcm,
             com=state.com,
@@ -189,7 +250,7 @@ def make_fleet_step(
         )
         new_state = nan_quarantine(new_state, status, reset)
         bad = status == int(SolverStatus.NUMERICAL_ERROR)
-        num_bad = bad.to(torch.float32).sum()
+        num_bad = over_data(psum_tree, bad.to(torch.float32).sum())
         return new_state, TickResult(stats, worst, z0, status, num_bad)
 
     return step

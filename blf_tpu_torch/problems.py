@@ -101,20 +101,23 @@ class PushRecoveryProblem(NamedTuple):
     poly_b: torch.Tensor       # (N, 4)
     dcm0: torch.Tensor         # (2,) initial DCM of every lane
     com0: torch.Tensor         # (2,)
-    disturbance: torch.Tensor  # (B, 1, 2) per-lane push, N(0, 0.004)
+    disturbance: torch.Tensor  # (B, K, 2) per-lane push of each ensemble member, N(0, 0.004)
     num_constraints: int       # 2N + 4N rows of the transcription
 
 
-def stationary_push_recovery(batch: int, horizon: int, *, seed: int = 0,
+def stationary_push_recovery(batch: int, horizon: int, *, seed: int = 0, ensemble: int = 1,
                              device=None, dtype: Optional[torch.dtype] = None
                              ) -> PushRecoveryProblem:
     """The fleet workload: every lane stands on one stance (references at the
     origin, a 0.2 m x 0.12 m support box), starts at DCM = CoM =
-    (0.01, -0.01) and is pushed by its own draw of N(0, 0.004) each tick."""
+    (0.01, -0.01) and is pushed by its own draw of N(0, 0.004) each tick.
+
+    ``ensemble``: the K push realizations of a disturbance ensemble, one
+    seeded draw a member (member k from seed ``seed + k``), so member 0 is
+    the draw of ``ensemble=1``."""
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    rng = np.random.default_rng(seed)
     start = as_t([0.01, -0.01])
     return PushRecoveryProblem(
         params=_lipm(device, dtype),
@@ -125,7 +128,9 @@ def stationary_push_recovery(batch: int, horizon: int, *, seed: int = 0,
         poly_b=as_t([0.1, 0.1, 0.06, 0.06]).repeat(horizon, 1),
         dcm0=start,
         com0=start.clone(),
-        disturbance=as_t(rng.normal(0, 0.004, (batch, 1, 2))),
+        disturbance=as_t(np.stack(
+            [np.random.default_rng(seed + k).normal(0, 0.004, (batch, 2))
+             for k in range(ensemble)], axis=1)),
         num_constraints=2 * horizon + 4 * horizon,
     )
 

@@ -45,6 +45,12 @@ paths through the entry points a user calls:
   CPU; its parallel backward pass and ``solve_lqr`` in both forms beside it.
 * checkpoint and resume of the fleet tick at full width
   (examples/05_fleet_sweep.py's check, bitwise).
+* the multi-device paths on a world of one nccl rank (one GPU holds one):
+  the fleet tick through ``make_fleet_step(mesh=make_mesh())`` with a
+  disturbance ensemble of 2 members folded into one solve of 196608 lanes
+  (kernel ``admm_stage_tc``, ``"cuda_delta"``), held to the K = 1 tick; the
+  row-sharded QP, the horizon-sharded LQR, the stream-sharded RLS and a
+  one-stage pipeline against their single-device forms.
 
 It checks each result and shows that each path went through its kernels by
 their launch counts, set to 0 just before the path and read just after. Each
@@ -95,7 +101,7 @@ from blf_tpu_torch.models.foot import foot_rollout
 from blf_tpu_torch.models.kinematics import forward_kinematics
 from blf_tpu_torch.mpc.dcm import build_dcm_qp
 from blf_tpu_torch.mpc.dcm_planner import DCMPlannerLimits, plan_time_varying_dcm_batch
-from blf_tpu_torch.mpc.riccati import solve_lqr
+from blf_tpu_torch.mpc.riccati import LQRSolution, solve_lqr
 from blf_tpu_torch.mpc.sqp import SQPConfig
 from blf_tpu_torch.mpc.qp import SharedQPFactors, factor_shared_qp, solve_qp, solve_qp_lanes
 from blf_tpu_torch.mpc.wholebody import build_wholebody_qp
@@ -120,7 +126,7 @@ from blf_tpu_torch.problems import (GAIT_ITERATIONS, IDENTIFY_PARTS, IDENTIFY_ST
                                     standing_fleet, stationary_push_recovery, wbc_balance_step)
 from blf_tpu_torch.utils.checkpoint import checkpoint_step, load_checkpoint, save_checkpoint
 from blf_tpu_torch.utils.containers import tree_leaves
-from blf_tpu_torch.utils.status import status_counts
+from blf_tpu_torch.utils.status import SolverStatus, status_counts
 from blf_tpu_torch.utils.telemetry import TelemetryStream
 
 # NVIDIA H100 SXM data sheet
@@ -314,10 +320,24 @@ LQR_LANES, LQR_HORIZON, LQR_TOL = 4096, 32, 3e-4
 # resume: examples/05_fleet_sweep.py's check on the card: 3 ticks, a checkpoint, 2 more;
 # the checkpoint loaded onto the card and the same 2 ticks again, every leaf bitwise equal
 RESUME_TICKS = (3, 2)
+# mesh: the fleet tick of tick_delta through a device mesh (a world of one nccl rank) with a
+# disturbance ensemble of MESH_K members folded into the lanes of one solve
+MESH_K = 2
+MESH_SAME_TOL = 1e-6            # relative: identical draws against the K = 1 tick
+MESH_WARM_TICKS = 10            # ticks with MESH_K distinct draws, from the cold fleet
+MESH_TIMED_TICKS = 5            # ticks timed in turns with the K = 1 tick
+MESH_MARGIN_TOL = 1e-3          # worst ZMP margin, tests/test_sharding.py's limit
+MESH_DCM_BOUND = 0.1            # |DCM| after the warm ticks, the same test's limit
+MESH_NAN_LANE = 12345
+MESH_QP_LANES, MESH_QP_ITERATIONS = 4096, 150
+MESH_QP_TOL = 8e-3              # x, float32: tests/test_sharding.py's row-sharded QP limit
+MESH_RLS_STEPS, MESH_RLS_LANES = 256, 4096
+MESH_RLS_TOL = 1e-6             # relative: one shard runs rls_parallel's own scan
+MESH_SECONDS = 90
 DEVICE = torch.device("cuda")
 PHASES = ("device", "build", "kernels", "tick", "cross", "tick_delta", "cross_delta", "wbc",
           "wbc_cross", "stack", "stack_cross", "foot", "identify", "gait", "gait_delta",
-          "dcm_planner", "resume")
+          "dcm_planner", "resume", "mesh")
 
 
 START = time.perf_counter()
@@ -3256,6 +3276,214 @@ def phase_resume(problem) -> dict:
     return record
 
 
+def tick_diffs(state_a, result_a, state_b, result_b) -> dict:
+    """Relative difference of every state field, the consensus plan and every
+    statistic of two ticks."""
+    out = {f"state.{k}": rel_err(a, b) for k, a, b in zip(state_a._fields, state_a, state_b)}
+    out["consensus_zmp0"] = rel_err(result_a.consensus_zmp0, result_b.consensus_zmp0)
+    out.update({f"stats.{k}": rel_err(a, b) for k, a, b in
+                zip(result_a.stats._fields, result_a.stats, result_b.stats)})
+    out["worst_margin"] = rel_err(result_a.worst_margin, result_b.worst_margin)
+    out["status_equal"] = bool(torch.equal(result_a.status, result_b.status))
+    return out
+
+
+def phase_mesh(problem) -> dict:
+    """The multi-device slice on the card's world of one.
+
+    ``init_distributed()`` and ``make_mesh()`` (nccl, one rank); the fleet tick
+    of ``tick_delta`` (BATCH lanes, horizon 32, 50 iterations, float32,
+    ``"cuda_delta"``) through ``make_fleet_step(mesh=...)`` with an ensemble
+    of MESH_K members on the local axis, one solve of MESH_K * BATCH lanes:
+    (a) identical draws against the K = 1 tick from one warm state; (b)
+    MESH_WARM_TICKS ticks with MESH_K distinct seeded draws from the cold
+    fleet, held to tick_delta's limits and tests/test_sharding.py's; (c) K1's
+    launches on that path (one a stage, each of MESH_K * BATCH lanes); (d)
+    the tick timed in turns with the K = 1 tick, and its peak memory; (e) a
+    NaN in member 1 of one lane. Then each sharded function against its
+    single-device counterpart: the row-sharded QP, the horizon-sharded LQR,
+    the stream-sharded RLS and a pipeline of one stage. The process group is
+    destroyed at the end."""
+    import torch.distributed as dist
+
+    from blf_tpu_torch.estimators.rls import RLSParams, RLSState
+    from blf_tpu_torch.estimators.rls_parallel import rls_parallel, rls_parallel_sharded
+    from blf_tpu_torch.mpc.qp import (shard_factors_rows, solve_qp_factored,
+                                      solve_qp_factored_rowsharded)
+    from blf_tpu_torch.mpc.riccati import solve_lqr_sharded
+    from blf_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from blf_tpu_torch.parallel.pipeline import pipeline_stages
+
+    start = time.perf_counter()
+    rank = init_distributed()
+    try:
+        mesh = make_mesh()
+        world = {"rank": rank, "dist_backend": dist.get_backend(),
+                 "world_size": dist.get_world_size(),
+                 "nccl": ".".join(map(str, torch.cuda.nccl.version()))
+                 if isinstance(torch.cuda.nccl.version(), tuple) else str(torch.cuda.nccl.version()),
+                 "mesh": {"shape": list(mesh.mesh.shape), "axes": list(mesh.mesh_dim_names)}}
+        check(world["dist_backend"] == "nccl" and world["world_size"] == 1,
+              f"a world of one nccl rank: {world}")
+        refs = (problem.dcm_ref, problem.zmp_ref, problem.poly_A, problem.poly_b)
+        kw = dict(iterations=2 * STAGE_ITERS, backend="cuda_delta", device=DEVICE)
+        single = make_fleet_step(problem.params, problem.dt, **kw)
+        ensemble = make_fleet_step(problem.params, problem.dt, mesh=mesh, **kw)
+        cold = lambda: init_fleet(BATCH, HORIZON, problem.num_constraints, problem.dcm0,
+                                  problem.com0, device=DEVICE, dtype=torch.float32)
+        draws = stationary_push_recovery(BATCH, HORIZON, seed=SEED, ensemble=MESH_K,
+                                         device=DEVICE, dtype=torch.float32).disturbance
+        same = problem.disturbance.expand(BATCH, MESH_K, 2).contiguous()
+
+        # (a) identical draws against K = 1, one tick from a warm state
+        warm = cold()
+        for _ in range(3):
+            warm, _ = single(warm, problem.disturbance, *refs)
+        one = single(warm, problem.disturbance, *refs)
+        two = ensemble(warm, same, *refs)
+        identical = tick_diffs(*two, *one)
+
+        # (b, c) MESH_WARM_TICKS ticks with distinct draws; K1's launches and lanes
+        lanes_seen = []
+        real_stage = qp_module.admm_stage
+
+        def spy(v, *args, **kwargs):
+            lanes_seen.append(v.shape[0])
+            return real_stage(v, *args, **kwargs)
+
+        state, by_tick = cold(), []
+        with mock.patch.object(qp_module, "admm_stage", spy):
+            reset_all_counts()                      # counts of the main path start here
+            for _ in range(MESH_WARM_TICKS):
+                state, result = ensemble(state, draws, *refs)
+                by_tick.append(result.stats.num_converged)
+            torch.cuda.synchronize()
+            counts = stage_counts()                 # read just after
+            launches_all = all_launches()
+        by_tick = [int(c) for c in torch.stack(by_tick).tolist()]
+        warm_record = {
+            "converged_by_tick": by_tick, "finite": all_finite(state),
+            "num_quarantined": float(result.num_quarantined),
+            "worst_margin": float(result.worst_margin),
+            "dcm_abs_max": float(state.dcm.abs().max()),
+            "max_primal_residual": float(result.stats.max_primal_residual),
+            "max_dual_residual": float(result.stats.max_dual_residual)}
+
+        # (d) the tick timed in turns with the K = 1 tick, each from its own warm state
+        s1, s2 = state, state
+        times = {"k1": [], "ensemble": []}
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(MESH_TIMED_TICKS):
+            for name, fn, d in (("k1", single, problem.disturbance), ("ensemble", ensemble, draws)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if name == "k1":
+                    s1, _ = fn(s1, d, *refs)
+                else:
+                    s2, _ = fn(s2, d, *refs)
+                torch.cuda.synchronize()
+                times[name].append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+
+        # (e) a NaN in member 1 of one lane, against the clean tick from the same state
+        poisoned = draws.clone()
+        poisoned[MESH_NAN_LANE, 1, 0] = float("nan")
+        clean_state, clean = ensemble(state, draws, *refs)
+        bad_state, bad = ensemble(state, poisoned, *refs)
+        others = torch.arange(BATCH, device=DEVICE) != MESH_NAN_LANE
+        confined = all(bool(torch.equal(a[others], b[others]))
+                       for a, b in zip(tuple(clean_state) + (clean.consensus_zmp0, clean.status),
+                                       tuple(bad_state) + (bad.consensus_zmp0, bad.status)))
+        nan_record = {"lane_status": int(bad.status[MESH_NAN_LANE]),
+                      "num_quarantined": float(bad.num_quarantined),
+                      "other_lanes_bit_identical": confined, "finite": all_finite(bad_state),
+                      "max_primal_residual": float(bad.stats.max_primal_residual)}
+
+        # the sharded functions on the world of one, each against its single-device form
+        group = mesh.get_group("model")
+        P, A, is_eq, factors = stage_operators(problem)
+        dcm0s = problem.dcm0 + problem.disturbance[:MESH_QP_LANES, 0]
+        _, q, _, l, u = build_dcm_qp(problem.params, problem.dt, dcm0s, problem.dcm_ref,
+                                     problem.zmp_ref, problem.poly_A, problem.poly_b)
+        rowsharded = solve_qp_factored_rowsharded(shard_factors_rows(factors, 0, 1), q, l, u,
+                                                  group=group, iterations=MESH_QP_ITERATIONS)
+        plain = solve_qp_factored(factors, q, l, u, iterations=MESH_QP_ITERATIONS,
+                                  backend="torch", refine=False)
+        qp_record = {"m": A.shape[0], "n": A.shape[1], "lanes": MESH_QP_LANES,
+                     "x_max_abs": float((rowsharded.x - plain.x).abs().max()),
+                     "converged": [int(rowsharded.converged.sum()), int(plain.converged.sum())]}
+        lqr_problem = [t[0] for t in random_lqr_batch(1, LQR_HORIZON, seed=SEED, device=DEVICE,
+                                                      dtype=torch.float32)]
+        sharded_lqr = solve_lqr_sharded(*lqr_problem, mesh, "model")
+        serial_lqr = solve_lqr(*lqr_problem)
+        lqr_record = {f: float((getattr(sharded_lqr, f) - getattr(serial_lqr, f)).abs().max())
+                      for f in LQRSolution._fields}
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        regs = torch.randn((MESH_RLS_STEPS, MESH_RLS_LANES, 2, 3), generator=gen, device=DEVICE)
+        meas = regs @ torch.tensor([0.3, -0.2, 0.5], device=DEVICE) + 0.1 * torch.randn(
+            (MESH_RLS_STEPS, MESH_RLS_LANES, 2), generator=gen, device=DEVICE)
+        rls_args = (RLSParams(torch.tensor(0.98, device=DEVICE), 0.01 * torch.eye(2, device=DEVICE)),
+                    RLSState(torch.zeros((MESH_RLS_LANES, 3), device=DEVICE),
+                             10.0 * torch.eye(3, device=DEVICE).expand(MESH_RLS_LANES, 3, 3)),
+                    regs, meas)
+        sh_final, sh_thetas = rls_parallel_sharded(*rls_args, mesh, "model")
+        one_final, one_thetas = rls_parallel(*rls_args)
+        rls_record = {"thetas_rel": rel_err(sh_thetas, one_thetas),
+                      "covariance_rel": rel_err(sh_final.covariance, one_final.covariance)}
+        W = torch.randn((64, 64), generator=gen, device=DEVICE) * 0.2
+        stage = lambda x: torch.tanh(x @ W)
+        micro = torch.randn((8, 4096, 64), generator=gen, device=DEVICE)
+        piped = pipeline_stages([stage], mesh, "model")(micro)
+        serial = torch.stack([stage(x) for x in micro])
+        pipe_record = {"bit_identical": bool(torch.equal(piped, serial)),
+                       "max_abs": float((piped - serial).abs().max())}
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - start
+
+    record = emit(
+        "mesh", nvidia_smi=nvidia_smi_line(), **world, lanes=BATCH, ensemble=MESH_K,
+        solve_lanes=MESH_K * BATCH, horizon=HORIZON, admm_iterations=2 * STAGE_ITERS,
+        dtype="float32", backend="cuda_delta", identical_draws_vs_k1=identical,
+        warm_ticks=warm_record, launches=counts, kernel_lanes_per_launch=sorted(set(lanes_seen)),
+        launches_all_kernels=launches_all,
+        tick_ms={k: statistics.median(v) for k, v in times.items()},
+        tick_ms_min_max={k: [min(v), max(v)] for k, v in times.items()},
+        peak_memory_gb=peak, nan_member=nan_record, rowsharded_qp=qp_record,
+        sharded_lqr=lqr_record, sharded_rls=rls_record, pipeline_one_stage=pipe_record,
+        phase_seconds=seconds)
+    worst_same = max(v for k, v in identical.items() if k != "status_equal")
+    check(worst_same <= MESH_SAME_TOL and identical["status_equal"],
+          f"identical draws give the K = 1 tick within {MESH_SAME_TOL}: {identical}")
+    check(warm_record["finite"] and warm_record["num_quarantined"] == 0,
+          f"the ensemble's fleet stays finite, none quarantined: {warm_record}")
+    check(by_tick[0] >= TICK_DELTA_FIRST_SHARE * BATCH,
+          f"at least {TICK_DELTA_FIRST_SHARE:.0%} of lanes converged on the cold first tick: {by_tick}")
+    check(min(by_tick[1:]) >= 0.99 * BATCH,
+          f"at least 99% of lanes converged on every later tick: {by_tick}")
+    check(warm_record["worst_margin"] <= MESH_MARGIN_TOL
+          and warm_record["dcm_abs_max"] < MESH_DCM_BOUND,
+          f"worst margin <= {MESH_MARGIN_TOL}, |DCM| < {MESH_DCM_BOUND}: {warm_record}")
+    stages = 2 * MESH_WARM_TICKS
+    check(counts["tc_delta"] == stages and launches_all == stages,
+          f"one K1 launch a stage and no other kernel or plain run: {counts}, {launches_all}")
+    check(lanes_seen == [MESH_K * BATCH] * stages,
+          f"each launch carries all {MESH_K * BATCH} lanes of the ensemble: {sorted(set(lanes_seen))}")
+    check(nan_record["lane_status"] == int(SolverStatus.NUMERICAL_ERROR)
+          and nan_record["num_quarantined"] == 1 and confined and nan_record["finite"],
+          f"the NaN member's lane is quarantined, every other lane untouched: {nan_record}")
+    check(qp_record["x_max_abs"] <= MESH_QP_TOL
+          and qp_record["converged"][0] >= qp_record["converged"][1] - 1,
+          f"the row-sharded QP agrees with solve_qp_factored: {qp_record}")
+    check(max(lqr_record.values()) <= LQR_TOL, f"solve_lqr_sharded agrees with solve_lqr: {lqr_record}")
+    check(max(rls_record.values()) <= MESH_RLS_TOL,
+          f"rls_parallel_sharded agrees with rls_parallel: {rls_record}")
+    check(pipe_record["bit_identical"], f"the pipeline is the serial composition: {pipe_record}")
+    check(seconds < MESH_SECONDS, f"the phase took {seconds:.1f} s, over {MESH_SECONDS}")
+    return record
+
+
 def study_factorization(problem, lanes: int = STUDY_LANES, ticks: int = 8) -> dict:
     """Diagnostic, off by default: where the factorization is computed, and in
     which precision, against the fleet's convergence over the first ticks.
@@ -3345,6 +3573,7 @@ def main() -> None:
     if "dcm_planner" in phases:
         phase_dcm_planner()
     resume = phase_resume(problem) if "resume" in phases else None
+    mesh = phase_mesh(problem) if "mesh" in phases else None
     if opts.study_factorization:
         study_factorization(problem)
 
@@ -3357,7 +3586,8 @@ def main() -> None:
         by_path = {
             "admm_stage": {"tick": tick["kernel_launches"] if tick else 0,
                            "resume": resume["launches"] if resume else 0},
-            "admm_stage_tc": {"tick_delta": tick_delta["kernel_launches"] if tick_delta else 0},
+            "admm_stage_tc": {"tick_delta": tick_delta["kernel_launches"] if tick_delta else 0,
+                              "mesh": mesh["launches"]["tc_delta"] if mesh else 0},
             "admm_stage@stack": {"stack": stack_l.get("admm_stage", 0),
                                  "stack_cross": stack_cross["admm_stage_launches"]
                                  if stack_cross else 0},

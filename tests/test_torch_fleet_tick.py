@@ -5,6 +5,8 @@ iterations + 25 of polish, K = 1) through the JAX package's
 ``make_fleet_step`` on a (1, 1) mesh and through the port's on
 ``device="cpu"``, from the same numpy inputs. The port runs its own
 factorization; state, plan, statistics, status and quarantine are compared.
+An ensemble of K = 2 on one device is held to the reference's (1, 2) mesh;
+the ticks across ranks are ``tests/test_torch_mesh.py``'s.
 """
 
 import jax.numpy as jnp
@@ -16,11 +18,13 @@ from conftest import F32_LANE, tol
 from blf_tpu.models.lipm import LIPMParams as JLIPMParams
 from blf_tpu.parallel import sweep as jsweep
 from blf_tpu.parallel.mesh import make_mesh
+from blf_tpu.parallel.mesh import shard_batch as jshard_batch
 from blf_tpu_torch.convert import (fleet_state_from_numpy, fleet_state_to_numpy,
                                    lipm_params_from_numpy)
 from blf_tpu_torch.parallel import sweep as tsweep
 from blf_tpu_torch.problems import stationary_push_recovery
 from blf_tpu_torch.utils.status import SolverStatus, status_counts
+from test_torch_wbc_loop import in_background, reference_jit
 
 # One intra-op thread: the tensors here are small, and test workers running side
 # by side would each start a thread per core and slow every other worker down.
@@ -166,13 +170,30 @@ def test_kernel_backend_runs_the_same_tick():
 
 
 def test_ensemble_and_device_rules(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    """The local ensemble (K = 2, both members on one device): two identical
+    draws give the K = 1 tick, bit for bit; two distinct draws give the
+    reference's tick on a (1, 2) mesh, one member a device. Then the device
+    rule."""
     c = Fleet.get()
     pr = c["pr"]
     st = fleet_state_from_numpy(c["state_j"], device="cpu", dtype=T_DTYPE)
-    two = pr.disturbance.expand(B, 2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c["step_t"](st, two, *c["refs_t"])
+    two = stationary_push_recovery(B, H, seed=0, ensemble=2, device="cpu", dtype=T_DTYPE)
+    pj = JLIPMParams(jnp.asarray(0.9, J_DTYPE), jnp.asarray(9.81, J_DTYPE))
+    mesh12 = make_mesh(2, model_axis=2)
+    ref = in_background(reference_jit(jsweep.make_fleet_step(mesh12, pj, DT, **QP).sharded_fn),
+                        jshard_batch(c["state_j"], mesh12),
+                        jnp.asarray(two.disturbance.numpy()), *c["refs_j"])
+    one_state, one = c["step_t"](st, pr.disturbance, *c["refs_t"])
+    same_state, same = c["step_t"](st, pr.disturbance.expand(B, 2, 2), *c["refs_t"])
+    for a, b in zip(one_state + (one.consensus_zmp0, one.status) + tuple(one.stats),
+                    same_state + (same.consensus_zmp0, same.status) + tuple(same.stats)):
+        assert torch.equal(a, b)
+    st2, r2 = c["step_t"](st, two.disturbance, *c["refs_t"])
+    sj, rj = ref()
+    compare_tick(sj, rj, st2, r2, 0)
+    assert float(r2.stats.num_scenarios) == B and float(r2.num_quarantined) == 0
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tsweep.make_fleet_step(pr.params, DT)               # device=None
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -54,6 +54,8 @@ def test_every_module_imports_without_jax_or_a_gpu_toolchain():
             "blf_tpu_torch.utils.params"} <= set(modules)
     assert {"blf_tpu_torch.planners.contacts", "blf_tpu_torch.planners.convex_hull",
             "blf_tpu_torch.planners.gait", "blf_tpu_torch.native"} <= set(modules)
+    assert {"blf_tpu_torch.parallel.mesh", "blf_tpu_torch.parallel.pipeline",
+            "blf_tpu_torch.parallel.collectives"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -73,10 +75,47 @@ def test_every_module_imports_without_jax_or_a_gpu_toolchain():
     assert proc.stdout.startswith("clean")
 
 
-@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                    ROOT / "tests/torch_spmd.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_file_imports_the_jax_package(path):
     assert not imported_roots(path) & set(FORBIDDEN)
+
+
+def test_a_spawned_rank_imports_no_jax():
+    """The module a spawned rank of the multi-device tests imports to find
+    its function loads neither JAX nor ``blf_tpu``, nor does any module of
+    the port a rank's cases import."""
+    code = ("import sys\n"
+            "import torch_spmd\n"
+            "from blf_tpu_torch.parallel import mesh, pipeline, sweep\n"
+            "from blf_tpu_torch.mpc import qp, riccati\n"
+            "from blf_tpu_torch.estimators import rls_parallel\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "tests"), str(ROOT)])}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
+def test_the_mesh_takes_the_gpu_by_default(monkeypatch):
+    """``init_distributed`` and ``make_mesh`` keep the device rule: with no
+    device named they start ``nccl`` on the GPU, and raise without one."""
+    import torch.distributed as dist
+
+    from blf_tpu_torch.parallel.mesh import _backend, init_distributed, make_mesh
+
+    assert not dist.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    assert not dist.is_initialized()
+    assert _backend(torch.device("cuda")) == "nccl" and _backend(torch.device("cpu")) == "gloo"
 
 
 def test_port_modules_name_their_counterpart():

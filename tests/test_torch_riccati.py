@@ -8,8 +8,9 @@ the two sides factor and sum in other orders, so 1e-9, never bit for bit.
 Each reference program is compiled once a process (``reference_jit``, XLA's
 least optimization: at its default optimization the jitted ``solve_lqr``
 corrupts the heap of this container's jaxlib on the CPU; see ROADMAP.md
-section 3) on a thread of its own while the port runs. ``TestSharded`` of the
-reference is not run: the sharded solve waits for the multi-device slice.
+section 3) on a thread of its own while the port runs. The sharded solve is
+held here on a world of one, and across ranks in
+``tests/test_torch_sharding.py``.
 """
 
 import functools
@@ -24,6 +25,7 @@ from blf_tpu_torch.convert import lqr_problem_from_numpy, lqr_solution_to_numpy
 from blf_tpu_torch.mpc import riccati as tric
 from blf_tpu_torch.ops.scan import associative_scan
 from test_torch_wbc_loop import in_background, reference_jit
+from torch_spmd import world_of_one
 
 torch.set_num_threads(1)
 
@@ -210,8 +212,24 @@ def test_general_value_reduces_to_plain_lqr():
 
 
 def test_sharded_solve_waits_for_the_multi_device_slice():
-    with pytest.raises(NotImplementedError, match="4.5"):
-        tric.solve_lqr_sharded(*random_lqr(8, 4, 2, np.random.default_rng(0)), None, "seq")
+    """The horizon-sharded solve on a world of one (this process, ``gloo``)
+    against the reference's on a mesh of one device and against the port's
+    ``solve_lqr``; ``tests/test_torch_sharding.py`` holds it at 2 and 4
+    ranks."""
+    from jax.sharding import Mesh
+
+    prob = random_lqr(8, 4, 2, np.random.default_rng(0))
+    mesh = Mesh(np.array(jax.devices()[:1]), ("seq",))
+    ref = in_background(reference_jit(lambda *a: jric.solve_lqr_sharded(*a, mesh, "seq")),
+                        *prob)
+    with world_of_one(axis_names=("data", "seq")) as tmesh:
+        got = tric.solve_lqr_sharded(*lqr_problem_from_numpy(*prob, device="cpu",
+                                                            dtype=torch.float64), tmesh, "seq")
+    one = tric.solve_lqr(*lqr_problem_from_numpy(*prob, device="cpu", dtype=torch.float64))
+    ref = ref()
+    for name, value in lqr_solution_to_numpy(got).items():
+        np.testing.assert_allclose(value, np.asarray(getattr(ref, name)), err_msg=name, **TOL)
+        np.testing.assert_allclose(value, getattr(one, name).numpy(), err_msg=name, **TOL)
 
 
 @pytest.mark.parametrize("T", [1, 2, 7, 16])

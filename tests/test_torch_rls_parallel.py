@@ -8,6 +8,7 @@ reduction sum in other orders than the reference's, so float64 and 1e-10,
 never bit for bit.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from blf_tpu_torch.convert import rls_state_from_numpy, rls_state_to_numpy
 from blf_tpu_torch.estimators import rls as trls
 from blf_tpu_torch.estimators import rls_parallel as tpar
 from test_torch_wbc_loop import run_reference
+from torch_spmd import world_of_one
 
 torch.set_num_threads(1)
 
@@ -100,6 +102,19 @@ def test_associative_scan_is_the_inclusive_prefix_in_order(T):
 
 
 def test_sharded_stream_waits_for_the_multi_device_slice():
-    _, t, _ = make_problem(6, T=8)
-    with pytest.raises(NotImplementedError, match="4.5"):
-        tpar.rls_parallel_sharded(*t, None, "stream")
+    """The stream-sharded filter on a world of one (this process, ``gloo``)
+    against the reference's on a mesh of one device and against
+    ``rls_parallel``; ``tests/test_torch_sharding.py`` holds it at 2 and 4
+    ranks."""
+    from jax.sharding import Mesh
+
+    j, t, _ = make_problem(6, T=8, lam=0.97, batch=(2,))
+    mesh = Mesh(np.array(jax.devices()[:1]), ("stream",))
+    ref_final, ref_thetas = run_reference(
+        lambda *a: jpar.rls_parallel_sharded(*a, mesh, "stream"), *j)
+    with world_of_one(axis_names=("data", "stream")) as tmesh:
+        final, thetas = tpar.rls_parallel_sharded(*t, tmesh, "stream")
+    np.testing.assert_allclose(thetas.numpy(), np.asarray(ref_thetas), **TOL)
+    np.testing.assert_allclose(thetas.numpy(), tpar.rls_parallel(*t)[1].numpy(), **TOL)
+    for name, value in rls_state_to_numpy(final).items():
+        np.testing.assert_allclose(value, np.asarray(getattr(ref_final, name)), **TOL)
