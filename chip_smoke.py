@@ -51,6 +51,11 @@ paths through the entry points a user calls:
   (kernel ``admm_stage_tc``, ``"cuda_delta"``), held to the K = 1 tick; the
   row-sharded QP, the horizon-sharded LQR, the stream-sharded RLS and a
   one-stage pipeline against their single-device forms.
+* ``python -m blf_tpu_torch.utils.profiling``'s speed-of-light table: the DCM
+  QP's factorization, K1 in its three modes at horizons 16 and 32 over 98304
+  lanes and 50 iterations a launch, the factored solve in ``"cuda_delta"``,
+  and the foot rollout of 16384 lanes over 200 steps on both backends, each
+  scored against the card's roofline.
 
 It checks each result and shows that each path went through its kernels by
 their launch counts, set to 0 just before the path and read just after. Each
@@ -58,9 +63,11 @@ phase prints one JSON line; no phase's failure is caught, so any exception or
 failed check ends the run with a non-zero exit code. The last JSON line but
 one lists every kernel at the shape of each path, with its launches there.
 
-Bounds are derived from NVIDIA's H100 SXM data sheet (67 TFLOP/s float32
-outside the tensor cores, 989 TFLOP/s bf16 dense on them, 3.35 TB/s device
-memory) and are labelled so.
+Each kernel's bound is its cost model in ``blf_tpu_torch/utils/profiling.py``
+at the detected card's ceilings (``detect_chip``: on the H100 SXM, NVIDIA's
+data sheet, 67 TFLOP/s float32 outside the tensor cores, 989 TFLOP/s bf16
+dense on them, 3.35 TB/s device memory), labelled so. Phase ``sol`` prints
+that module's speed-of-light table of the port's hot programs.
 
 The sizes are fixed (the constants below): a run at another width would prove
 nothing about the port. ``--phases`` runs a subset while developing (and then
@@ -72,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -127,11 +135,12 @@ from blf_tpu_torch.problems import (GAIT_ITERATIONS, IDENTIFY_PARTS, IDENTIFY_ST
 from blf_tpu_torch.utils.checkpoint import checkpoint_step, load_checkpoint, save_checkpoint
 from blf_tpu_torch.utils.containers import tree_leaves
 from blf_tpu_torch.utils.status import SolverStatus, status_counts
+from blf_tpu_torch.utils import profiling
+from blf_tpu_torch.utils.profiling import FOOT_OPS_PER_LANE_STEP
 from blf_tpu_torch.utils.telemetry import TelemetryStream
 
-# NVIDIA H100 SXM data sheet
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
+# the card's roofline ceilings, which every bound below divides by
+SPEC = profiling.detect_chip()
 
 BATCH = 98304     # lanes of the fleet
 TICKS = 20        # ticks per scan
@@ -220,10 +229,6 @@ FOOT_ODD_LANES = 65533
 FOOT_CHECK_STEPS = (10, 300, 1000)   # the fleet still moving at 10 and 300, settled at 1000
 FOOT_NAN_STEPS = 300
 FOOT_TOL = 2e-5       # absolute, every field: the reference's own (tests/test_foot_rollout.py)
-# operations of one lane-step of csrc/foot_rollout.cu, counted from its source: a
-# multiply, an add or subtract, an |.| and a division one each (an FMA two), 376 in
-# all (7 divisions among them)
-FOOT_OPS_PER_LANE_STEP = 376
 # the settled state the reference's test requires (tests/test_foot_rollout.py:47-62)
 FOOT_SINK_TOL, FOOT_V_TOL, FOOT_W_TOL, FOOT_R_TOL = 1e-4, 1e-4, 1e-3, 1e-3
 # the contact identification fleet (examples/02_contact_identification.py, batched)
@@ -256,7 +261,6 @@ L2_SHAPES = ((960, 384, "gait10"), (640, 256, "gait6"), (240, 160, "tick_h40"))
 # Tolerances relative to the largest |entry|, from the CPU study of
 # tests/test_torch_admm_stage_tc.py run as a script: the plain version in two float32
 # summation orders, 4096 lanes (PERF.md section 6)
-PEAK_BF16_FLOPS = 989e12      # H100 SXM data sheet, dense
 TC_MODES = ("split", "delta")
 TC_BATCHES = (1, 1000, 4096, BATCH)
 TC_SPLIT_TOL = 2e-4       # split, 25 iterations, and delta's 3-pass first: study 3.0e-5 at most
@@ -334,10 +338,20 @@ MESH_QP_TOL = 8e-3              # x, float32: tests/test_sharding.py's row-shard
 MESH_RLS_STEPS, MESH_RLS_LANES = 256, 4096
 MESH_RLS_TOL = 1e-6             # relative: one shard runs rls_parallel's own scan
 MESH_SECONDS = 90
+# sol: python -m blf_tpu_torch.utils.profiling's table (profiling.sol_rows, the
+# reference's rows and sizes); K1 runs at the DCM QP's shape of horizons 16 and 32
+SOL_M, SOL_N = 6 * 16, 4 * 16                     # (96, 64)
+SOL_ITERS = 50              # K1's iterations a launch in the table's stage rows
+SOL_BATCHES = (1, 1000, BATCH)    # lanes of the table's stage inputs held to the plain version
+SOL_FRAC_MAX = 1.05         # a row scored by a cost model may not pass its bound by more
+SOL_SECONDS = 60
+SOL_MATMUL = 4096           # sol_report's own check: a float32 matmul, TF32 off
+# K1's resident kernels, f32 and tensor-core, are built at these shapes
+RESIDENT_SHAPES = ((M, N, ""), (STACK_M, STACK_N, "_stack"), (SOL_M, SOL_N, "_sol"))
 DEVICE = torch.device("cuda")
 PHASES = ("device", "build", "kernels", "tick", "cross", "tick_delta", "cross_delta", "wbc",
           "wbc_cross", "stack", "stack_cross", "foot", "identify", "gait", "gait_delta",
-          "dcm_planner", "resume", "mesh")
+          "dcm_planner", "resume", "mesh", "sol")
 
 
 START = time.perf_counter()
@@ -403,12 +417,12 @@ def phase_device() -> dict:
 def phase_build() -> dict:
     """Build every kernel library of both paths, one ``nvcc`` each, all
     started together; then load them through their wrappers."""
-    jobs = [("admm_stage", admm_kernel.SOURCE, {"ADMM_M": M, "ADMM_N": N}),
-            ("admm_stage_stack", admm_kernel.SOURCE, {"ADMM_M": STACK_M, "ADMM_N": STACK_N}),
-            ("admm_lane", lane_kernel.SOURCE, {"ADMM_M": WBC_M, "ADMM_N": WBC_N})]
+    jobs = [(f"admm_stage{tag}", admm_kernel.SOURCE, {"ADMM_M": m, "ADMM_N": n})
+            for m, n, tag in RESIDENT_SHAPES]
+    jobs += [("admm_lane", lane_kernel.SOURCE, {"ADMM_M": WBC_M, "ADMM_N": WBC_N})]
     jobs += [(f"admm_stage_tc_{mode}{tag}", admm_kernel.TC_SOURCE,
               admm_kernel.tc_defines(m, n, mode))
-             for m, n, tag in ((M, N, ""), (STACK_M, STACK_N, "_stack")) for mode in TC_MODES]
+             for m, n, tag in RESIDENT_SHAPES for mode in TC_MODES]
     jobs += [(f"chol_lane_n{n}", chol_kernel.SOURCE, {"CHOL_N": n}) for n in CHOL_SIZES]
     jobs += [(f"chol_solve_n{n}", chol_kernel.SOLVE_SOURCE, {"CHOL_N": n})
              for n in SOLVE_SIZES]
@@ -431,9 +445,8 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         seconds = list(pool.map(build, jobs))
-    admm_kernel.build_admm_stage(M, N)
-    admm_kernel.build_admm_stage(STACK_M, STACK_N)
-    for m, n in ((M, N), (STACK_M, STACK_N)):
+    for m, n, _ in RESIDENT_SHAPES:
+        admm_kernel.build_admm_stage(m, n)
         for mode in TC_MODES:
             admm_kernel.build_admm_stage_tc(m, n, mode)
     lane_kernel.build_admm_lane(WBC_M, WBC_N)
@@ -451,12 +464,11 @@ def phase_build() -> dict:
         (admm_kernel.build_admm_stage_l2 if admm_kernel.streams_operator(m, n)
          else admm_kernel.build_admm_stage)(m, n)
     wall = time.perf_counter() - t0
-    shared = {"admm_stage": admm_kernel.stage_shared_bytes(M, N),
-              "admm_stage_stack": admm_kernel.stage_shared_bytes(STACK_M, STACK_N),
-              "admm_lane": lane_kernel.lane_shared_bytes(WBC_M, WBC_N)}
+    shared = {"admm_lane": lane_kernel.lane_shared_bytes(WBC_M, WBC_N)}
+    shared.update({f"admm_stage{tag}": admm_kernel.stage_shared_bytes(m, n)
+                   for m, n, tag in RESIDENT_SHAPES})
     shared.update({f"admm_stage_tc_{mode}{tag}": admm_kernel.stage_tc_shared_bytes(m, n, mode)
-                   for m, n, tag in ((M, N, ""), (STACK_M, STACK_N, "_stack"))
-                   for mode in TC_MODES})
+                   for m, n, tag in RESIDENT_SHAPES for mode in TC_MODES})
     shared.update({f"chol_lane_n{n}": chol_kernel.inverse_shared_bytes(n)
                    for n in CHOL_SIZES})
     shared.update({f"chol_solve_n{n}": chol_kernel.solve_shared_bytes(n)
@@ -516,23 +528,37 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-def f32_stage_bound(m: int, n: int, B: int, iters: int) -> dict:
-    """The least time of an exact-f32 stage at (m, n, B, iters) on the FMA
-    units, which csrc/admm_stage.cu uses: 2 products of 2 m n B flop an
-    iteration at the f32 peak, against the bytes (each input read once, each
-    output written once). Beside it, the bound of the reference's own f32
-    algorithm on the tensor cores, 6 bf16 passes a product at the bf16 peak
-    (PERF.md section 6: a kernel of them cost the fleet tick converged lanes,
-    so the port runs none)."""
-    ops_ms = 1e3 * iters * 2 * (2 * m * n) * B / PEAK_F32_FLOPS
-    nbytes = 4 * (B * ((3 * m + 2 * n + 1) + (m + n)) + m * n + m + n)
-    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+F32_PEAK = f"{SPEC.peak_flops_f32 / 1e12:g} TFLOP/s f32"
+BF16_PEAK = f"{SPEC.peak_flops_bf16 / 1e12:g} TFLOP/s bf16 dense"
+HBM_RATE = f"{SPEC.hbm_bytes_per_s / 1e12:g} TB/s"
+
+
+def bound_source(*peaks: str) -> str:
+    return f"{SPEC.name} data sheet: " + ", ".join(peaks)
+
+
+def fma_bound(cost: profiling.KernelCost) -> dict:
+    """The least time in ms of a kernel on the FMA units: its cost model's
+    float32 operations at the f32 peak against its bytes (each input read
+    once, each output written once) at the memory rate."""
+    units = cost.unit_seconds(SPEC)
+    ops_ms, bytes_ms = 1e3 * units["fma"], 1e3 * units["memory"]
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-            "bound_six_pass_ms": 1e3 * iters * 2 * 6 * 2 * m * n * B / PEAK_BF16_FLOPS,
-            "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 989 TFLOP/s bf16 dense,"
-                            " 3.35 TB/s"}
+            "bound_source": bound_source(F32_PEAK, HBM_RATE)}
+
+
+def f32_stage_bound(m: int, n: int, B: int, iters: int) -> dict:
+    """The least time of an exact-f32 stage at (m, n, B, iters) on the FMA
+    units, which csrc/admm_stage.cu uses (``profiling.admm_stage_cost``, mode
+    "f32"). Beside it, the bound of the reference's own f32 algorithm on the
+    tensor cores, 6 bf16 passes a product at the bf16 peak (PERF.md section 6:
+    a kernel of them cost the fleet tick converged lanes, so the port runs
+    none)."""
+    return {**fma_bound(profiling.admm_stage_cost(B, m, n, iters, "f32")),
+            "bound_six_pass_ms": 1e3 * iters * 2 * 6 * 2 * m * n * B / SPEC.peak_flops_bf16,
+            "bound_source": bound_source(F32_PEAK, BF16_PEAK, HBM_RATE)}
 
 
 def ptxas_residency(source: str, defines: dict) -> dict:
@@ -797,9 +823,8 @@ def kernels_admm_lane(seen, sm_clock_hz: float, sm_count: int) -> dict:
     B, m, n = WBC_LANES, WBC_M, WBC_N
     kernel_ms = median_ms(lambda: lane_kernel.admm_lane_stage(*args, **kw), 2, 9)
     plain_ms = median_ms(lambda: lane_kernel.admm_lane_stage_reference(*args, **kw), 1, 3)
-    flops = WBC_STAGE * 2 * (2 * m * n + n * n) * B
-    nbytes = 4 * B * (m * n + n * n + 5 * m + 2 * n)   # operators and vectors in, v and x out
-    ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    cost = profiling.admm_lane_cost(B, m, n, WBC_STAGE)
+    bound = fma_bound(cost)
     # what the register-resident design still reads from shared memory an
     # iteration, at 128 bytes a clock an SM: the words each warp reads (a
     # broadcast counted once) of w, of r, of the warps' x partials and of x,
@@ -818,16 +843,12 @@ def kernels_admm_lane(seen, sm_clock_hz: float, sm_count: int) -> dict:
         "cases": cases, "nan_lane": "confined", "max_rel_err": max_rel,
         "max_abs_err": max_abs, "tolerance_rel": REL_TOL,
         "tolerance_rel_real_operators": REAL_OPERATOR_TOL, "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-        "fraction_of_bound": max(ops_ms, bytes_ms) / kernel_ms,
-        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
+        "plain_ms": plain_ms, **bound, "fraction_of_bound": bound["bound_ms"] / kernel_ms,
         "shared_memory_reread_bytes": reread,
         "shared_memory_bytes_per_s": shared_rate,
         "shared_memory_ms": 1e3 * reread / shared_rate,
         "shared_memory_rate_source": f"{sm_count} SMs x 128 B/clk x max SM clock",
-        "gflops": flops / (kernel_ms * 1e-3) / 1e9, "library_ms": None,
+        "gflops": cost.fma_flops / (kernel_ms * 1e-3) / 1e9, "library_ms": None,
     }
 
 
@@ -907,20 +928,14 @@ def kernels_chol_lane(seen) -> dict:
     plain_ms = median_ms(lambda: chol_kernel.cholesky_inverse_lane_reference(K), 1, 3)
     library_ms = median_ms(
         lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(K)[0]), 2, 9)
-    flops = B * n ** 3                     # n^3/3 each: factor, L^-1, L^-T L^-1
-    nbytes = 4 * B * 2 * n * n
-    ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    bound = fma_bound(profiling.cholesky_inverse_cost(B, n))
     return {
         "name": "cholesky_inverse_lane", "shape": [n, n], "batch_timed": B,
-        **chol_kernel_residency(n), "fraction_of_bound": max(ops_ms, bytes_ms) / kernel_ms,
+        **chol_kernel_residency(n), "fraction_of_bound": bound["bound_ms"] / kernel_ms,
         "cases": cases + real, "nan_lane": "confined", "not_spd_lane": "confined",
         "max_rel_err": max_rel, "max_abs_err": max_abs, "tolerance_rel": REL_TOL,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_call": "torch.linalg.cholesky_ex + torch.cholesky_inverse",
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
+        "library_call": "torch.linalg.cholesky_ex + torch.cholesky_inverse", **bound,
     }
 
 
@@ -1119,7 +1134,7 @@ def kernels_admm_stage_l2() -> dict:
                         # v, l, u read and v written over m, gq read over n, a lane an
                         # iteration, through device memory: the design's floor by bytes
                         "bytes_floor_ms": 1e3 * 4 * GAIT_LANES * STAGE_ITERS * (4 * m + n)
-                        / PEAK_BYTES_PER_S,
+                        / SPEC.hbm_bytes_per_s,
                         "operator_read_gb_per_s": operator_gb / (kernel_ms * 1e-3),
                         "kernel_ms_half_lanes": half_ms, "half_lanes_ratio": half_ms / kernel_ms}
         del sources, timed
@@ -1199,7 +1214,7 @@ def tc_l2_traffic(m: int, n: int, B: int, iters: int, matmul: str) -> dict:
     per_iter = 4 * m + 2 * n if matmul == "split" else 6 * m + 4 * n
     state = 4 * B * iters * per_iter
     return {"operator_l2_gb": operator / 1e9, "state_gb": state / 1e9,
-            "bytes_floor_ms": 1e3 * state / PEAK_BYTES_PER_S}
+            "bytes_floor_ms": 1e3 * state / SPEC.hbm_bytes_per_s}
 
 
 def kernels_admm_stage_tc_l2() -> dict:
@@ -1365,28 +1380,21 @@ def tc_compare(args, kw, matmul: str, tol: float, what: str, hold: bool = True,
 
 
 def tc_bound(m: int, n: int, B: int, iters: int, matmul: str) -> dict:
-    """The least time of a stage at (m, n, B, iters): the tensor cores' passes
-    (2 m n B flop each: 3 a product in every iteration of "split", in the first
-    of "delta" and 2 after) at the bf16 peak, against the f32 elementwise
-    operations counted from csrc/admm_stage_tc.cu (an element of v: clip 9, w
-    2, its split 4 or its increment 2, the update 12; of tau: 2, and its split
-    4 or increment 2; 5 an element of tau for the stage's gains; at the f32
-    peak, an FMA two) and the bytes (each input read once, each output
-    written once)."""
-    passes = 2 * (3 * iters if matmul == "split" else 3 + 2 * (iters - 1))
-    first, later = 27 * m + 6 * n, (27 * m + 6 * n if matmul == "split" else 25 * m + 4 * n)
-    ops = B * (first + (iters - 1) * later + 5 * n)
-    nbytes = 4 * (B * ((3 * m + 2 * n + 1) + (m + n)) + m * n + m + n)
-    times = {"tensor": 1e3 * passes * 2 * m * n * B / PEAK_BF16_FLOPS,
-             "elementwise": 1e3 * ops / PEAK_F32_FLOPS,
-             "bytes": 1e3 * nbytes / PEAK_BYTES_PER_S}
+    """The least time of a tensor-core stage at (m, n, B, iters)
+    (``profiling.admm_stage_cost`` in mode "split" or "delta"): the tensor
+    cores' passes of 2 m n B flop at the bf16 peak, against the f32
+    elementwise operations counted from csrc/admm_stage_tc.cu at the f32 peak
+    and the bytes at the memory rate."""
+    cost = profiling.admm_stage_cost(B, m, n, iters, matmul)
+    units = cost.unit_seconds(SPEC)
+    times = {"tensor": 1e3 * units["tensor"], "elementwise": 1e3 * units["fma"],
+             "bytes": 1e3 * units["memory"]}
     by = max(times, key=times.get)
     return {"bound_ms": times[by], "bound_by": "bytes" if by == "bytes" else "operations",
             "bound_basis": by, "bound_tensor_ms": times["tensor"],
             "bound_elementwise_ms": times["elementwise"], "bound_bytes_ms": times["bytes"],
-            "passes": passes,
-            "bound_source": "H100 SXM data sheet: 989 TFLOP/s bf16 dense, 67 TFLOP/s f32,"
-                            " 3.35 TB/s"}
+            "passes": round(cost.tensor_flops / (2 * m * n * B)),
+            "bound_source": bound_source(BF16_PEAK, F32_PEAK, HBM_RATE)}
 
 
 def capture_tick_stages(problem, ticks: int, lanes: int = BATCH, horizon: int = HORIZON) -> list:
@@ -1561,18 +1569,13 @@ def kernels_admm_lane_stack(seen) -> dict:
     kernel_ms = median_ms(lambda: lane_kernel.admm_lane_stage(*args, **kw), 2, 9)
     plain_ms = median_ms(lambda: lane_kernel.admm_lane_stage_reference(*args, **kw), 1, 3)
     B, m, n, iters = args[0].shape[0], WBC_M, WBC_N, kw["iters"]
-    flops = iters * 2 * (2 * m * n + n * n) * B
-    nbytes = 4 * B * (m * n + n * n + 5 * m + 2 * n)
-    ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    bound = fma_bound(profiling.admm_lane_cost(B, m, n, iters))
     return {
         "name": "admm_lane_stage", "path": "stack", "shape": [m, n], "iters": iters,
-        **lane_kernel_residency(m, n), "fraction_of_bound": max(ops_ms, bytes_ms) / kernel_ms,
+        **lane_kernel_residency(m, n), "fraction_of_bound": bound["bound_ms"] / kernel_ms,
         "batch_timed": B, "cases": cases, "max_rel_err": max_rel, "max_abs_err": max_abs,
         "tolerance_rel": REAL_OPERATOR_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s", "library_ms": None,
+        **bound, "library_ms": None,
     }
 
 
@@ -1603,19 +1606,14 @@ def kernels_chol_inverse_stack(seen) -> dict:
     plain_ms = median_ms(lambda: chol_kernel.cholesky_inverse_lane_reference(K), 1, 3)
     library_ms = median_ms(
         lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(K)[0]), 2, 9)
-    ops_ms = 1e3 * B * n ** 3 / PEAK_F32_FLOPS
-    bytes_ms = 1e3 * 4 * B * 2 * n * n / PEAK_BYTES_PER_S
+    bound = fma_bound(profiling.cholesky_inverse_cost(B, n))
     return {
         "name": "cholesky_inverse_lane", "path": "stack", "shape": [n, n], "batch_timed": B,
-        **chol_kernel_residency(n), "fraction_of_bound": max(ops_ms, bytes_ms) / kernel_ms,
+        **chol_kernel_residency(n), "fraction_of_bound": bound["bound_ms"] / kernel_ms,
         "cases": cases, "max_rel_err": max_rel, "max_abs_err": max_abs,
         "tolerance_rel": REL_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "library_ms": library_ms,
-        "library_call": "torch.linalg.cholesky_ex + torch.cholesky_inverse",
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
+        "library_call": "torch.linalg.cholesky_ex + torch.cholesky_inverse", **bound,
     }
 
 
@@ -1742,8 +1740,6 @@ def kernels_chol_solve(seen) -> dict:
     plain_ms = median_ms(lambda: chol_kernel.cholesky_solve_lane_reference(K, b), 1, 5)
     library_ms = median_ms(lambda: torch.cholesky_solve(
         b[..., None], torch.linalg.cholesky_ex(K)[0])[..., 0], 3, 11)
-    ops_ms = 1e3 * B * (n ** 3 / 3 + 2 * n * n) / PEAK_F32_FLOPS
-    bytes_ms = 1e3 * 4 * B * (n * n + 2 * n) / PEAK_BYTES_PER_S
     residency = {}
     for size in SOLVE_SIZES:
         attrs = chol_kernel.solve_kernel_attributes(size)
@@ -1764,10 +1760,7 @@ def kernels_chol_solve(seen) -> dict:
         "host_us_per_call_batch_1": one["host_us_per_call"], "plain_ms": plain_ms,
         "library_ms": library_ms,
         "library_call": "torch.linalg.cholesky_ex + torch.cholesky_solve",
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
+        **fma_bound(profiling.cholesky_solve_cost(B, n)),
     }
 
 
@@ -1776,17 +1769,16 @@ def foot_max_abs(a, b) -> float:
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
-def foot_bound_ms(fleet, steps: int) -> tuple:
-    """(bound, by operations, by bytes) in ms of one rollout of ``fleet``: each
-    lane's state read and written once, the per-lane operands read once."""
+def foot_bound(fleet, steps: int) -> dict:
+    """The least time of one rollout of ``fleet`` (``profiling.foot_rollout_cost``):
+    each lane's state read and written once, the operands the kernel takes
+    read once."""
     _, _, _, _, p0, R0, k, b, scal, _ = rollout_kernel.rollout_operands(
         fleet.cparams, fleet.fparams, fleet.state, fleet.null_position, fleet.null_rotation,
         fleet.dt)
-    B = fleet.state.position.shape[0]
-    floats = 2 * 18 * B + sum(t.numel() for t in (p0, R0, k, b, scal))
-    ops_ms = 1e3 * B * steps * FOOT_OPS_PER_LANE_STEP / PEAK_F32_FLOPS
-    bytes_ms = 1e3 * 4 * floats / PEAK_BYTES_PER_S
-    return max(ops_ms, bytes_ms), ops_ms, bytes_ms
+    return fma_bound(profiling.foot_rollout_cost(
+        fleet.state.position.shape[0], steps,
+        operand_floats=sum(t.numel() for t in (p0, R0, k, b, scal))))
 
 
 def foot_identify_segments(lanes: int = IDENT_LANES) -> dict:
@@ -1901,8 +1893,7 @@ def kernels_foot_rollout() -> dict:
     raw_short_ms = median_ms(lambda: raw(IDENT_STEPS), 5, 21)
     plain_ms = median_ms(lambda: rollout_kernel.foot_rollout_fused_reference(
         *args(fleet), dt=fleet.dt, steps=FOOT_STEPS), 0, 3)
-    bound, ops_ms, bytes_ms = foot_bound_ms(fleet, FOOT_STEPS)
-    short_bound = foot_bound_ms(fleet, IDENT_STEPS)[0]
+    bound = foot_bound(fleet, FOOT_STEPS)
     ops = FOOT_LANES * FOOT_STEPS * FOOT_OPS_PER_LANE_STEP
     return {
         "name": "foot_rollout_fused", "path": "foot", "shape": [FOOT_LANES, FOOT_STEPS],
@@ -1911,12 +1902,10 @@ def kernels_foot_rollout() -> dict:
         "raw_launch_ms": raw_ms, "raw_launch_ms_10_steps": raw_short_ms,
         **ptxas_residency(rollout_kernel.SOURCE, {}), "shared_bytes": 0,
         "plain_ms": plain_ms, "library_ms": None,
-        "bound_ms": bound, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms, "bound_ms_10_steps": short_bound,
+        **bound, "bound_ms_10_steps": foot_bound(fleet, IDENT_STEPS)["bound_ms"],
         "ops_per_lane_step": FOOT_OPS_PER_LANE_STEP,
         "tops": ops / (kernel_ms * 1e-3) / 1e12,
         "lane_steps_per_s": FOOT_LANES * FOOT_STEPS / (kernel_ms * 1e-3),
-        "bound_source": "H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s",
     }
 
 
@@ -3484,6 +3473,174 @@ def phase_mesh(problem) -> dict:
     return record
 
 
+def record_stage_calls(run):
+    """Runs ``run()`` with every call of K1's wrapper (``admm_stage``, as
+    ``sol_rows`` and ``solve_qp_factored`` reach it) recorded: by (m, n, mode,
+    iterations), the calls and the first and last call's arguments. Returns
+    ``(run(), seen)``."""
+    original, seen = admm_kernel.admm_stage, {}
+
+    def record(*args, **kw):
+        m, n = args[6].shape
+        key = (m, n, kw.get("matmul", "f32"), kw["iters"])
+        calls = seen.setdefault(key, {"calls": 0, "first": (args, kw)})
+        calls["calls"] += 1
+        calls["last"] = (args, kw)
+        return original(*args, **kw)
+
+    with mock.patch.object(admm_kernel, "admm_stage", record), \
+            mock.patch.object(qp_module, "admm_stage", record):
+        out = run()
+    torch.cuda.synchronize()
+    return out, seen
+
+
+def sol_stage_cases(seen, m: int, n: int):
+    """K1 at (m, n) against its plain version on the inputs the table handed
+    it, B in SOL_BATCHES: the f32 kernel on the rows' first (cold) and last
+    (settled) chained tick, to REL_TOL; "split" on both, to TC_SPLIT_TOL;
+    "delta" over its 3-pass first iteration and its first increment of the
+    cold tick and of the solves' first stage (as ``kernels_admm_stage_tc``),
+    and over all iterations of the settled tick, to TC_WARM_TOL (its cold
+    runs and the solves' last stage reported, not held); a NaN lane confined
+    in every mode. Returns ``(f32 cases, tensor-core cases, the rows' cold
+    arguments and keywords)``."""
+    f32, tc = [], []
+    cold, cold_kw = seen[(m, n, "f32", SOL_ITERS)]["first"]
+    kw = dict(iters=cold_kw["iters"], alpha=cold_kw["alpha"])
+    for where in ("first", "last"):
+        args, _ = seen[(m, n, "f32", SOL_ITERS)][where]
+        for B in SOL_BATCHES:
+            sub = lanes_of(args[:6], B) + tuple(args[6:])
+            v_k, tau_k = admm_kernel.admm_stage(*sub, **kw)
+            torch.cuda.synchronize()
+            v_p, tau_p = admm_kernel.admm_stage_reference(*sub, **kw)
+            check(bool(torch.isfinite(v_k).all() and torch.isfinite(tau_k).all()),
+                  f"admm_stage f32 at ({m}, {n}): kernel output finite on the {where} tick")
+            ev, et = rel_err(v_k, v_p), rel_err(tau_k, tau_p)
+            ea = max(float((v_k - v_p).abs().max()), float((tau_k - tau_p).abs().max()))
+            f32.append({"inputs": f"sol_{where}_tick", "B": B, "iters": kw["iters"],
+                        "rel_err_v": ev, "rel_err_tau": et, "max_abs_err": ea})
+            check(ev <= REL_TOL and et <= REL_TOL,
+                  f"admm_stage f32 agrees with its plain version to {REL_TOL} on the sol table's"
+                  f" {where} tick at ({m}, {n}), B={B}: v {ev}, tau {et}")
+    for where, tol in (("first", TC_SPLIT_TOL), ("last", TC_SPLIT_TOL)):
+        args, _ = seen[(m, n, "split", SOL_ITERS)][where]
+        for B in SOL_BATCHES:
+            sub = lanes_of(args[:6], B) + tuple(args[6:])
+            tc.append(tc_compare(sub, kw, "split", tol, f"sol_{where}_tick"))
+    for key, name in (((m, n, "delta", SOL_ITERS), "sol_tick"),
+                      ((m, n, "delta", STAGE_ITERS), "sol_solve_stage")):
+        first, first_kw = seen[key]["first"]
+        last, last_kw = seen[key]["last"]
+        skw = dict(iters=first_kw["iters"], alpha=first_kw["alpha"])
+        settled = name == "sol_tick"       # the chain's last tick, after 9 of 50 iterations
+        for B in SOL_BATCHES:
+            sub = lanes_of(first[:6], B) + tuple(first[6:])
+            tc.append(tc_compare(sub, dict(skw, iters=1), "delta", TC_SPLIT_TOL, f"{name}_first"))
+            tc.append(tc_compare(sub, dict(skw, iters=2), "delta", TC_STEP_TOL, f"{name}_first"))
+            tc.append(tc_compare(sub, skw, "delta", None, f"{name}_first", hold=False))
+            sub = lanes_of(last[:6], B) + tuple(last[6:])
+            tc.append(tc_compare(sub, dict(iters=last_kw["iters"], alpha=last_kw["alpha"]),
+                                 "delta", TC_WARM_TOL, f"{name}_last", hold=settled))
+    nan_args = list(lanes_of(cold[:6], 1000) + tuple(cold[6:]))
+    for matmul in ("f32",) + TC_MODES:
+        nan_confined(nan_args, kw, matmul, f"admm_stage {matmul} at ({m}, {n}) on the sol table")
+    return f32, tc, (cold, kw)
+
+
+def f32_entry(cases: list, timed_args, kw, shape, path: str) -> dict:
+    """The f32 kernel's entry at ``shape``: ``cases`` and its times on
+    ``timed_args``."""
+    m, n = shape
+    B = timed_args[0].shape[0]
+    kernel_ms = median_ms(lambda: admm_kernel.admm_stage(*timed_args, **kw), 2, 7)
+    plain_ms = median_ms(lambda: admm_kernel.admm_stage_reference(*timed_args, **kw), 1, 3)
+    bound = f32_stage_bound(m, n, B, kw["iters"])
+    return {"name": "admm_stage", "path": path, "shape": [m, n], "iters": kw["iters"],
+            "batch_timed": B, "cases": cases, "nan_lane": "confined",
+            "max_rel_err": max(max(c["rel_err_v"], c["rel_err_tau"]) for c in cases),
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance_rel": REL_TOL,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, **bound,
+            "fraction_of_bound": bound["bound_ms"] / kernel_ms, "library_ms": None}
+
+
+def phase_sol() -> dict:
+    """``python -m blf_tpu_torch.utils.profiling``'s speed-of-light table on
+    the card (``profiling.sol_rows``), one JSON line a row: every time
+    positive, every row scored by a kernel's cost model within its bound,
+    K1 launched in all three modes and K5 with no plain run, and the spec
+    detected from the card's name. Then K1 at both of the table's shapes
+    against its plain version on the inputs the table handed it
+    (``sol_stage_cases``), and its entries at (SOL_M, SOL_N), a shape no
+    other path runs."""
+    kind = torch.cuda.get_device_name(0)
+    check(SPEC == profiling.spec_for_name(kind), f"the spec follows the card's name {kind!r}")
+    if kind == "NVIDIA H100 80GB HBM3":
+        check(SPEC.name == "H100 SXM", f"{kind} is scored as the H100 SXM, not {SPEC}")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with profiling.trace("sol_rows"):          # an NVTX range on the card
+        rows, seen = record_stage_calls(profiling.sol_rows)
+    seconds = time.perf_counter() - t0
+    counts = stage_counts()
+    launches = {"f32": counts["f32"], "tc_delta": counts["tc_delta"],
+                "tc_split": counts["tc_split"], "foot": rollout_kernel.launch_count(),
+                "plain": counts["plain"] + rollout_kernel.reference_count()}
+    # K1's launches by shape: the wrapper's calls by shape, which add up to its counts
+    shapes = sorted({key[:2] for key in seen})
+    check(shapes == sorted([(SOL_M, SOL_N), (M, N)]),
+          f"the table runs K1 at ({SOL_M}, {SOL_N}) and ({M}, {N}): {shapes}")
+    by_shape = {f"{m}x{n}": {f"tc_{mode}" if mode != "f32" else mode:
+                             sum(c["calls"] for key, c in seen.items()
+                                 if key[:3] == (m, n, mode))
+                             for mode in ("f32",) + TC_MODES} for m, n in shapes}
+    for mode in ("f32", "tc_delta", "tc_split"):
+        check(sum(s[mode] for s in by_shape.values()) == launches[mode],
+              f"K1's {mode} launches add up by shape: {by_shape}, {launches}")
+    # measure (CUDA events), cost_analysis and the spec of the arguments' device
+    x = torch.randn((SOL_MATMUL, SOL_MATMUL), device=DEVICE)
+    matmul = profiling.sol_report(torch.matmul, x, x, label=f"matmul {SOL_MATMUL} f32")
+    check(matmul["flops"] == 2 * SOL_MATMUL ** 3 and matmul["bound"] == "compute"
+          and 0 < matmul["sol_frac"] <= SOL_FRAC_MAX and matmul["chip"] == SPEC.name,
+          f"sol_report of a float32 matmul: {matmul}")
+    del x
+    for row in rows + [matmul]:
+        print(json.dumps({"sol_row": row}), flush=True)
+    for row in rows:
+        check(row["time_s"] > 0, f"{row['label']}: a positive time")
+        if "tensor_core_util" in row:     # scored by a KernelCost
+            check(0 < row["sol_frac"] <= SOL_FRAC_MAX,
+                  f"{row['label']}: within its bound, sol_frac {row['sol_frac']}")
+    check(min(launches[k] for k in ("f32", "tc_delta", "tc_split", "foot")) > 0
+          and launches["plain"] == 0, f"the table ran K1 in every mode and K5, no plain run:"
+                                      f" {launches}")
+    check(seconds < SOL_SECONDS, f"the table in {seconds:.1f} s (limit {SOL_SECONDS})")
+
+    # K1 against its plain version on the table's own inputs, after the counts were read
+    entries, held = [], {}
+    for m, n in shapes:
+        f32, tc, (cold, kw) = sol_stage_cases(seen, m, n)
+        if (m, n) == (SOL_M, SOL_N):
+            entries += [f32_entry(f32, cold, kw, (m, n), "sol"),
+                        tc_entry(tc, cold, kw, (m, n), path="sol")]
+        else:
+            held_tc = [c for c in tc if c["tolerance_rel"] is not None]
+            held[f"{m}x{n}"] = {
+                "admm_stage": {"max_rel_err": max(max(c["rel_err_v"], c["rel_err_tau"])
+                                                  for c in f32),
+                               "max_abs_err": max(c["max_abs_err"] for c in f32)},
+                "admm_stage_tc": {"max_rel_err": max(max(c["rel_err_v"], c["rel_err_tau"])
+                                                     for c in held_tc),
+                                  "max_abs_err": max(c["max_abs_err"] for c in held_tc)},
+                "cases": f32 + tc}
+    del seen, cold
+    return emit("sol", spec=dataclasses.asdict(SPEC), rows=len(rows), launches=launches,
+                launches_by_shape=by_shape, table_seconds=round(seconds, 1),
+                held_at_other_shapes=held, entries=entries,
+                seconds=round(time.perf_counter() - t0, 1))
+
+
 def study_factorization(problem, lanes: int = STUDY_LANES, ticks: int = 8) -> dict:
     """Diagnostic, off by default: where the factorization is computed, and in
     which precision, against the fleet's convergence over the first ticks.
@@ -3574,6 +3731,7 @@ def main() -> None:
         phase_dcm_planner()
     resume = phase_resume(problem) if "resume" in phases else None
     mesh = phase_mesh(problem) if "mesh" in phases else None
+    sol = phase_sol() if "sol" in phases else None
     if opts.study_factorization:
         study_factorization(problem)
 
@@ -3583,11 +3741,26 @@ def main() -> None:
         none = {}
         wbc_l = wbc["kernel_launches"] if wbc else none
         stack_l = stack["launches"] if stack else none
+        k1_none = {"f32": 0, "tc_delta": 0, "tc_split": 0}
+        sol_k1 = sol["launches_by_shape"].get(f"{M}x{N}", k1_none) if sol else k1_none
+        sol_small = sol["launches_by_shape"].get(f"{SOL_M}x{SOL_N}", k1_none) if sol else k1_none
+        if sol:
+            # the table's K1 entries at its own shape, and its agreement at the tick's
+            kernels.update({e["name"] + "@sol": e for e in sol["entries"]})
+            for name, err in sol["held_at_other_shapes"].get(f"{M}x{N}", {}).items():
+                if name in kernels:
+                    for key in ("max_rel_err", "max_abs_err"):
+                        kernels[name][key] = max(kernels[name][key], err[key])
         by_path = {
             "admm_stage": {"tick": tick["kernel_launches"] if tick else 0,
-                           "resume": resume["launches"] if resume else 0},
+                           "resume": resume["launches"] if resume else 0,
+                           "sol": sol_k1["f32"]},
             "admm_stage_tc": {"tick_delta": tick_delta["kernel_launches"] if tick_delta else 0,
-                              "mesh": mesh["launches"]["tc_delta"] if mesh else 0},
+                              "mesh": mesh["launches"]["tc_delta"] if mesh else 0,
+                              "sol_delta": sol_k1["tc_delta"], "sol_split": sol_k1["tc_split"]},
+            "admm_stage@sol": {"sol": sol_small["f32"]},
+            "admm_stage_tc@sol": {"sol_delta": sol_small["tc_delta"],
+                                  "sol_split": sol_small["tc_split"]},
             "admm_stage@stack": {"stack": stack_l.get("admm_stage", 0),
                                  "stack_cross": stack_cross["admm_stage_launches"]
                                  if stack_cross else 0},
@@ -3600,7 +3773,8 @@ def main() -> None:
                 "stack": stack_l.get("cholesky_inverse_lane_n29", 0)},
             "cholesky_solve_lane@stack": {"stack": stack_l.get("cholesky_solve_lane", 0)},
             "foot_rollout_fused": {"foot": foot["launches"] if foot else 0,
-                                   "identify": ident["launches"] if ident else 0},
+                                   "identify": ident["launches"] if ident else 0,
+                                   "sol": sol["launches"]["foot"] if sol else 0},
             "admm_stage_l2": {"gait": gait["launches"]["l2"] if gait else 0},
             "admm_stage_tc_l2": {
                 "gait_delta": gait_delta["launches"]["tc_l2_delta"] if gait_delta else 0,

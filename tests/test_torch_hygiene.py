@@ -55,7 +55,7 @@ def test_every_module_imports_without_jax_or_a_gpu_toolchain():
     assert {"blf_tpu_torch.planners.contacts", "blf_tpu_torch.planners.convex_hull",
             "blf_tpu_torch.planners.gait", "blf_tpu_torch.native"} <= set(modules)
     assert {"blf_tpu_torch.parallel.mesh", "blf_tpu_torch.parallel.pipeline",
-            "blf_tpu_torch.parallel.collectives"} <= set(modules)
+            "blf_tpu_torch.parallel.collectives", "blf_tpu_torch.utils.profiling"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
