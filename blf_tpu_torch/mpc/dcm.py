@@ -27,8 +27,16 @@ from blf_tpu_torch.models.lipm import (LIPMParams, com_trajectory_from_dcm,
                                        lipm_omega)
 from blf_tpu_torch.mpc.qp import (QPSolution, factor_shared_qp, solve_qp,
                                   solve_qp_factored)
+from blf_tpu_torch.utils.profiling import trace
 
-__all__ = ["DCMWeights", "DCMPlan", "build_dcm_qp", "solve_dcm_mpc"]
+__all__ = ["DCMWeights", "DCMPlan", "build_dcm_qp", "solve_dcm_mpc", "SPANS"]
+
+#: the spans of :func:`solve_dcm_mpc` (:func:`blf_tpu_torch.utils.profiling.trace`):
+#: the transcription (:func:`build_dcm_qp` and the warm start's rollout), the
+#: factorization and the solve (``mpc/qp.py``'s spans) and the rollout of the
+#: ZMP, DCM and CoM trajectories; ``sync.h2d`` around each copy from the host
+#: that waits for the device
+SPANS = ("dcm.transcribe", "dcm.rollout", "sync.h2d")
 
 
 class DCMWeights(NamedTuple):
@@ -57,7 +65,9 @@ class DCMPlan(NamedTuple):
 def _zoh_gain(params: LIPMParams, dt, dtype, device) -> torch.Tensor:
     """``a = e^{w dt}`` in the working dtype."""
     w = lipm_omega(params).to(device=device, dtype=dtype)
-    return torch.exp(w * torch.as_tensor(dt, dtype=dtype, device=device))
+    with trace("sync.h2d"):
+        dt = torch.as_tensor(dt, dtype=dtype, device=device)
+    return torch.exp(w * dt)
 
 
 def build_dcm_qp(
@@ -112,7 +122,8 @@ def build_dcm_qp(
     Adyn_x = torch.cat([Adyn_xi, zero, Adyn_z, zero], dim=-1)
     Adyn_y = torch.cat([zero, Adyn_xi, zero, Adyn_z], dim=-1)
     rhs0 = torch.zeros((N,), **new)
-    rhs0[0] = 1.0
+    with trace("sync.h2d"):
+        rhs0[0] = 1.0
     bdyn_x = a * dcm0[..., 0, None] * rhs0                # (..., N)
     bdyn_y = a * dcm0[..., 1, None] * rhs0
 
@@ -176,32 +187,34 @@ def solve_dcm_mpc(
     out of a scan over ticks; hoisting it here is named in ROADMAP.md).
     """
     N = zmp_ref.shape[-2]
-    P, q, A, l, u = build_dcm_qp(
-        params, dt, dcm0, dcm_ref, zmp_ref, poly_A, poly_b, weights)
-    x0 = None
-    if warm_start is not None:
-        # warm_start: previous (..., N, 2) ZMP plan; seed xi by exact rollout.
-        a_ws = _zoh_gain(params, dt, warm_start.dtype, warm_start.device)
-        xi = dcm0
-        xis = []
-        for k in range(N):
-            xi = a_ws * xi + (1 - a_ws) * warm_start[..., k, :]
-            xis.append(xi)
-        xi_seq = torch.stack(xis, dim=-2)
-        x0 = torch.cat(
-            [xi_seq[..., 0], xi_seq[..., 1],
-             warm_start[..., 0], warm_start[..., 1]], dim=-1)
+    with trace("dcm.transcribe"):
+        P, q, A, l, u = build_dcm_qp(
+            params, dt, dcm0, dcm_ref, zmp_ref, poly_A, poly_b, weights)
+        x0 = None
+        if warm_start is not None:
+            # warm_start: previous (..., N, 2) ZMP plan; seed xi by exact rollout.
+            a_ws = _zoh_gain(params, dt, warm_start.dtype, warm_start.device)
+            xi = dcm0
+            xis = []
+            for k in range(N):
+                xi = a_ws * xi + (1 - a_ws) * warm_start[..., k, :]
+                xis.append(xi)
+            xi_seq = torch.stack(xis, dim=-2)
+            x0 = torch.cat(
+                [xi_seq[..., 0], xi_seq[..., 1],
+                 warm_start[..., 0], warm_start[..., 1]], dim=-1)
+        if shared:
+            # structural equality mask: the first 2N rows are the dynamics
+            # equalities. (P, A) depend only on the shared refs/polygons; with
+            # those unbatched there is one copy of each, and the batch rides
+            # (q, l, u).
+            if poly_A.dim() != 3 or poly_b.dim() != 2:
+                raise ValueError(
+                    "solve_dcm_mpc(shared=True) requires unbatched poly_A/poly_b"
+                    " (lanes share one transcription); use shared=False for"
+                    " per-lane polygons")
+            is_eq = torch.arange(A.shape[-2], device=A.device) < 2 * N
     if shared:
-        # structural equality mask: the first 2N rows are the dynamics
-        # equalities. (P, A) depend only on the shared refs/polygons; with
-        # those unbatched there is one copy of each, and the batch rides
-        # (q, l, u).
-        if poly_A.dim() != 3 or poly_b.dim() != 2:
-            raise ValueError(
-                "solve_dcm_mpc(shared=True) requires unbatched poly_A/poly_b"
-                " (lanes share one transcription); use shared=False for"
-                " per-lane polygons")
-        is_eq = torch.arange(A.shape[-2], device=A.device) < 2 * N
         factors = factor_shared_qp(
             P, A, is_eq,
             **{k: qp_kwargs.pop(k) for k in _FACTOR_KEYS if k in qp_kwargs})
@@ -210,20 +223,21 @@ def solve_dcm_mpc(
     else:
         sol = solve_qp(P, q, A, l, u, iterations=iterations, x0=x0,
                        y0=warm_start_dual, **qp_kwargs)
-    zmp = torch.stack(
-        [sol.x[..., 2 * N: 3 * N], sol.x[..., 3 * N:]], dim=-1)  # (..., N, 2)
+    with trace("dcm.rollout"):
+        zmp = torch.stack(
+            [sol.x[..., 2 * N: 3 * N], sol.x[..., 3 * N:]], dim=-1)  # (..., N, 2)
 
-    # DCM trajectory from the QP's own xi decision variables: the dynamics
-    # equality rows pin them to the rollout within the solver residual. Do
-    # NOT re-roll xi+ = a xi + (1 - a) z forward: the DCM flow is unstable
-    # (a > 1), so over a long horizon that recursion amplifies rounding by
-    # a^T. Consequence: plan.dcm/com satisfy the DCM dynamics only up to the
-    # QP residual; gate on plan.qp.converged before consuming them as
-    # dynamically consistent trajectories.
-    dcm_knots = torch.stack(
-        [sol.x[..., 0:N], sol.x[..., N:2 * N]], dim=-1)   # (..., N, 2) = xi_{1..N}
-    dcm_traj = torch.cat(
-        [dcm0[..., None, :].broadcast_to(dcm_knots[..., :1, :].shape),
-         dcm_knots], dim=-2)
-    com_traj = com_trajectory_from_dcm(params, com0, dcm_traj, zmp, dt)
+        # DCM trajectory from the QP's own xi decision variables: the dynamics
+        # equality rows pin them to the rollout within the solver residual. Do
+        # NOT re-roll xi+ = a xi + (1 - a) z forward: the DCM flow is unstable
+        # (a > 1), so over a long horizon that recursion amplifies rounding by
+        # a^T. Consequence: plan.dcm/com satisfy the DCM dynamics only up to the
+        # QP residual; gate on plan.qp.converged before consuming them as
+        # dynamically consistent trajectories.
+        dcm_knots = torch.stack(
+            [sol.x[..., 0:N], sol.x[..., N:2 * N]], dim=-1)   # (..., N, 2) = xi_{1..N}
+        dcm_traj = torch.cat(
+            [dcm0[..., None, :].broadcast_to(dcm_knots[..., :1, :].shape),
+             dcm_knots], dim=-2)
+        com_traj = com_trajectory_from_dcm(params, com0, dcm_traj, zmp, dt)
     return DCMPlan(zmp=zmp, dcm=dcm_traj, com=com_traj, qp=sol)

@@ -62,10 +62,25 @@ from blf_tpu_torch.ops.cuda.linalg import cholesky_inverse_lane
 from blf_tpu_torch.ops.linalg import cholesky_nan
 from blf_tpu_torch.ops.precision import f32_matmuls
 from blf_tpu_torch.parallel.collectives import pmax_tree, psum_tree
+from blf_tpu_torch.utils.profiling import trace
 
 __all__ = ["QPSolution", "SharedQPFactors", "factor_shared_qp",
            "solve_qp_factored", "solve_qp_shared", "shard_factors_rows",
-           "solve_qp_factored_rowsharded", "solve_qp", "solve_qp_lanes", "BACKENDS"]
+           "solve_qp_factored_rowsharded", "solve_qp", "solve_qp_lanes", "BACKENDS",
+           "SPANS"]
+
+#: the spans of the shared-operator path (:func:`blf_tpu_torch.utils.profiling.trace`):
+#: ``dcm.factor`` around :func:`factor_shared_qp` (Ruiz, Cholesky, ``eigh``,
+#: ``W``, ``G2``, the casts), with ``sync.cholesky`` and ``sync.eigh`` around
+#: the two decompositions that wait for the device (the Cholesky reads its
+#: status, the float64 ``eigh`` its result) and ``sync.h2d`` around a copy
+#: from the host; in :func:`solve_qp_factored`, ``qp.prepare`` (the scaling
+#: of q, l, u, the v-space warm start, ``q W``), then a ``qp.stage`` (the
+#: stage's iterations) and a ``qp.boundary`` (residuals, the penalty rule,
+#: v re-expressed) a stage, and ``qp.finish`` (the unscaled iterate, the
+#: polish when asked, the flags and objective)
+SPANS = ("dcm.factor", "sync.cholesky", "sync.eigh", "sync.h2d", "qp.prepare", "qp.stage",
+         "qp.boundary", "qp.finish")
 
 BACKENDS = ("torch", "cuda", "cuda_split", "cuda_delta")
 #: the stage kernel's matmul mode of each kernel backend of solve_qp_factored
@@ -149,14 +164,15 @@ def factor_shared_qp(
     """
     if P.dim() != 2 or A.dim() != 2:
         raise ValueError("factor_shared_qp requires unbatched P and A")
-    if P.dtype == torch.float32:
-        wide = _factor_shared_qp(
-            P.double(), A.double(), is_eq, rho=rho, sigma=sigma,
-            rho_eq_scale=rho_eq_scale, scaling_iters=scaling_iters)
-        return SharedQPFactors(*(t.to(torch.float32) for t in wide))
-    return _factor_shared_qp(P, A, is_eq, rho=rho, sigma=sigma,
-                             rho_eq_scale=rho_eq_scale,
-                             scaling_iters=scaling_iters)
+    with trace("dcm.factor"):
+        if P.dtype == torch.float32:
+            wide = _factor_shared_qp(
+                P.double(), A.double(), is_eq, rho=rho, sigma=sigma,
+                rho_eq_scale=rho_eq_scale, scaling_iters=scaling_iters)
+            return SharedQPFactors(*(t.to(torch.float32) for t in wide))
+        return _factor_shared_qp(P, A, is_eq, rho=rho, sigma=sigma,
+                                 rho_eq_scale=rho_eq_scale,
+                                 scaling_iters=scaling_iters)
 
 
 def _factor_shared_qp(P, A, is_eq, *, rho, sigma, rho_eq_scale,
@@ -189,17 +205,20 @@ def _factor_shared_qp(P, A, is_eq, *, rho, sigma, rho_eq_scale,
     R2 = A.T @ (base_rho[:, None] * A)
     eye = torch.eye(n, dtype=dtype, device=device)
     P_sig = P + sigma * eye
-    L = torch.linalg.cholesky(P_sig)
+    with trace("sync.cholesky"):            # reads the factorization's status
+        L = torch.linalg.cholesky(P_sig)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     M = Linv @ R2 @ Linv.T
     M = 0.5 * (M + M.T)
-    d, U = torch.linalg.eigh(M)
+    with trace("sync.eigh"):
+        d, U = torch.linalg.eigh(M)
     d = torch.clamp(d, min=0.0)
     W = Linv.T @ U
+    with trace("sync.h2d"):
+        sigma = torch.as_tensor(sigma, dtype=dtype, device=device)
     return SharedQPFactors(
         P_s=P, A_s=A, R2=R2, W=W, d=d, base_rho=base_rho, D=D, E=E,
-        c=c.to(dtype), sigma=torch.as_tensor(sigma, dtype=dtype, device=device),
-        P_orig=P_orig, A_orig=A_orig, G2=A @ W,
+        c=c.to(dtype), sigma=sigma, P_orig=P_orig, A_orig=A_orig, G2=A @ W,
     )
 
 
@@ -274,41 +293,42 @@ def solve_qp_factored(
         )
     refine = (not is_kernel) if refine is None else (refine and not is_kernel)
 
-    q_orig = q
-    batch = torch.broadcast_shapes(q.shape[:-1], l.shape[:-1], u.shape[:-1])
-    flat = lambda t, k: t.broadcast_to(batch + (k,)).reshape(-1, k)
+    with trace("qp.prepare"):
+        q_orig = q
+        batch = torch.broadcast_shapes(q.shape[:-1], l.shape[:-1], u.shape[:-1])
+        flat = lambda t, k: t.broadcast_to(batch + (k,)).reshape(-1, k)
 
-    A, P, sigma = f.A_s, f.P_s, f.sigma
-    qb = flat(f.c * (q * f.D), n)
-    lb = flat(f.E * l, m).contiguous()
-    ub = flat(f.E * u, m).contiguous()
-    qo = flat(q_orig, n)
-    B = qb.shape[0]
+        A, P, sigma = f.A_s, f.P_s, f.sigma
+        qb = flat(f.c * (q * f.D), n)
+        lb = flat(f.E * l, m).contiguous()
+        ub = flat(f.E * u, m).contiguous()
+        qo = flat(q_orig, n)
+        B = qb.shape[0]
 
-    # per-lane warm penalty state first: the v-space init depends on rho(s)
-    if s0 is None:
-        s = torch.ones((B, 1), dtype=dtype, device=device)
-    else:
-        s = flat(torch.as_tensor(s0, dtype=dtype, device=device), 1).contiguous()
-    if x0 is None:
-        z = torch.zeros((B, m), dtype=dtype, device=device)
-    else:
-        z = flat(x0 / f.D, n) @ A.T
-    y = torch.zeros_like(z) if y0 is None else flat(f.c * y0 / f.E, m)
+        # per-lane warm penalty state first: the v-space init depends on rho(s)
+        if s0 is None:
+            s = torch.ones((B, 1), dtype=dtype, device=device)
+        else:
+            s = flat(torch.as_tensor(s0, dtype=dtype, device=device), 1).contiguous()
+        if x0 is None:
+            z = torch.zeros((B, m), dtype=dtype, device=device)
+        else:
+            z = flat(x0 / f.D, n) @ A.T
+        y = torch.zeros_like(z) if y0 is None else flat(f.c * y0 / f.E, m)
 
-    G2 = f.G2 if f.G2 is not None else A @ f.W
-    G2 = G2.contiguous()
-    G2t = G2.T
-    gq = (qb @ f.W).contiguous()      # q W: constant across stages
+        G2 = f.G2 if f.G2 is not None else A @ f.W
+        G2 = G2.contiguous()
+        G2t = G2.T
+        gq = (qb @ f.W).contiguous()      # q W: constant across stages
 
-    # v = z + y/rho, so z = clip(v, l, u) and y = rho (v - z) are recovered
-    # views. Warm starts from a previous solve satisfy the complementarity
-    # this encodes; otherwise iteration 1 re-projects.
-    v = z + y / (s * f.base_rho)
-    # aux primal carry: spectral tau (x = tau W') on the fast path,
-    # materialized x when refining. Neither feeds back into the v recursion,
-    # so 0 is an exact init (overwritten on the first iteration).
-    tau = torch.zeros((B, n), dtype=dtype, device=device)
+        # v = z + y/rho, so z = clip(v, l, u) and y = rho (v - z) are recovered
+        # views. Warm starts from a previous solve satisfy the complementarity
+        # this encodes; otherwise iteration 1 re-projects.
+        v = z + y / (s * f.base_rho)
+        # aux primal carry: spectral tau (x = tau W') on the fast path,
+        # materialized x when refining. Neither feeds back into the v recursion,
+        # so 0 is an exact init (overwritten on the first iteration).
+        tau = torch.zeros((B, n), dtype=dtype, device=device)
 
     def x_of(tau):
         return tau if refine else tau @ f.W.T
@@ -348,27 +368,29 @@ def solve_qp_factored(
     n_stages = max(1, -(-iterations // check_every))
 
     for _ in range(n_stages):
-        v, tau = run_stage(v, tau, s, check_every)
-        z = _clip(v, lb, ub)
-        y = (s * f.base_rho) * (v - z)
-        x = x_of(tau)
-        Ax = Ax_of(tau)
-        Px_ = x @ P.T
-        Aty_ = y @ A
-        rp = _amax(Ax - z) / torch.clamp(
-            torch.maximum(_amax(Ax), _amax(z)), min=1e-12)
-        rd = _amax(Px_ + qb + Aty_) / torch.clamp(
-            torch.maximum(_amax(Px_), torch.maximum(_amax(Aty_), _amax(qb))),
-            min=1e-12)
-        # OSQP per-lane rho rule with hysteresis: move by the residual ratio
-        # only when it leaves [1/5, 5] (continuous s, no ladder quantization)
-        ratio = torch.sqrt(rp / torch.clamp(rd, min=1e-12))[..., None]
-        move = (ratio > 5.0) | (ratio < 0.2)
-        s_new = torch.where(move, torch.clamp(s * ratio, s_min, s_max), s)
-        # rho changed => re-express v so the recovered (z, y) views are
-        # invariant: rho_old (v_old - z) = y = rho_new (v_new - z)
-        v = z + (s / s_new) * (v - z)
-        s = s_new
+        with trace("qp.stage"):
+            v, tau = run_stage(v, tau, s, check_every)
+        with trace("qp.boundary"):
+            z = _clip(v, lb, ub)
+            y = (s * f.base_rho) * (v - z)
+            x = x_of(tau)
+            Ax = Ax_of(tau)
+            Px_ = x @ P.T
+            Aty_ = y @ A
+            rp = _amax(Ax - z) / torch.clamp(
+                torch.maximum(_amax(Ax), _amax(z)), min=1e-12)
+            rd = _amax(Px_ + qb + Aty_) / torch.clamp(
+                torch.maximum(_amax(Px_), torch.maximum(_amax(Aty_), _amax(qb))),
+                min=1e-12)
+            # OSQP per-lane rho rule with hysteresis: move by the residual ratio
+            # only when it leaves [1/5, 5] (continuous s, no ladder quantization)
+            ratio = torch.sqrt(rp / torch.clamp(rd, min=1e-12))[..., None]
+            move = (ratio > 5.0) | (ratio < 0.2)
+            s_new = torch.where(move, torch.clamp(s * ratio, s_min, s_max), s)
+            # rho changed => re-express v so the recovered (z, y) views are
+            # invariant: rho_old (v_old - z) = y = rho_new (v_new - z)
+            v = z + (s / s_new) * (v - z)
+            s = s_new
 
     def finish(v, tau, rho_lane):
         """Recover (x, z, y), unscale, diagnose in the ORIGINAL problem."""
@@ -388,35 +410,36 @@ def solve_qp_factored(
             torch.maximum(_amax(Px), _amax(Aty)), _amax(qo))
         return x, z, y, r_prim, r_dual, prim_tol, dual_tol, Px
 
-    cand = finish(v, tau, s * f.base_rho)
-    if polish_iters > 0:
-        # rho-continuation dual polish: y's granularity is proportional to s,
-        # so a short low-s tail lets the duals settle on converged lanes;
-        # lanes still far from their fixed point can be pushed AWAY by low-rho
-        # iterations, so the polish is accepted per lane only where it
-        # lowered the tolerance-normalized residual score. s itself is NOT
-        # polished: the warm-start s of the next tick stays at the adapted
-        # operating point.
-        s_pol = torch.clamp(s * polish_scale, s_min, s_max)
-        z = _clip(v, lb, ub)
-        v_p = z + (s / s_pol) * (v - z)
-        v_p, tau_p = run_stage(v_p, tau, s_pol, polish_iters)
-        pol = finish(v_p, tau_p, s_pol * f.base_rho)
-        score = lambda r: torch.maximum(r[3] / r[5], r[4] / r[6])
-        better = score(pol) < score(cand)
-        pick = lambda a, b: torch.where(
-            better[:, None] if a.dim() == 2 else better, b, a)
-        cand = tuple(pick(a, b) for a, b in zip(cand, pol))
+    with trace("qp.finish"):
+        cand = finish(v, tau, s * f.base_rho)
+        if polish_iters > 0:
+            # rho-continuation dual polish: y's granularity is proportional to s,
+            # so a short low-s tail lets the duals settle on converged lanes;
+            # lanes still far from their fixed point can be pushed AWAY by low-rho
+            # iterations, so the polish is accepted per lane only where it
+            # lowered the tolerance-normalized residual score. s itself is NOT
+            # polished: the warm-start s of the next tick stays at the adapted
+            # operating point.
+            s_pol = torch.clamp(s * polish_scale, s_min, s_max)
+            z = _clip(v, lb, ub)
+            v_p = z + (s / s_pol) * (v - z)
+            v_p, tau_p = run_stage(v_p, tau, s_pol, polish_iters)
+            pol = finish(v_p, tau_p, s_pol * f.base_rho)
+            score = lambda r: torch.maximum(r[3] / r[5], r[4] / r[6])
+            better = score(pol) < score(cand)
+            pick = lambda a, b: torch.where(
+                better[:, None] if a.dim() == 2 else better, b, a)
+            cand = tuple(pick(a, b) for a, b in zip(cand, pol))
 
-    x, z, y, r_prim, r_dual, prim_tol, dual_tol, Px = cand
-    converged = (r_prim < prim_tol) & (r_dual < dual_tol)
-    objective = 0.5 * (x * Px).sum(dim=-1) + (qo * x).sum(dim=-1)
-    return QPSolution(
-        x.reshape(batch + (n,)), y.reshape(batch + (m,)),
-        z.reshape(batch + (m,)), r_prim.reshape(batch),
-        r_dual.reshape(batch), converged.reshape(batch),
-        objective.reshape(batch), rho_scale=s.reshape(batch + (1,)),
-        refined=torch.full((), bool(refine), dtype=torch.bool, device=device))
+        x, z, y, r_prim, r_dual, prim_tol, dual_tol, Px = cand
+        converged = (r_prim < prim_tol) & (r_dual < dual_tol)
+        objective = 0.5 * (x * Px).sum(dim=-1) + (qo * x).sum(dim=-1)
+        return QPSolution(
+            x.reshape(batch + (n,)), y.reshape(batch + (m,)),
+            z.reshape(batch + (m,)), r_prim.reshape(batch),
+            r_dual.reshape(batch), converged.reshape(batch),
+            objective.reshape(batch), rho_scale=s.reshape(batch + (1,)),
+            refined=torch.full((), bool(refine), dtype=torch.bool, device=device))
 
 
 def solve_qp_shared(

@@ -38,26 +38,22 @@ penalty ladder is host arithmetic (it does not depend on the data), and no
 
 from __future__ import annotations
 
-import contextlib
-from typing import Callable, ContextManager, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as tnf
 
 from blf_tpu_torch.mpc.riccati import parallel_value_general
 from blf_tpu_torch.ops.precision import f32_matmuls
+from blf_tpu_torch.utils.profiling import trace
 
 __all__ = ["SQPConfig", "SQPSolution", "solve_trajopt", "PARTS"]
 
-#: the parts of a Gauss-Newton iteration that ``part_timer`` is wrapped around:
-#: the derivative pass, the backward pass (values and gains), the forward
-#: pass of every step size, and the merits (candidates, selection, AL update)
+#: the parts of a Gauss-Newton iteration, each a span ``sqp.<part>``
+#: (:func:`blf_tpu_torch.utils.profiling.trace`): the derivative pass, the
+#: backward pass (values and gains), the forward pass of every step size, and
+#: the merits (candidates, selection, AL update)
 PARTS = ("derivatives", "backward", "forward", "merit")
-
-#: ``part_timer(name)`` returns the context manager wrapped around each part
-#: (``PARTS``). The default does nothing; a caller that wants the split
-#: (``chip_smoke.py`` records CUDA events) sets its own.
-part_timer: Callable[[str], ContextManager] = lambda name: contextlib.nullcontext()
 
 
 class SQPConfig(NamedTuple):
@@ -283,16 +279,16 @@ def solve_trajopt(
         # Levenberg term scaled with the AL penalty (the reference's reasons:
         # the active-constraint block of Quu grows with rho)
         reg = config.regularization * max(1.0, rho)
-        with part_timer("merit"):
+        with trace("sqp.merit"):
             m_prev = merit(xs, us, mu, muT, rho)[0]
         for it in range(config.iterations):
-            with part_timer("derivatives"):
+            with trace("sqp.derivatives"):
                 Lh, Zh, Vh = derivatives(xs, us, mu, muT, rho, reg)
-            with part_timer("backward"):
+            with trace("sqp.backward"):
                 gains = backward(Lh, Zh, Vh)
-            with part_timer("forward"):
+            with trace("sqp.forward"):
                 xs_cand, us_cand = forward(xs, us, gains)
-            with part_timer("merit"):
+            with trace("sqp.merit"):
                 m_cand = merit(xs_cand, us_cand, mu[:, None], muT, rho)[0]
                 m_cand = torch.where(torch.isfinite(m_cand), m_cand,
                                      torch.full_like(m_cand, float("inf")))
@@ -308,7 +304,7 @@ def solve_trajopt(
                     decrease = m_prev - m_new
                     gain = gains[..., 0].abs().amax((0, -1))
                 m_prev = m_new
-        with part_timer("merit"):
+        with trace("sqp.merit"):
             if ng:
                 mu = torch.clamp(mu + rho * ineq(xs[:-1], us, k_traj), min=0.0)
             if ngT:

@@ -32,9 +32,8 @@ through K4 (``spd_solve_lane``), whatever the backends say.
 
 from __future__ import annotations
 
-import contextlib
 import functools
-from typing import Callable, ContextManager, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,18 +55,15 @@ from blf_tpu_torch.ops.integrators import (integrate, integrate_rosenbrock,
                                            rosenbrock_operator)
 from blf_tpu_torch.ops.lie import so3_baumgarte_rate, so3_log
 from blf_tpu_torch.ops.precision import f32_matmuls
+from blf_tpu_torch.utils.profiling import trace
 from blf_tpu_torch.utils.status import SolverStatus, nan_quarantine
 
 __all__ = ["StackConfig", "StackState", "StackTrace", "init_stack",
            "make_stack_step", "make_fleet_stack_step", "PARTS"]
 
-#: the parts of an outer tick that ``part_timer`` is wrapped around
+#: the parts of an outer tick, each a span ``stack.<part>``
+#: (:func:`blf_tpu_torch.utils.profiling.trace`)
 PARTS = ("mpc", "operator", "wbc_build", "wbc_solve", "plant", "estimate")
-
-#: ``part_timer(name)`` returns the context manager wrapped around each part
-#: of a tick (``PARTS``). The default does nothing; a caller that wants the
-#: split (``chip_smoke.py`` records CUDA events) sets its own.
-part_timer: Callable[[str], ContextManager] = lambda name: contextlib.nullcontext()
 
 
 class StackConfig(NamedTuple):
@@ -305,7 +301,7 @@ def _make_step(tree, wbc_params, lipm, config, null_poses, *, ground, push_frame
                  if config.compensate_push
                  else torch.zeros((B, 6), **new))[:, None, :]      # (B, 1, 6)
 
-        with part_timer("mpc"):
+        with trace("stack.mpc"):
             plan = solve_dcm_mpc(
                 lipm, config.mpc_dt, dcm0, com0[:, :2], dcm_ref, zmp_ref,
                 poly_A, poly_b, iterations=config.mpc_iterations,
@@ -317,7 +313,7 @@ def _make_step(tree, wbc_params, lipm, config, null_poses, *, ground, push_frame
         posture_ref = q0 if q_ref is None else torch.as_tensor(q_ref, **new)
         push_wrench = torch.cat([true_push_xy, torch.zeros((B, 4), **new)], dim=-1)
 
-        with part_timer("operator"):
+        with trace("stack.operator"):
             minv_tick = None
             if config.plant_lagged_minv:
                 # per-tick plant M^-1 on K3; fdyn refines it against the
@@ -355,7 +351,7 @@ def _make_step(tree, wbc_params, lipm, config, null_poses, *, ground, push_frame
                                 stack.warm_wbc_s, stack.dcm_int)
         z_cmds, wbc_conv, wbc_rps, wbc_rds = [], [], [], []
         for k in range(config.wbc_per_mpc):
-            with part_timer("wbc_build"):
+            with trace("stack.wbc_build"):
                 com, com_vel, dcm = _com_state(tree, lipm, plant)
                 frac = (k + 1.0) / config.wbc_per_mpc
                 dcm_ref_now = plan.dcm[:, 0] + frac * (plan.dcm[:, 1] - plan.dcm[:, 0])
@@ -377,7 +373,7 @@ def _make_step(tree, wbc_params, lipm, config, null_poses, *, ground, push_frame
                     ext_wrench=ext_w,
                 )
                 qp = build_wholebody_qp(tree, wbc_params, plant, task, (push_frame,))
-            with part_timer("wbc_solve"):
+            with trace("stack.wbc_solve"):
                 sol = solve_qp(*qp, iterations=config.wbc_iterations,
                                x0=x_w, y0=y_w, s0=s_w,
                                check_every=config.wbc_check_every,
@@ -386,7 +382,7 @@ def _make_step(tree, wbc_params, lipm, config, null_poses, *, ground, push_frame
                                eps_abs=eps, eps_rel=eps, backend=config.wbc_backend)
             torques = sol.x[:, nv + 6 * C:]
 
-            with part_timer("plant"):
+            with trace("stack.plant"):
                 if config.plant_method == "rosenbrock":
                     plant_next = integrate_rosenbrock(
                         f_lane, plant, dt=physics_dt, num_steps=config.physics_per_wbc,
@@ -396,7 +392,7 @@ def _make_step(tree, wbc_params, lipm, config, null_poses, *, ground, push_frame
                         f_lane, plant, dt=physics_dt, num_steps=config.physics_per_wbc,
                         u=torques, method="rk4")
 
-            with part_timer("estimate"):
+            with trace("stack.estimate"):
                 # the soles' F/T readings are known generalized force: only
                 # the remainder of the residual is attributed to the push frame
                 obs, residual = momentum_observer_step(
@@ -456,12 +452,11 @@ def _make_step(tree, wbc_params, lipm, config, null_poses, *, ground, push_frame
             dcm_int=torch.zeros_like(stack.dcm_int))
         new_stack = nan_quarantine(new_stack, status, reset)
 
-        trace = StackTrace(
+        return new_stack, StackTrace(
             dcm=dcm0, com=com0, zmp_cmd=z_cmds[-1], push_estimate=stack.push_theta,
             mpc_converged=plan.qp.converged, wbc_converged=wbc_all_conv,
             wbc_max_rp=wbc_rps.amax(dim=0), wbc_max_rd=wbc_rds.amax(dim=0),
             status=status)
-        return new_stack, trace
 
     return step
 

@@ -33,9 +33,19 @@ from blf_tpu_torch.parallel.collectives import (FleetStats, pmax_tree, psum_tree
                                                 reduce_fleet_stats)
 from blf_tpu_torch.parallel.mesh import axis_size
 from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
+from blf_tpu_torch.utils.profiling import trace
 from blf_tpu_torch.utils.status import SolverStatus, classify_qp, nan_quarantine
 
-__all__ = ["FleetState", "TickResult", "make_fleet_step", "init_fleet"]
+__all__ = ["FleetState", "TickResult", "make_fleet_step", "init_fleet", "SPANS"]
+
+#: the spans of a tick (:func:`blf_tpu_torch.utils.profiling.trace`):
+#: ``fleet.tick`` (the root) around the whole tick, the transcription, the
+#: factorization and the solve inside it (``mpc/dcm.py`` and ``mpc/qp.py``
+#: name theirs), then the per-member statistics and margins, the consensus
+#: and the LIPM advance, the RLS update, and the status with the reset and
+#: the NaN quarantine; ``sync.h2d`` around each copy from the host that
+#: waits for the device
+SPANS = ("fleet.tick", "fleet.stats", "fleet.advance", "fleet.rls", "fleet.status", "sync.h2d")
 
 
 class FleetState(NamedTuple):
@@ -127,130 +137,141 @@ def make_fleet_step(
 
     @torch.no_grad()
     def step(state: FleetState, disturbance, dcm_ref, zmp_ref, poly_A, poly_b):
-        B = state.dcm.shape[0]
-        if disturbance.dim() != 3 or disturbance.shape[0] != B or disturbance.shape[2] != 2:
-            raise ValueError(
-                f"the fleet tick takes disturbance of shape (B, K_local, 2) with B = {B},"
-                f" got {tuple(disturbance.shape)}")
-        if state.dcm.device.type != device.type:
-            raise ValueError(
-                f"fleet state lies on {state.dcm.device}, the step was built"
-                f" for {device}")
-        K_local = disturbance.shape[1]
-        K = K_local * model_size                    # the whole ensemble
-        # the K_local members of a scenario ride the lane axis of one solve,
-        # member index minor: lane b * K_local + k
-        lanes = lambda t: t if K_local == 1 else t.repeat_interleave(K_local, 0)
-        members = lambda t: t.reshape((B, K_local) + t.shape[1:])
+        with trace("fleet.tick"):
+            B = state.dcm.shape[0]
+            if disturbance.dim() != 3 or disturbance.shape[0] != B or disturbance.shape[2] != 2:
+                raise ValueError(
+                    f"the fleet tick takes disturbance of shape (B, K_local, 2) with B = {B},"
+                    f" got {tuple(disturbance.shape)}")
+            if state.dcm.device.type != device.type:
+                raise ValueError(
+                    f"fleet state lies on {state.dcm.device}, the step was built"
+                    f" for {device}")
+            K_local = disturbance.shape[1]
+            K = K_local * model_size                    # the whole ensemble
+            # the K_local members of a scenario ride the lane axis of one solve,
+            # member index minor: lane b * K_local + k
+            lanes = lambda t: t if K_local == 1 else t.repeat_interleave(K_local, 0)
+            members = lambda t: t.reshape((B, K_local) + t.shape[1:])
 
-        def ensemble_mean(tree, axis):
-            """The mean over all K members, held on ``axis`` of each tensor: the
-            local sum, summed over the model group, divided once (the same on
-            every rank of the group)."""
-            return tuple(t / K for t in over_model(psum_tree, tuple(t.sum(axis) for t in tree)))
+            def ensemble_mean(tree, axis):
+                """The mean over all K members, held on ``axis`` of each tensor: the
+                local sum, summed over the model group, divided once (the same on
+                every rank of the group)."""
+                return tuple(t / K for t in over_model(psum_tree,
+                                                       tuple(t.sum(axis) for t in tree)))
 
-        def ensemble_max(tree, axis):
-            return over_model(pmax_tree, tuple(t.amax(axis) for t in tree))
+            def ensemble_max(tree, axis):
+                return over_model(pmax_tree, tuple(t.amax(axis) for t in tree))
 
-        # the carry's dtype is authoritative: cast every closed-over
-        # parameter before mixing, or f64 params would promote an f32 fleet
-        dtype = state.dcm.dtype
-        p = LIPMParams(*(t.to(dtype) for t in params))
-        omega_dt = lipm_omega(p) * torch.as_tensor(dt, dtype=dtype, device=device)
-        a = torch.exp(omega_dt)
+            # the carry's dtype is authoritative: cast every closed-over
+            # parameter before mixing, or f64 params would promote an f32 fleet
+            dtype = state.dcm.dtype
+            p = LIPMParams(*(t.to(dtype) for t in params))
+            with trace("sync.h2d"):
+                dt_t = torch.as_tensor(dt, dtype=dtype, device=device)
+            omega_dt = lipm_omega(p) * dt_t
+            a = torch.exp(omega_dt)
 
-        # ensemble-perturbed initial DCM: each member solves its own draw
-        dcm0 = (state.dcm[:, None] + disturbance + state.offset_theta[:, None]).reshape(
-            B * K_local, 2)
+            # ensemble-perturbed initial DCM: each member solves its own draw
+            dcm0 = (state.dcm[:, None] + disturbance + state.offset_theta[:, None]).reshape(
+                B * K_local, 2)
 
-        # fleet fast path: shared (P, A), batch rides on dcm0/warm starts
-        plans = solve_dcm_mpc(
-            p, dt, dcm0, lanes(state.com), dcm_ref, zmp_ref, poly_A, poly_b,
-            weights, iterations=iterations,
-            warm_start=lanes(state.warm_zmp), warm_start_dual=lanes(state.warm_y),
-            s0=lanes(state.warm_s), shared=True, **qp_kwargs,
-        )
+            # fleet fast path: shared (P, A), batch rides on dcm0/warm starts
+            plans = solve_dcm_mpc(
+                p, dt, dcm0, lanes(state.com), dcm_ref, zmp_ref, poly_A, poly_b,
+                weights, iterations=iterations,
+                warm_start=lanes(state.warm_zmp), warm_start_dual=lanes(state.warm_y),
+                s0=lanes(state.warm_s), shared=True, **qp_kwargs,
+            )
 
-        # collective QP reduce over the whole fleet: each member's statistics
-        # over the data axis, then the ensemble's (mean counts, worst residuals)
-        qp = plans.qp
-        # each member's lanes contiguous, as a fleet of K = 1 holds them: the
-        # same sums in the same order (identical draws give the K = 1 stats)
-        member = lambda t, k: members(t)[:, k].contiguous()
-        per_member = [reduce_fleet_stats(qp._replace(
-            converged=member(qp.converged, k),
-            primal_residual=member(qp.primal_residual, k),
-            dual_residual=member(qp.dual_residual, k),
-            objective=member(qp.objective, k)), data_group) for k in range(K_local)]
-        member_stats = FleetStats(*(torch.stack(f) for f in zip(*per_member)))   # (K_local,)
-        n, conv, obj = ensemble_mean((member_stats.num_scenarios, member_stats.num_converged,
-                                      member_stats.mean_objective), 0)
-        rp, rd = ensemble_max((member_stats.max_primal_residual,
-                               member_stats.max_dual_residual), 0)
-        stats = FleetStats(n, conv, rp, rd, obj)
+            # collective QP reduce over the whole fleet: each member's statistics
+            # over the data axis, then the ensemble's (mean counts, worst residuals)
+            with trace("fleet.stats"):
+                qp = plans.qp
+                # each member's lanes contiguous, as a fleet of K = 1 holds them: the
+                # same sums in the same order (identical draws give the K = 1 stats)
+                member = lambda t, k: members(t)[:, k].contiguous()
+                per_member = [reduce_fleet_stats(qp._replace(
+                    converged=member(qp.converged, k),
+                    primal_residual=member(qp.primal_residual, k),
+                    dual_residual=member(qp.dual_residual, k),
+                    objective=member(qp.objective, k)), data_group) for k in range(K_local)]
+                member_stats = FleetStats(*(torch.stack(f) for f in zip(*per_member)))
+                n, conv, obj = ensemble_mean((member_stats.num_scenarios,
+                                              member_stats.num_converged,
+                                              member_stats.mean_objective), 0)
+                rp, rd = ensemble_max((member_stats.max_primal_residual,
+                                       member_stats.max_dual_residual), 0)
+                stats = FleetStats(n, conv, rp, rd, obj)
 
-        # worst-case constraint margin across the ensemble and the fleet
-        margins = torch.einsum("kfa,...ka->...kf", poly_A, plans.zmp) - poly_b
-        worst = over_data(pmax_tree, over_model(pmax_tree, margins.max()))
+                # worst-case constraint margin across the ensemble and the fleet
+                margins = torch.einsum("kfa,...ka->...kf", poly_A, plans.zmp) - poly_b
+                worst = over_data(pmax_tree, over_model(pmax_tree, margins.max()))
 
-        # consensus plan: certainty-equivalent average over the ensemble, and
-        # the fleet's actual push realization
-        zmp_consensus, y_consensus, s_consensus, true_dist = ensemble_mean(
-            (members(plans.zmp), members(plans.qp.y), members(plans.qp.rho_scale),
-             disturbance), 1)
+            with trace("fleet.advance"):
+                # consensus plan: certainty-equivalent average over the ensemble,
+                # and the fleet's actual push realization
+                zmp_consensus, y_consensus, s_consensus, true_dist = ensemble_mean(
+                    (members(plans.zmp), members(plans.qp.y), members(plans.qp.rho_scale),
+                     disturbance), 1)
 
-        # advance the TRUE scenario state one knot under the consensus plan
-        # and the fleet's actual push realization
-        z0 = zmp_consensus[:, 0, :]
-        dcm_next = a * state.dcm + (1 - a) * z0 + true_dist
-        com_next = com_discrete_step(p, state.com, state.dcm, z0, dt)
+                # advance the TRUE scenario state one knot under the consensus plan
+                # and the fleet's actual push realization
+                z0 = zmp_consensus[:, 0, :]
+                dcm_next = a * state.dcm + (1 - a) * z0 + true_dist
+                com_next = com_discrete_step(p, state.com, state.dcm, z0, dt)
 
-        # RLS: identify the UNMODELED additive DCM disturbance, the observed
-        # transition residual minus the push the ensemble already anticipated
-        # (otherwise the planner would double-compensate a modeled push).
-        regressor = torch.eye(2, dtype=dtype, device=device).broadcast_to(
-            (z0.shape[0], 2, 2))
-        measurement = dcm_next - (a * state.dcm + (1 - a) * z0) - true_dist
-        rls_p = RLSParams(
-            lam=torch.as_tensor(rls_lambda, dtype=dtype, device=device),
-            measurement_covariance=meas_noise * torch.eye(
-                2, dtype=dtype, device=device),
-        )
-        est = rls_step(rls_p, RLSState(state.offset_theta, state.offset_cov),
-                       regressor, measurement)
+            # RLS: identify the UNMODELED additive DCM disturbance, the observed
+            # transition residual minus the push the ensemble already anticipated
+            # (otherwise the planner would double-compensate a modeled push).
+            with trace("fleet.rls"):
+                regressor = torch.eye(2, dtype=dtype, device=device).broadcast_to(
+                    (z0.shape[0], 2, 2))
+                measurement = dcm_next - (a * state.dcm + (1 - a) * z0) - true_dist
+                with trace("sync.h2d"):
+                    lam = torch.as_tensor(rls_lambda, dtype=dtype, device=device)
+                rls_p = RLSParams(
+                    lam=lam,
+                    measurement_covariance=meas_noise * torch.eye(
+                        2, dtype=dtype, device=device),
+                )
+                est = rls_step(rls_p, RLSState(state.offset_theta, state.offset_cov),
+                               regressor, measurement)
 
-        new_state = FleetState(
-            dcm=dcm_next,
-            com=com_next,
-            warm_zmp=zmp_consensus,
-            warm_y=y_consensus,
-            offset_theta=est.theta,
-            offset_cov=est.covariance,
-            warm_s=s_consensus,
-        )
+                new_state = FleetState(
+                    dcm=dcm_next,
+                    com=com_next,
+                    warm_zmp=zmp_consensus,
+                    warm_y=y_consensus,
+                    offset_theta=est.theta,
+                    offset_cov=est.covariance,
+                    warm_s=s_consensus,
+                )
 
-        # failure detection as data: per-lane status codes carried in the
-        # batch, and NaN quarantine: a lane whose solve went non-finite
-        # restarts from its last-good (pre-tick) scenario state with cleared
-        # warm starts and a fresh estimator prior, instead of poisoning every
-        # subsequent warm-started tick. The worst status across the ensemble
-        # (the codes are ordered by severity: any member failed, the scenario
-        # failed), so the status is the same on every rank of a model group,
-        # like the consensus state it guards.
-        status, = ensemble_max((members(classify_qp(plans.qp)),), 1)
-        reset = FleetState(
-            dcm=state.dcm,
-            com=state.com,
-            warm_zmp=torch.zeros_like(state.warm_zmp),
-            warm_y=torch.zeros_like(state.warm_y),
-            offset_theta=torch.zeros_like(state.offset_theta),
-            offset_cov=(10.0 * torch.eye(2, dtype=dtype, device=device)
-                        ).broadcast_to(state.offset_cov.shape),
-            warm_s=torch.ones_like(state.warm_s),
-        )
-        new_state = nan_quarantine(new_state, status, reset)
-        bad = status == int(SolverStatus.NUMERICAL_ERROR)
-        num_bad = over_data(psum_tree, bad.to(torch.float32).sum())
-        return new_state, TickResult(stats, worst, z0, status, num_bad)
+            # failure detection as data: per-lane status codes carried in the
+            # batch, and NaN quarantine: a lane whose solve went non-finite
+            # restarts from its last-good (pre-tick) scenario state with cleared
+            # warm starts and a fresh estimator prior, instead of poisoning every
+            # subsequent warm-started tick. The worst status across the ensemble
+            # (the codes are ordered by severity: any member failed, the scenario
+            # failed), so the status is the same on every rank of a model group,
+            # like the consensus state it guards.
+            with trace("fleet.status"):
+                status, = ensemble_max((members(classify_qp(plans.qp)),), 1)
+                reset = FleetState(
+                    dcm=state.dcm,
+                    com=state.com,
+                    warm_zmp=torch.zeros_like(state.warm_zmp),
+                    warm_y=torch.zeros_like(state.warm_y),
+                    offset_theta=torch.zeros_like(state.offset_theta),
+                    offset_cov=(10.0 * torch.eye(2, dtype=dtype, device=device)
+                                ).broadcast_to(state.offset_cov.shape),
+                    warm_s=torch.ones_like(state.warm_s),
+                )
+                new_state = nan_quarantine(new_state, status, reset)
+                bad = status == int(SolverStatus.NUMERICAL_ERROR)
+                num_bad = over_data(psum_tree, bad.to(torch.float32).sum())
+            return new_state, TickResult(stats, worst, z0, status, num_bad)
 
     return step

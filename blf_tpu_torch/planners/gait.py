@@ -36,9 +36,17 @@ from blf_tpu_torch.planners.contacts import (ContactList, ContactScheduleArrays,
 from blf_tpu_torch.planners.convex_hull import (halfspaces_from_polygon,
                                                 monotone_chain_2d)
 from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
+from blf_tpu_torch.utils.profiling import trace
 
 __all__ = ["footstep_plan", "support_polygons", "gait_references", "plan_gait",
-           "gait_horizon"]
+           "gait_horizon", "SPANS"]
+
+#: the spans of :func:`plan_gait` (:func:`blf_tpu_torch.utils.profiling.trace`):
+#: ``gait.plan`` (the root) around the whole plan, then the schedule, the
+#: hulls and the references, and the transcription, factorization, solve and
+#: rollout inside it (``mpc/dcm.py``'s and ``mpc/qp.py``'s spans);
+#: ``sync.h2d`` around each copy from the host that waits for the device
+SPANS = ("gait.plan", "gait.schedule", "gait.hulls", "gait.references", "sync.h2d")
 
 
 def footstep_plan(
@@ -126,8 +134,10 @@ def support_polygons(
     rot2 = np.transpose(schedule.rotation[:, :, :2, :2], (1, 0, 2, 3))
     pts = foot_xy[:, :, None, :] + np.einsum("teij,cj->teci", rot2, corners)  # (T, E, 4, 2)
     valid = np.repeat(np.transpose(schedule.active, (1, 0))[:, :, None], 4, axis=2)
-    pts = torch.as_tensor(pts.reshape(T, E * 4, 2), dtype=dtype, device=device)
-    valid = torch.as_tensor(valid.reshape(T, E * 4), device=device)
+    with trace("sync.h2d"):
+        pts = torch.as_tensor(pts.reshape(T, E * 4, 2), dtype=dtype, device=device)
+    with trace("sync.h2d"):
+        valid = torch.as_tensor(valid.reshape(T, E * 4), device=device)
 
     A, b = halfspaces_from_polygon(monotone_chain_2d(pts, valid))
     F = A.shape[1]
@@ -160,7 +170,8 @@ def gait_references(params: LIPMParams, schedule: ContactScheduleArrays, dt):
         if not any_active[k]:
             zmp_ref[k] = zmp_ref[k - 1]
     like = params.com_height
-    zmp_ref = torch.as_tensor(zmp_ref, dtype=like.dtype, device=like.device)
+    with trace("sync.h2d"):
+        zmp_ref = torch.as_tensor(zmp_ref, dtype=like.dtype, device=like.device)
     dcm_ref = dcm_backward_recursion(params, zmp_ref, zmp_ref[-1], dt)
     return zmp_ref, dcm_ref
 
@@ -187,13 +198,17 @@ def plan_gait(
     ``backend="cuda"`` solves a batch against one factorization on the
     kernels.
     """
-    T = horizon if horizon is not None else gait_horizon(lists, dt)
-    schedule = lower_contact_schedule(lists, dt=dt, horizon=T)
-    like = params.com_height
-    poly_A, poly_b = support_polygons(schedule, half_length, half_width,
-                                      device=like.device, dtype=like.dtype)
-    zmp_ref, dcm_ref = gait_references(params, schedule, dt)
-    as_work = lambda x: torch.as_tensor(x, dtype=like.dtype, device=like.device)
-    plan = solve_dcm_mpc(params, dt, as_work(dcm0), as_work(com0), dcm_ref, zmp_ref,
-                         poly_A, poly_b, weights, iterations=iterations, **qp_kwargs)
+    with trace("gait.plan"):
+        with trace("gait.schedule"):
+            T = horizon if horizon is not None else gait_horizon(lists, dt)
+            schedule = lower_contact_schedule(lists, dt=dt, horizon=T)
+        like = params.com_height
+        with trace("gait.hulls"):
+            poly_A, poly_b = support_polygons(schedule, half_length, half_width,
+                                              device=like.device, dtype=like.dtype)
+        with trace("gait.references"):
+            zmp_ref, dcm_ref = gait_references(params, schedule, dt)
+        as_work = lambda x: torch.as_tensor(x, dtype=like.dtype, device=like.device)
+        plan = solve_dcm_mpc(params, dt, as_work(dcm0), as_work(com0), dcm_ref, zmp_ref,
+                             poly_A, poly_b, weights, iterations=iterations, **qp_kwargs)
     return plan, schedule

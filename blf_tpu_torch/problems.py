@@ -25,8 +25,7 @@ and the port can be fed the same numbers.
 
 from __future__ import annotations
 
-import contextlib
-from typing import Callable, ContextManager, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,6 +48,7 @@ from blf_tpu_torch.ops.lie import so3_exp
 from blf_tpu_torch.planners.gait import footstep_plan
 from blf_tpu_torch.utils.device import resolve_device, resolve_dtype
 from blf_tpu_torch.utils.params import ParametersHandler
+from blf_tpu_torch.utils.profiling import trace
 
 __all__ = ["example_problem", "PushRecoveryProblem", "stationary_push_recovery",
            "StandingFleet", "WBCWarmStart", "standing_fleet", "balance_task",
@@ -478,13 +478,9 @@ class Identification(NamedTuple):
 #: example's 1 kHz measurements of a 10 kHz simulation
 IDENTIFY_STEPS_PER_SAMPLE = 10
 
-#: the parts of :func:`identify_contacts` that ``part_timer`` is wrapped around
+#: the parts of :func:`identify_contacts`, each a span ``identify.<part>``
+#: (:func:`blf_tpu_torch.utils.profiling.trace`)
 IDENTIFY_PARTS = ("rollout", "wrench", "rls_scan", "rls_fit", "rls_parallel")
-
-#: ``part_timer(name)`` returns the context manager wrapped around each part
-#: of :func:`identify_contacts` (``IDENTIFY_PARTS``). The default does
-#: nothing; a caller that wants the split replaces it.
-part_timer: Callable[[str], ContextManager] = lambda name: contextlib.nullcontext()
 
 
 def identify_contacts(problem: ContactIdentificationFleet, *,
@@ -497,7 +493,7 @@ def identify_contacts(problem: ContactIdentificationFleet, *,
     each lane's (k, b) with ``rls_scan``, ``rls_fit`` and ``rls_parallel``
     configured from the handler, one filter a lane."""
     cp, dtype, device = problem.cparams, problem.noise.dtype, problem.noise.device
-    with part_timer("rollout"):
+    with trace("identify.rollout"):
         state, record = problem.state, []
         for _ in range(problem.noise.shape[0]):
             state = foot_rollout(cp, problem.fparams, state, problem.null_position,
@@ -505,7 +501,7 @@ def identify_contacts(problem: ContactIdentificationFleet, *,
                                  IDENTIFY_STEPS_PER_SAMPLE, backend=backend)
             record.append(state)
         traj = FootState(*(torch.stack(field) for field in zip(*record)))   # (T, B, ...)
-    with part_timer("wrench"):
+    with trace("identify.wrench"):
         shape = traj.position.shape
         cstates = contact.ContactState(
             *traj, null_position=problem.null_position.expand(shape),
@@ -515,11 +511,11 @@ def identify_contacts(problem: ContactIdentificationFleet, *,
     params, rls0 = init_from_handler(problem.handler, device=device, dtype=dtype)
     lanes = regressors.shape[1]
     rls0 = RLSState(rls0.theta.expand(lanes, -1), rls0.covariance.expand(lanes, -1, -1))
-    with part_timer("rls_scan"):
+    with trace("identify.rls_scan"):
         scan = rls_scan(params, rls0, regressors, wrenches)
-    with part_timer("rls_fit"):
+    with trace("identify.rls_fit"):
         fit = rls_fit(params, rls0, regressors, wrenches)
-    with part_timer("rls_parallel"):
+    with trace("identify.rls_parallel"):
         par, _ = rls_parallel(params, rls0, regressors, wrenches)
     return Identification(scan=scan.theta, fit=fit.theta, parallel=par.theta,
                           true=torch.cat([cp.spring_coeff, cp.damper_coeff], dim=-1))

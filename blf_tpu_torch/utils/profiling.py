@@ -18,8 +18,12 @@ PyTorch's idiom and in Hopper's units where the reference has the TPU's:
   bytes its aten operations read and write (a ``TorchDispatchMode``).
 - :func:`roofline_seconds`, :func:`sol_score`, :func:`sol_report`: scoring a
   time against the roofline.
-- :func:`trace`: a named region in ``torch.profiler``'s trace (and an NVTX
-  range once CUDA is up).
+- :func:`trace`: the port's one span facility, opened at every layer
+  boundary of the program; off, it costs a few hundred nanoseconds. Under
+  ``torch.profiler`` a span is a ``record_function`` span (and an NVTX range
+  once CUDA is up), on the clock of the device's activity; inside
+  :func:`recording` it is also kept in memory with CUDA events at its ends
+  (:class:`Recording`: rows, and a summary by name with self times).
 
 ``python -m blf_tpu_torch.utils.profiling`` prints a speed-of-light table of
 the port's hot programs on the card (:func:`sol_rows`, :func:`main`).
@@ -35,7 +39,7 @@ import contextlib
 import dataclasses
 import subprocess
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -56,6 +60,9 @@ __all__ = [
     "sol_report",
     "sol_score",
     "trace",
+    "recording",
+    "Recording",
+    "SpanRow",
     "KernelCost",
     "admm_stage_cost",
     "admm_lane_cost",
@@ -494,14 +501,187 @@ def sol_report(
                      flops=cost["flops"], nbytes=cost["bytes"])
 
 
+# ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+
+
+class SpanRow(NamedTuple):
+    """One span kept by a :func:`recording`. Times are nanoseconds on the
+    host's ``time.perf_counter_ns`` clock; the device's are put on it through
+    the recording's anchor (None where the recording has no CUDA events)."""
+
+    id: int
+    parent: Optional[int]      # the id of the span it opened inside
+    unit: int                  # the sequence number of its root span
+    name: str
+    host_start_ns: int
+    host_end_ns: int
+    device_start_ns: Optional[float]
+    device_end_ns: Optional[float]
+
+
+class Recording:
+    """The spans opened while a :func:`recording` is open, kept as they open
+    and close (CUDA events unread) and resolved only by :meth:`rows` or
+    :meth:`summary`, after the work. Their nesting is one thread's: spans
+    that other threads open meanwhile would interleave with it."""
+
+    def __init__(self, cuda: bool):
+        self.cuda = cuda
+        self._spans: List[list] = []   # [name, parent, unit, host0, host1, event0, event1]
+        self._open: List[int] = []
+        self._roots = 0
+        if cuda:
+            # the anchor: the device's clock is read against the host's at one point
+            torch.cuda.synchronize()
+            self._anchor = torch.cuda.Event(enable_timing=True)
+            self._anchor.record()
+            self._anchor_ns = time.perf_counter_ns()
+
+    def _event(self):
+        if not self.cuda:
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def _enter(self, name: str) -> int:
+        if self._open:
+            parent = self._open[-1]
+            unit = self._spans[parent][2]
+        else:
+            parent, unit = None, self._roots
+            self._roots += 1
+        i = len(self._spans)
+        self._spans.append([name, parent, unit, time.perf_counter_ns(), None, self._event(), None])
+        self._open.append(i)
+        return i
+
+    def _exit(self, i: int) -> None:
+        span = self._spans[i]
+        span[6] = self._event()
+        span[4] = time.perf_counter_ns()
+        self._open.remove(i)
+
+    def rows(self) -> List[SpanRow]:
+        """Every closed span, in the order they opened; waits for the device."""
+        if self.cuda:
+            torch.cuda.synchronize()
+        on_host = lambda e: self._anchor_ns + 1e6 * self._anchor.elapsed_time(e)
+        return [SpanRow(i, parent, unit, name, h0, h1,
+                        on_host(e0) if self.cuda else None, on_host(e1) if self.cuda else None)
+                for i, (name, parent, unit, h0, h1, e0, e1) in enumerate(self._spans)
+                if h1 is not None]
+
+    def summary(self) -> Dict[str, Dict[str, Any]]:
+        """Per span name: ``count``, ``host_ms`` and ``device_ms`` (summed
+        durations; ``device_ms`` None without CUDA events), and ``self_ms``:
+        the spans' duration less the part their child spans cover, on the
+        device's clock where the recording has it, else on the host's. The
+        self times of all names add up to the root spans' time."""
+        rows = self.rows()
+        dur = lambda r: ((r.device_end_ns - r.device_start_ns) if self.cuda
+                         else (r.host_end_ns - r.host_start_ns))
+        children = {r.id: 0.0 for r in rows}
+        for r in rows:
+            if r.parent in children:
+                children[r.parent] += dur(r)
+        out: Dict[str, Dict[str, Any]] = {}
+        for r in rows:
+            s = out.setdefault(r.name, {"count": 0, "host_ms": 0.0,
+                                        "device_ms": 0.0 if self.cuda else None,
+                                        "self_ms": 0.0})
+            s["count"] += 1
+            s["host_ms"] += 1e-6 * (r.host_end_ns - r.host_start_ns)
+            if self.cuda:
+                s["device_ms"] += 1e-6 * (r.device_end_ns - r.device_start_ns)
+            s["self_ms"] += 1e-6 * (dur(r) - children[r.id])
+        return out
+
+
+#: the open recording's log, or None
+_recording: Optional[Recording] = None
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
 @contextlib.contextmanager
+def recording():
+    """Keep the spans that :func:`trace` opens inside the block, without the
+    profiler: ``with recording() as log: ...``, then ``log.rows()`` or
+    ``log.summary()``. Each span is marked by ``time.perf_counter_ns`` at both
+    ends and, once CUDA is initialized, by a CUDA event on the current stream
+    at both ends. One recording at a time."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("a recording is already open")
+    log = Recording(torch.cuda.is_initialized())
+    _recording = log
+    try:
+        yield log
+    finally:
+        _recording = None
+
+
+class _Off:
+    """The span :func:`trace` returns while nothing records: it does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """A span while the profiler or a recording is on."""
+
+    __slots__ = ("name", "_function", "_nvtx", "_log", "_row")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._function = None
+        if _profiler_enabled():
+            self._function = torch.profiler.record_function(self.name)
+            self._function.__enter__()
+        self._nvtx = torch.cuda.is_initialized()
+        if self._nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        self._log = _recording
+        self._row = self._log._enter(self.name) if self._log is not None else None
+        return self
+
+    def __exit__(self, *exc):
+        if self._log is not None:
+            self._log._exit(self._row)
+        if self._nvtx:
+            torch.cuda.nvtx.range_pop()
+        if self._function is not None:
+            self._function.__exit__(*exc)
+        return None
+
+
 def trace(name: str):
-    """A named region: a ``torch.profiler.record_function`` span in the
-    profiler's trace, and an NVTX range once CUDA is initialized. It only
-    names the region; where the work runs does not change."""
-    nvtx = torch.cuda.nvtx.range(name) if torch.cuda.is_initialized() else contextlib.nullcontext()
-    with torch.profiler.record_function(name), nvtx:
-        yield
+    """A span named ``name`` around a region: ``with trace("qp.stage"): ...``.
+
+    Off, that is with no ``torch.profiler`` active and no :func:`recording`
+    open, it returns one shared object that does nothing: no
+    ``record_function``, no NVTX range, no CUDA event. On, the span is a
+    ``torch.profiler.record_function`` span, which the profiler timestamps on
+    the clock of the device's activity, so every device operation and idle
+    gap can be assigned to the innermost span open on the host; an NVTX range
+    once CUDA is initialized; and inside a :func:`recording`, a row of its
+    log. Where the work runs does not change."""
+    if _recording is None and not _profiler_enabled():
+        return _OFF
+    return _Span(name)
 
 
 # ---------------------------------------------------------------------------

@@ -102,7 +102,6 @@ import blf_tpu_torch.mpc.dcm as dcm_module
 import blf_tpu_torch.mpc.qp as qp_module
 import blf_tpu_torch.mpc.sqp as sqp_module
 import blf_tpu_torch.mpc.stack as stack_module
-import blf_tpu_torch.problems as problems_module
 from blf_tpu_torch.models import rigid_body as rb
 from blf_tpu_torch.models.contact import ContactState, contact_wrench
 from blf_tpu_torch.models.foot import foot_rollout
@@ -2406,25 +2405,12 @@ def phase_wbc_cross() -> dict:
     return out
 
 
-class PartTimer:
-    """``part_timer`` of ``mpc/stack.py`` or ``problems.py``: CUDA events
-    around each part of a tick (``parts``)."""
-
-    def __init__(self, parts=stack_module.PARTS):
-        self.events = {part: [] for part in parts}
-
-    @contextlib.contextmanager
-    def __call__(self, name):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        end.record()
-        self.events[name].append((start, end))
-
-    def ms(self) -> dict:
-        return {part: sum(a.elapsed_time(b) for a, b in pairs)
-                for part, pairs in self.events.items()}
+def part_ms(log: profiling.Recording, prefix: str, parts) -> dict:
+    """Device milliseconds of each span ``<prefix>.<part>`` of a recording
+    (``profiling.recording``: CUDA events at both ends), summed over its calls."""
+    summary = log.summary()
+    return {part: summary.get(f"{prefix}.{part}", {"device_ms": 0.0})["device_ms"]
+            for part in parts}
 
 
 def stack_tick_record(trace) -> dict:
@@ -2444,14 +2430,13 @@ def phase_stack(profile: bool) -> dict:
     problem = push_recovery_stack(STACK_LANES, seed=SEED, device=DEVICE, dtype=torch.float32)
     step = stack_fleet_step(problem)
     state, records, tick_ms = problem.state, [], []
-    timer = PartTimer()
     counted = (admm_kernel, lane_kernel, chol_kernel)
     for module in counted:                # counts of this path start here
         module.reset_counts()
     for _ in range(STACK_WARM_TICKS):
         state, trace = step(state, problem.pushes, *problem.refs)
         records.append(stack_tick_record(trace))
-    with mock.patch.object(stack_module, "part_timer", timer):
+    with profiling.recording() as log:
         for _ in range(STACK_TIMED_TICKS):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -2477,7 +2462,8 @@ def phase_stack(profile: bool) -> dict:
                 "cholesky_inverse_lane_n64": STACK_INNER * n_ticks,
                 "cholesky_inverse_lane_n29": n_ticks,
                 "cholesky_solve_lane": STACK_INNER * n_ticks}
-    split = {part: ms / STACK_TIMED_TICKS for part, ms in timer.ms().items()}
+    split = {part: ms / STACK_TIMED_TICKS
+             for part, ms in part_ms(log, "stack", stack_module.PARTS).items()}
 
     lanes = STACK_LANES
     statuses = torch.stack([r["status"] for r in records]).cpu()         # (ticks, lanes)
@@ -2734,17 +2720,16 @@ def phase_identify() -> dict:
     run(problem)                                   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    timer = PartTimer(IDENTIFY_PARTS)
     rollout_kernel.reset_counts()                  # counts of this path start here
     t0 = time.perf_counter()
-    with mock.patch.object(problems_module, "part_timer", timer):
+    with profiling.recording() as log:
         result = run(problem)
     torch.cuda.synchronize()
     total_ms = 1e3 * (time.perf_counter() - t0)
     launches = rollout_kernel.launch_count()       # read just after the path
     plain_runs = rollout_kernel.reference_count()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    split = timer.ms()
+    split = part_ms(log, "identify", IDENTIFY_PARTS)
 
     accuracy = {form: relative_errors(getattr(result, form), result.true)
                 for form in ("scan", "fit", "parallel")}
@@ -3120,14 +3105,14 @@ def phase_dcm_planner() -> dict:
     checks = plan_checks(plan, fleet)
     lap("timed")
 
-    timer = PartTimer(sqp_module.PARTS)
-    with mock.patch.object(sqp_module, "part_timer", timer):
+    with profiling.recording() as log:
         begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         begin.record()
         run()
         end.record()
         torch.cuda.synchronize()
-    split = {"plan_ms": begin.elapsed_time(end), "parts_ms": timer.ms()}
+    split = {"plan_ms": begin.elapsed_time(end),
+             "parts_ms": part_ms(log, "sqp", sqp_module.PARTS)}
     lap("split")
     profiled = profile_plan(run)
     lap("profile")
