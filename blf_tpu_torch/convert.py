@@ -76,10 +76,10 @@ def factors_from_numpy(factors, *, device=None,
                        dtype: Optional[torch.dtype] = None) -> SharedQPFactors:
     """Build :class:`SharedQPFactors` from a mapping or an object with the
     same field names holding array-likes. A missing ``G2`` is recomputed as
-    ``A_s @ W``."""
+    ``A_s @ W``. ``key`` stays None: such factors are never taken for reuse."""
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
-    vals = _fields(factors, SharedQPFactors._fields)
+    vals = _fields(factors, [f for f in SharedQPFactors._fields if f != "key"])
     out = {}
     for name, val in vals.items():
         if val is None:

@@ -25,8 +25,8 @@ import torch
 
 from blf_tpu_torch.models.lipm import (LIPMParams, com_trajectory_from_dcm,
                                        lipm_omega)
-from blf_tpu_torch.mpc.qp import (QPSolution, factor_shared_qp, solve_qp,
-                                  solve_qp_factored)
+from blf_tpu_torch.mpc.qp import (QPSolution, SharedQPFactors, factor_shared_qp,
+                                  solve_qp, solve_qp_factored)
 from blf_tpu_torch.utils.profiling import trace
 
 __all__ = ["DCMWeights", "DCMPlan", "build_dcm_qp", "solve_dcm_mpc", "SPANS"]
@@ -60,6 +60,7 @@ class DCMPlan(NamedTuple):
     dcm: torch.Tensor        # (..., N+1, 2), xi_0 prepended
     com: torch.Tensor        # (..., N+1, 2)
     qp: QPSolution
+    factors: Optional[SharedQPFactors] = None  # the shared factorization (shared=True)
 
 
 def _zoh_gain(params: LIPMParams, dt, dtype, device) -> torch.Tensor:
@@ -166,6 +167,7 @@ def solve_dcm_mpc(
     warm_start: Optional[torch.Tensor] = None,
     warm_start_dual: Optional[torch.Tensor] = None,
     shared: bool = False,
+    reuse: Optional[SharedQPFactors] = None,
     **qp_kwargs,
 ) -> DCMPlan:
     """Build and solve the DCM-MPC; roll out DCM and CoM trajectories.
@@ -182,9 +184,12 @@ def solve_dcm_mpc(
     ``rho``, ``sigma``, ``rho_eq_scale``, ``scaling_iters`` to
     :func:`blf_tpu_torch.mpc.qp.factor_shared_qp`.
 
-    The factorization depends only on tick-invariant data but is recomputed
-    by every call, as the reference's code does (there the compiler hoists it
-    out of a scan over ticks; hoisting it here is named in ROADMAP.md).
+    The factorization depends only on tick-invariant data. The reference
+    recomputes it every call (its compiler hoists it out of a scan over
+    ticks). Here a caller passes the factors of its last call as ``reuse``
+    (``DCMPlan.factors``): they come back as they are where the operator and
+    settings are unchanged, after a check that reads one bool back, and are
+    made anew where not. Without ``reuse`` every call factors.
     """
     N = zmp_ref.shape[-2]
     with trace("dcm.transcribe"):
@@ -216,11 +221,12 @@ def solve_dcm_mpc(
             is_eq = torch.arange(A.shape[-2], device=A.device) < 2 * N
     if shared:
         factors = factor_shared_qp(
-            P, A, is_eq,
+            P, A, is_eq, reuse=reuse,
             **{k: qp_kwargs.pop(k) for k in _FACTOR_KEYS if k in qp_kwargs})
         sol = solve_qp_factored(factors, q, l, u, iterations=iterations,
                                 x0=x0, y0=warm_start_dual, **qp_kwargs)
     else:
+        factors = None
         sol = solve_qp(P, q, A, l, u, iterations=iterations, x0=x0,
                        y0=warm_start_dual, **qp_kwargs)
     with trace("dcm.rollout"):
@@ -240,4 +246,4 @@ def solve_dcm_mpc(
             [dcm0[..., None, :].broadcast_to(dcm_knots[..., :1, :].shape),
              dcm_knots], dim=-2)
         com_traj = com_trajectory_from_dcm(params, com0, dcm_traj, zmp, dt)
-    return DCMPlan(zmp=zmp, dcm=dcm_traj, com=com_traj, qp=sol)
+    return DCMPlan(zmp=zmp, dcm=dcm_traj, com=com_traj, qp=sol, factors=factors)

@@ -64,7 +64,7 @@ from blf_tpu_torch.ops.precision import f32_matmuls
 from blf_tpu_torch.parallel.collectives import pmax_tree, psum_tree
 from blf_tpu_torch.utils.profiling import trace
 
-__all__ = ["QPSolution", "SharedQPFactors", "factor_shared_qp",
+__all__ = ["QPSolution", "SharedQPFactors", "FactorKey", "factor_shared_qp",
            "solve_qp_factored", "solve_qp_shared", "shard_factors_rows",
            "solve_qp_factored_rowsharded", "solve_qp", "solve_qp_lanes", "BACKENDS",
            "SPANS"]
@@ -74,13 +74,16 @@ __all__ = ["QPSolution", "SharedQPFactors", "factor_shared_qp",
 #: ``W``, ``G2``, the casts), with ``sync.cholesky`` and ``sync.eigh`` around
 #: the two decompositions that wait for the device (the Cholesky reads its
 #: status, the float64 ``eigh`` its result) and ``sync.h2d`` around a copy
-#: from the host; in :func:`solve_qp_factored`, ``qp.prepare`` (the scaling
+#: from the host; handed factors to reuse, ``sync.factor_key`` around the one
+#: read-back of the check that they were made from the same inputs, and
+#: ``dcm.factor_reused`` (empty) where they were, in place of the rest; in
+#: :func:`solve_qp_factored`, ``qp.prepare`` (the scaling
 #: of q, l, u, the v-space warm start, ``q W``), then a ``qp.stage`` (the
 #: stage's iterations) and a ``qp.boundary`` (residuals, the penalty rule,
 #: v re-expressed) a stage, and ``qp.finish`` (the unscaled iterate, the
 #: polish when asked, the flags and objective)
-SPANS = ("dcm.factor", "sync.cholesky", "sync.eigh", "sync.h2d", "qp.prepare", "qp.stage",
-         "qp.boundary", "qp.finish")
+SPANS = ("dcm.factor", "sync.cholesky", "sync.eigh", "sync.h2d", "sync.factor_key",
+         "dcm.factor_reused", "qp.prepare", "qp.stage", "qp.boundary", "qp.finish")
 
 BACKENDS = ("torch", "cuda", "cuda_split", "cuda_delta")
 #: the stage kernel's matmul mode of each kernel backend of solve_qp_factored
@@ -127,6 +130,18 @@ class SharedQPFactors(NamedTuple):
     P_orig: torch.Tensor     # (n, n) unscaled, for diagnostics
     A_orig: torch.Tensor     # (m, n) unscaled
     G2: Optional[torch.Tensor] = None  # (m, n) A W: the iteration operator
+    key: Optional["FactorKey"] = None  # what they were made from, for reuse
+
+
+class FactorKey(NamedTuple):
+    """What :func:`factor_shared_qp` made a :class:`SharedQPFactors` from: a
+    copy of the bytes of ``P``, ``A`` and ``is_eq`` end to end, their dtypes
+    and shapes, and the four settings by name (``rho``, ``sigma``,
+    ``rho_eq_scale``, ``scaling_iters``)."""
+
+    data: torch.Tensor       # (k,) uint8, on the inputs' device
+    layout: tuple            # (dtype, shape) of P, A and is_eq
+    settings: dict
 
 
 @torch.no_grad()
@@ -140,15 +155,26 @@ def factor_shared_qp(
     sigma: float = 1e-6,
     rho_eq_scale: float = 30.0,
     scaling_iters: int = 10,
+    reuse: Optional[SharedQPFactors] = None,
 ) -> SharedQPFactors:
     """Ruiz-equilibrate and spectrally factor a shared (P, A) pair.
 
-    Depends only on ``(P, A, is_eq)``, not on ``q/l/u``, so a caller whose
-    transcription survives across control ticks can factor once and reuse
-    the result. ``rho_eq_scale`` defaults to 30: the spectral form applies
+    Depends only on ``(P, A, is_eq)`` and the four settings, not on
+    ``q/l/u``. ``rho_eq_scale`` defaults to 30: the spectral form applies
     ``K(s)^-1`` through an eigenbasis whose solve error grows with
     ``cond(K)``, and per-lane penalty adaptation recovers the equality
     enforcement a stiffer rho would give.
+
+    **Reuse.** Handed the factors of an earlier call as ``reuse``, it
+    returns that very object when it was made from the same inputs:
+    bitwise-equal ``P``, ``A`` and ``is_eq``, equal settings, the same dtype
+    and device. Otherwise it factors anew. The check is three device
+    operations and one bool read back (``sync.factor_key``), where the
+    factorization is hundreds of operations and three waits for the device. The
+    key holds a copy of the inputs' bytes, so an input edited in place after
+    the call is a miss, not a stale hit. A caller whose transcription
+    survives across control ticks passes the last tick's factors
+    (``make_fleet_step`` does).
 
     **Float32 inputs are factored in float64 and cast.** The reference
     factors in the working dtype (``blf_tpu/mpc/qp.py:652-720``). The port
@@ -164,15 +190,42 @@ def factor_shared_qp(
     """
     if P.dim() != 2 or A.dim() != 2:
         raise ValueError("factor_shared_qp requires unbatched P and A")
+    settings = dict(rho=rho, sigma=sigma, rho_eq_scale=rho_eq_scale,
+                    scaling_iters=scaling_iters)
     with trace("dcm.factor"):
+        is_eq = torch.as_tensor(is_eq, device=P.device)
+        if reuse is not None and _made_from(reuse, P, A, is_eq, settings):
+            with trace("dcm.factor_reused"):
+                return reuse
         if P.dtype == torch.float32:
-            wide = _factor_shared_qp(
-                P.double(), A.double(), is_eq, rho=rho, sigma=sigma,
-                rho_eq_scale=rho_eq_scale, scaling_iters=scaling_iters)
-            return SharedQPFactors(*(t.to(torch.float32) for t in wide))
-        return _factor_shared_qp(P, A, is_eq, rho=rho, sigma=sigma,
-                                 rho_eq_scale=rho_eq_scale,
-                                 scaling_iters=scaling_iters)
+            wide = _factor_shared_qp(P.double(), A.double(), is_eq, **settings)
+            f = SharedQPFactors(*(None if t is None else t.to(torch.float32) for t in wide))
+        else:
+            f = _factor_shared_qp(P, A, is_eq, **settings)
+        inputs = (P, A, is_eq)
+        return f._replace(key=FactorKey(_data(inputs), _layout(inputs), settings))
+
+
+def _data(inputs) -> torch.Tensor:
+    # bytes, not values: -0.0 is not 0.0 here, and a NaN equals itself
+    return torch.cat([t.contiguous().view(torch.uint8).view(-1) for t in inputs])
+
+
+def _layout(inputs) -> tuple:
+    return tuple((t.dtype, tuple(t.shape)) for t in inputs)
+
+
+def _made_from(f: SharedQPFactors, P, A, is_eq, settings) -> bool:
+    """Whether ``f`` was factored from exactly these inputs: the settings,
+    device, dtypes and shapes on the host, the bytes on the device, one bool
+    read back."""
+    inputs = (P, A, is_eq)
+    if (f.key is None or f.key.settings != settings or f.key.data.device != P.device
+            or f.key.layout != _layout(inputs)):
+        return False
+    data = _data(inputs)
+    with trace("sync.factor_key"):
+        return torch.equal(data, f.key.data)
 
 
 def _factor_shared_qp(P, A, is_eq, *, rho, sigma, rho_eq_scale,

@@ -118,6 +118,11 @@ def make_fleet_step(
     margin and the quarantine count come back the same on every rank, the
     state and the per-lane results as the rank's shard, identical across a
     model group. ``mesh=None``: one device, the whole ensemble local.
+
+    The step keeps the factorization of its last tick and hands it to the
+    next (``factor_shared_qp(reuse=...)``): a tick whose ``(P, A)`` and
+    settings are bitwise those of the last reuses it, any other factors anew.
+    Each step object (each rank's, on a mesh) keeps its own.
     """
     device = resolve_device(device)
     params = LIPMParams(*(torch.as_tensor(p).to(device) for p in params))
@@ -134,9 +139,11 @@ def make_fleet_step(
         model_size = axis_size(mesh, model_axis)
     over_model = lambda reduce, tree: tree if model_group is None else reduce(tree, model_group)
     over_data = lambda reduce, tree: tree if data_group is None else reduce(tree, data_group)
+    held = None        # the last tick's factors: reused while the operator is unchanged
 
     @torch.no_grad()
     def step(state: FleetState, disturbance, dcm_ref, zmp_ref, poly_A, poly_b):
+        nonlocal held
         with trace("fleet.tick"):
             B = state.dcm.shape[0]
             if disturbance.dim() != 3 or disturbance.shape[0] != B or disturbance.shape[2] != 2:
@@ -182,8 +189,9 @@ def make_fleet_step(
                 p, dt, dcm0, lanes(state.com), dcm_ref, zmp_ref, poly_A, poly_b,
                 weights, iterations=iterations,
                 warm_start=lanes(state.warm_zmp), warm_start_dual=lanes(state.warm_y),
-                s0=lanes(state.warm_s), shared=True, **qp_kwargs,
+                s0=lanes(state.warm_s), shared=True, reuse=held, **qp_kwargs,
             )
+            held = plans.factors
 
             # collective QP reduce over the whole fleet: each member's statistics
             # over the data axis, then the ensemble's (mean counts, worst residuals)

@@ -3639,13 +3639,14 @@ def study_factorization(problem, lanes: int = STUDY_LANES, ticks: int = 8) -> di
     """
     defaults = dict(rho=1.0, sigma=1e-6, rho_eq_scale=30.0, scaling_iters=10)
 
-    def forced_float32(P, A, is_eq, **kw):
-        # the factorization body in the working dtype, without the widening
+    def forced_float32(P, A, is_eq, reuse=None, **kw):
+        # the factorization body in the working dtype, without the widening;
+        # every tick factors (nothing is reused)
         return qp_module._factor_shared_qp(P, A, is_eq, **{**defaults, **kw})
 
-    def on_cpu(P, A, is_eq, **kw):
+    def on_cpu(P, A, is_eq, reuse=None, **kw):
         f = forced_float32(P.cpu(), A.cpu(), is_eq.cpu(), **kw)
-        return SharedQPFactors(*(t.to(DEVICE) for t in f))
+        return SharedQPFactors(*(None if t is None else t.to(DEVICE) for t in f))
 
     refs = (problem.dcm_ref, problem.zmp_ref, problem.poly_A, problem.poly_b)
     dist = problem.disturbance[:lanes].contiguous()

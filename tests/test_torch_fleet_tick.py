@@ -223,3 +223,35 @@ def test_carry_dtype_is_authoritative():
     st2, res = step(st, pr.disturbance, pr.dcm_ref, pr.zmp_ref, pr.poly_A, pr.poly_b)
     assert all(t.dtype == torch.float32 for t in st2)
     assert res.consensus_zmp0.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_reused_factors_change_no_output_of_the_tick(dtype):
+    """A step keeps its last tick's factorization and reuses it while the
+    operator is unchanged: four ticks of one step (backend="torch") against a
+    fresh step a tick, fed the same state, which factors every tick. Every
+    field of the state and of the result is bitwise equal, and the one step
+    reused its factors on every tick after the first."""
+    from blf_tpu_torch.utils import profiling
+
+    pr = stationary_push_recovery(16, H, seed=0, device="cpu", dtype=dtype)
+    pt = lipm_params_from_numpy(0.9, 9.81, device="cpu", dtype=dtype)
+    make = lambda: tsweep.make_fleet_step(pt, DT, device="cpu", iterations=50, backend="torch")
+    refs = (pr.dcm_ref, pr.zmp_ref, pr.poly_A, pr.poly_b)
+    step = make()
+    state = tsweep.init_fleet(16, H, pr.num_constraints, [0.01, -0.01], [0.01, -0.01],
+                              device="cpu", dtype=dtype)
+    flat = lambda s, r: (tuple(s) + tuple(r.stats)
+                         + (r.worst_margin, r.consensus_zmp0, r.status, r.num_quarantined))
+    names = (tsweep.FleetState._fields + tuple(f"stats.{n}" for n in tsweep.FleetStats._fields)
+             + tsweep.TickResult._fields[1:])
+    with profiling.recording() as log:
+        for tick in range(4):
+            fresh_state, fresh = make()(state, pr.disturbance, *refs)
+            state, result = step(state, pr.disturbance, *refs)
+            for name, a, b in zip(names, flat(state, result), flat(fresh_state, fresh),
+                                  strict=True):
+                assert a.dtype == b.dtype and torch.equal(a, b), (tick, name)
+    counts = log.summary()
+    assert counts["dcm.factor"]["count"] == 8 and counts["dcm.factor_reused"]["count"] == 3
+    assert counts["sync.eigh"]["count"] == 5

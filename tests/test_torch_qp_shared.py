@@ -50,6 +50,10 @@ def fleet_problem(B, np_dtype=NP_DTYPE, horizon=H, seed=0):
                  run_reference(build_dcm_qp, params, 0.1, dcm0, dr, zr, pA, pb))
 
 
+#: the fields of SharedQPFactors that the reference has too: all but the key
+TENSOR_FIELDS = tuple(name for name in tqp.SharedQPFactors._fields if name != "key")
+
+
 def to_t(a, dtype=None):
     return torch.as_tensor(np.array(a), dtype=dtype or T_DTYPE, device="cpu")
 
@@ -104,10 +108,11 @@ class TestFactorization:
 
     def test_factors_cross_the_boundary_field_by_field(self):
         c = Shared.get()
-        for name in tqp.SharedQPFactors._fields:
+        for name in TENSOR_FIELDS:
             np.testing.assert_array_equal(
                 getattr(c["ft"], name).numpy(),
                 np.asarray(getattr(c["fj"], name), NP_DTYPE), err_msg=name)
+        assert c["ft"].key is None          # made elsewhere: never taken for reuse
 
     def test_batched_operators_are_rejected(self):
         c = Shared.get()
@@ -284,9 +289,11 @@ class TestFloat32FactorizationIsMadeInFloat64:
                                    torch.as_tensor(is_eq))
         f64 = tqp.factor_shared_qp(to_t(P, torch.float64), to_t(A, torch.float64),
                                    torch.as_tensor(is_eq))
-        for name, a, b in zip(f32._fields, f32, f64):
+        for name in TENSOR_FIELDS:
+            a, b = getattr(f32, name), getattr(f64, name)
             assert a.dtype == torch.float32 and b.dtype == torch.float64, name
             assert torch.equal(a, b.to(torch.float32)), name
+        assert f32.key.settings == f64.key.settings
         assert torch.equal(f32.P_orig, to_t(P, torch.float32))     # inputs come back as given
 
     def test_the_cast_factors_reproduce_the_float64_kkt_inverse(self):
@@ -311,7 +318,158 @@ class TestFloat32FactorizationIsMadeInFloat64:
         P, A, is_eq = self.operands(horizon=H)
         f = tqp.factor_shared_qp(to_t(P, torch.float64), to_t(A, torch.float64),
                                  torch.as_tensor(is_eq))
-        assert all(t.dtype == torch.float64 for t in f)
+        assert all(getattr(f, name).dtype == torch.float64 for name in TENSOR_FIELDS)
         fj = run_reference(jqp.factor_shared_qp, jnp.asarray(P, jnp.float64),
                            jnp.asarray(A, jnp.float64), jnp.asarray(is_eq))
         np.testing.assert_allclose(f.d.numpy(), np.asarray(fj.d), rtol=1e-8, atol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# factor_shared_qp(reuse=...): the held factors come back only for the same inputs
+# ---------------------------------------------------------------------------
+
+SETTINGS = dict(rho=1.0, sigma=1e-6, rho_eq_scale=30.0, scaling_iters=10)
+
+
+def small_operator(dtype=torch.float64, seed=0):
+    """A random SPD ``P`` (8, 8), ``A`` (12, 8) with an exact zero at [0, 0],
+    the first four rows equalities."""
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(8, 8))
+    A = rng.normal(size=(12, 8))
+    A[0, 0] = 0.0
+    return (torch.as_tensor(L @ L.T + 0.5 * np.eye(8), dtype=dtype),
+            torch.as_tensor(A, dtype=dtype), torch.arange(12) < 4)
+
+
+def assert_same_factors(f, g):
+    for name in TENSOR_FIELDS:
+        assert torch.equal(getattr(f, name), getattr(g, name)), name
+    assert f.key.layout == g.key.layout and f.key.settings == g.key.settings
+    assert torch.equal(f.key.data, g.key.data)
+
+
+def next_up(t, index):
+    """``t`` with one entry moved to the next representable value."""
+    t = t.clone()
+    t[index] = torch.nextafter(t[index], torch.tensor(float("inf"), dtype=t.dtype))
+    return t
+
+
+def negative_zero(t, index):
+    t = t.clone()
+    t[index] = -0.0
+    return t
+
+
+#: an input or setting changed, as (P, A, is_eq, settings) -> the same
+MISSES = {
+    "P": lambda P, A, e, kw: (next_up(P, (2, 3)), A, e, kw),
+    "A": lambda P, A, e, kw: (P, next_up(A, (5, 1)), e, kw),
+    "A_negative_zero": lambda P, A, e, kw: (P, negative_zero(A, (0, 0)), e, kw),
+    "is_eq": lambda P, A, e, kw: (P, A, torch.arange(12) < 5, kw),
+    "rho": lambda P, A, e, kw: (P, A, e, {**kw, "rho": 2.0}),
+    "sigma": lambda P, A, e, kw: (P, A, e, {**kw, "sigma": 1e-5}),
+    "rho_eq_scale": lambda P, A, e, kw: (P, A, e, {**kw, "rho_eq_scale": 10.0}),
+    "scaling_iters": lambda P, A, e, kw: (P, A, e, {**kw, "scaling_iters": 5}),
+    "dtype": lambda P, A, e, kw: (P.float(), A.float(), e, kw),
+}
+
+
+class TestReuse:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                             ids=["float32", "float64"])
+    def test_equal_inputs_return_the_held_factors(self, dtype):
+        P, A, is_eq = small_operator(dtype)
+        f = tqp.factor_shared_qp(P, A, is_eq)
+        storage = lambda t: t.untyped_storage().data_ptr()
+        assert storage(f.key.data) not in {storage(P), storage(A), storage(is_eq)}
+        assert tqp.factor_shared_qp(P, A, is_eq, reuse=f) is f
+        assert tqp.factor_shared_qp(P.clone(), A.clone(), is_eq.clone(), reuse=f,
+                                    **SETTINGS) is f
+
+    @pytest.mark.parametrize("change", list(MISSES))
+    def test_another_input_or_setting_factors_anew(self, change):
+        P, A, is_eq = small_operator()
+        f = tqp.factor_shared_qp(P, A, is_eq, **SETTINGS)
+        P2, A2, is_eq2, kw = MISSES[change](P, A, is_eq, SETTINGS)
+        g = tqp.factor_shared_qp(P2, A2, is_eq2, reuse=f, **kw)
+        assert g is not f
+        assert_same_factors(g, tqp.factor_shared_qp(P2, A2, is_eq2, **kw))
+        assert tqp.factor_shared_qp(P2, A2, is_eq2, reuse=g, **kw) is g
+
+    @pytest.mark.parametrize("edited", ["P", "A", "is_eq"])
+    def test_an_input_edited_in_place_is_a_miss(self, edited):
+        """Float64 inputs: the key keeps a copy of their bytes, not the caller's tensors."""
+        inputs = dict(zip(("P", "A", "is_eq"), small_operator(torch.float64)))
+        f = tqp.factor_shared_qp(*inputs.values())
+        held = f.key.data.clone()
+        if edited == "is_eq":
+            inputs["is_eq"][6] = True
+        else:
+            inputs[edited].mul_(2.0)
+        g = tqp.factor_shared_qp(*inputs.values(), reuse=f)
+        assert g is not f
+        assert_same_factors(g, tqp.factor_shared_qp(*(t.clone() for t in inputs.values())))
+        assert torch.equal(f.key.data, held)
+
+
+def push_fleet(B=8):
+    from blf_tpu_torch.convert import lipm_params_from_numpy
+    from blf_tpu_torch.parallel import sweep
+    from blf_tpu_torch.problems import stationary_push_recovery
+
+    pr = stationary_push_recovery(B, H, seed=0, device="cpu", dtype=torch.float32)
+    params = lipm_params_from_numpy(0.9, 9.81, device="cpu", dtype=torch.float32)
+    make = lambda: sweep.make_fleet_step(params, 0.1, device="cpu", iterations=50,
+                                         backend="torch")
+    state = sweep.init_fleet(B, H, pr.num_constraints, [0.01, -0.01], [0.01, -0.01],
+                             device="cpu", dtype=torch.float32)
+    return pr, make, state
+
+
+def span_counts(log):
+    return {name: s["count"] for name, s in log.summary().items()}
+
+
+def test_a_step_fed_a_new_operator_factors_anew():
+    """The polygons change between ticks: the step's next tick is a miss, and
+    gives what a fresh step gives from the same state; the tick after it, on
+    the new polygons again, reuses the new factors."""
+    from blf_tpu_torch.utils import profiling
+
+    pr, make, state = push_fleet()
+    step = make()
+    state, _ = step(state, pr.disturbance, pr.dcm_ref, pr.zmp_ref, pr.poly_A, pr.poly_b)
+    wider = (pr.dcm_ref, pr.zmp_ref, 0.5 * pr.poly_A, pr.poly_b)
+    for reused in (False, True):
+        with profiling.recording() as log:
+            new_state, result = step(state, pr.disturbance, *wider)
+        counts = span_counts(log)
+        assert counts["sync.factor_key"] == 1
+        assert counts.get("dcm.factor_reused", 0) == int(reused)
+        assert counts.get("sync.eigh", 0) == int(not reused)
+        fresh_state, fresh = make()(state, pr.disturbance, *wider)
+        for a, b in zip(tuple(new_state) + tuple(result.stats) + result[1:],
+                        tuple(fresh_state) + tuple(fresh.stats) + fresh[1:]):
+            assert torch.equal(a, b)
+        state = new_state
+
+
+def test_a_reused_tick_opens_one_reuse_and_one_key_check():
+    from blf_tpu_torch.utils import profiling
+
+    pr, make, state = push_fleet()
+    step = make()
+    refs = (pr.dcm_ref, pr.zmp_ref, pr.poly_A, pr.poly_b)
+    with profiling.recording() as log:
+        state, _ = step(state, pr.disturbance, *refs)
+    first = span_counts(log)
+    assert first["sync.eigh"] == first["sync.cholesky"] == 1 and "sync.factor_key" not in first
+    with profiling.recording() as log:
+        step(state, pr.disturbance, *refs)
+    counts = span_counts(log)
+    assert counts["dcm.factor"] == counts["dcm.factor_reused"] == counts["sync.factor_key"] == 1
+    assert "sync.eigh" not in counts and "sync.cholesky" not in counts
+    syncs = lambda c: sum(v for k, v in c.items() if k.startswith("sync."))
+    assert syncs(first) - syncs(counts) == 2       # cholesky, eigh, sigma's copy; + the key

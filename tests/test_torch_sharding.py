@@ -193,8 +193,10 @@ def test_shard_factors_rows_cuts_the_row_members():
     port = factors_from_numpy(factors._asdict(), device="cpu", dtype=torch.float64)
     ref = jshard_factors_rows(jax.tree_util.tree_map(jnp.asarray, factors), 2, 4)
     cut = tqp.shard_factors_rows(port, 2, 4)
-    for name, value in cut._asdict().items():
-        np.testing.assert_array_equal(value.numpy(), np.asarray(getattr(ref, name)), name)
+    for name in ref._fields:             # all of the port's but the key (None here)
+        np.testing.assert_array_equal(getattr(cut, name).numpy(), np.asarray(getattr(ref, name)),
+                                      name)
+    assert set(cut._fields) - set(ref._fields) == {"key"} and cut.key is None
     with pytest.raises(ValueError, match="not divisible"):
         tqp.shard_factors_rows(port, 0, 5)
 

@@ -1,8 +1,9 @@
 """The port's spans (``blf_tpu_torch/utils/profiling.py::trace``) on the CPU.
 
-Under ``torch.profiler`` a fleet tick (B = 8, 2 stages) and a gait plan
-(B = 4, 2 stages) emit every span their paths run, nested as the modules'
-``SPANS`` document them; off, ``trace`` is one shared object that opens
+Under ``torch.profiler`` a fleet tick (B = 8, 2 stages; a step's first tick,
+which factors, and a later one, which reuses the factors after a check) and
+a gait plan (B = 4, 2 stages) emit every span their paths run, nested as the
+modules' ``SPANS`` document them; off, ``trace`` is one shared object that opens
 nothing; ``recording()`` keeps rows whose ids, units and host times nest and
 whose self times add up to the roots'; the stack, the SQP and the
 identification emit their part spans.
@@ -31,32 +32,47 @@ torch.set_num_threads(1)
 B, H, DT = 8, 8, 0.1
 QP = dict(iterations=50, check_every=25)          # two stages
 
-#: each span of the tick and the span it opens inside (None: the root)
-TICK_PARENTS = {"fleet.tick": None, "dcm.transcribe": "fleet.tick", "dcm.factor": "fleet.tick",
-                "sync.cholesky": "dcm.factor", "sync.eigh": "dcm.factor",
-                "qp.prepare": "fleet.tick", "qp.stage": "fleet.tick",
-                "qp.boundary": "fleet.tick", "qp.finish": "fleet.tick",
-                "dcm.rollout": "fleet.tick", "fleet.stats": "fleet.tick",
-                "fleet.advance": "fleet.tick", "fleet.rls": "fleet.tick",
-                "fleet.status": "fleet.tick"}
+#: each span of a step's first tick, which factors, and the span it opens
+#: inside (None: the root)
+FIRST_TICK_PARENTS = {"fleet.tick": None, "dcm.transcribe": "fleet.tick",
+                      "dcm.factor": "fleet.tick", "sync.cholesky": "dcm.factor",
+                      "sync.eigh": "dcm.factor", "qp.prepare": "fleet.tick",
+                      "qp.stage": "fleet.tick", "qp.boundary": "fleet.tick",
+                      "qp.finish": "fleet.tick", "dcm.rollout": "fleet.tick",
+                      "fleet.stats": "fleet.tick", "fleet.advance": "fleet.tick",
+                      "fleet.rls": "fleet.tick", "fleet.status": "fleet.tick"}
+#: a later tick on the same operator: the last tick's factors are reused after
+#: the check of what they were made from
+TICK_PARENTS = {**{k: v for k, v in FIRST_TICK_PARENTS.items()
+                   if k not in ("sync.cholesky", "sync.eigh")},
+                "sync.factor_key": "dcm.factor", "dcm.factor_reused": "dcm.factor"}
 GAIT_PARENTS = {"gait.plan": None, "gait.schedule": "gait.plan", "gait.hulls": "gait.plan",
                 "gait.references": "gait.plan",
-                **{k: ("gait.plan" if v == "fleet.tick" else v) for k, v in TICK_PARENTS.items()
-                   if not k.startswith("fleet.")}}
+                **{k: ("gait.plan" if v == "fleet.tick" else v)
+                   for k, v in FIRST_TICK_PARENTS.items() if not k.startswith("fleet.")}}
 #: where the copies from the host that wait for the device lie
-TICK_H2D = Counter({"fleet.tick": 1, "dcm.transcribe": 3, "dcm.factor": 1, "fleet.rls": 1})
+TICK_H2D = Counter({"fleet.tick": 1, "dcm.transcribe": 3, "fleet.rls": 1})
+FIRST_TICK_H2D = TICK_H2D + Counter({"dcm.factor": 1})
 GAIT_H2D = Counter({"gait.hulls": 2, "gait.references": 1, "dcm.transcribe": 2,
                     "dcm.factor": 1})
 SPAN_NAMES = set(tsweep.SPANS + tdcm.SPANS + tqp.SPANS + tgait.SPANS)
 
 
-def fleet_tick():
+def fleet_tick(first=False):
+    """A tick of one step, or with ``first`` the first tick of a new step each call."""
     pr = stationary_push_recovery(B, H, seed=0, device="cpu", dtype=torch.float32)
     params = lipm_params_from_numpy(0.9, 9.81, device="cpu", dtype=torch.float32)
-    step = tsweep.make_fleet_step(params, DT, device="cpu", **QP)
+    make = lambda: tsweep.make_fleet_step(params, DT, device="cpu", **QP)
+    step = make()
     state = tsweep.init_fleet(B, H, pr.num_constraints, [0.01, -0.01], [0.01, -0.01],
                               device="cpu", dtype=torch.float32)
-    return lambda: step(state, pr.disturbance, pr.dcm_ref, pr.zmp_ref, pr.poly_A, pr.poly_b)
+    tick = lambda step: step(state, pr.disturbance, pr.dcm_ref, pr.zmp_ref, pr.poly_A,
+                             pr.poly_b)
+    return (lambda: tick(make())) if first else (lambda: tick(step))
+
+
+def first_fleet_tick():
+    return fleet_tick(first=True)
 
 
 def gait_plan():
@@ -86,8 +102,9 @@ def parents(spans):
 
 
 @pytest.mark.parametrize("path, expected, h2d", [
-    (fleet_tick, TICK_PARENTS, TICK_H2D), (gait_plan, GAIT_PARENTS, GAIT_H2D)],
-    ids=["fleet_tick", "gait_plan"])
+    (fleet_tick, TICK_PARENTS, TICK_H2D), (gait_plan, GAIT_PARENTS, GAIT_H2D),
+    (first_fleet_tick, FIRST_TICK_PARENTS, FIRST_TICK_H2D)],
+    ids=["fleet_tick", "gait_plan", "fleet_tick_first"])
 def test_path_emits_its_spans_nested_under_the_profiler(path, expected, h2d):
     run = path()
     run()                                            # warm: first calls allocate
